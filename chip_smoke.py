@@ -5,11 +5,14 @@
 
 Builds the CUDA kernels (csrc/, nvcc for sm_90a) and the native host library
 (make -C native), compares every kernel of the main path with its plain
-PyTorch version at the reference CI shape, then drives the main path once
-through the public API — compress the (352, 416, 320) sinusoid at scale
-1e-2 with 32^3 blocks on the card, decompress it (host entropy decode +
-inverse on the card) — and checks the quality bars, the launch counts and
-the interop with the native C ABI.  It imports nothing of JAX.
+PyTorch version at the reference CI shape (the entropy decode kernels also
+on a noise container of the same shape, and against the native decoder),
+then drives the main path once through the public API — compress the
+(352, 416, 320) sinusoid at scale 1e-2 with 32^3 blocks on the card,
+decompress it with the device engine (entropy parse, emit and inverse on
+the card) — and checks the quality bars, the launch counts, the host
+engine's agreement and the interop with the native C ABI.  It imports
+nothing of JAX.
 
 Output: the card's name and power limit first, progress lines, then on
 the line before the last a JSON object with each kernel's launches, error
@@ -35,6 +38,9 @@ SCALE = 1e-2
 PERIODS = 10
 REF_RATIO = 1148.6  # the JAX package's record on this input
 TRANSFORM_TOL = 1e-5  # relative RMS, the reference's fast-vs-slow bar
+NOISE_SCALE = 1e-1  # N(0,1) at this scale: ~4:1, the decoder's heavy case
+DECODE_SPANS = ("cvx.plan", "cvx.plan_h2d", "cvx.decode_maps", "cvx.decode_chase",
+                "cvx.decode_emit", "cvx.overlay_raw", "cvx.fused_inverse")
 
 
 def check(cond, msg):
@@ -103,8 +109,8 @@ def main():
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     import cvxcompress_tpu_torch as cvt
     from cvxcompress_tpu_torch.ops import (
-        _kernels, codec, fused_inverse, pack, quant, rle_device, rle_host,
-        tokenize,
+        _kernels, codec, entropy_decode, fused_inverse, pack, quant, rle_device,
+        rle_host, tokenize,
     )
 
     check("jax" not in sys.modules, "the port imported no jax")
@@ -170,27 +176,110 @@ def main():
     del ck, dk, stk, stp
 
     data, _ = codec.compress(vt, SCALE)
-    hdr, blkoffs, _, pbase = cvt.container.unpack(data)
-    dec = rle_host.decode_payloads(data[pbase:], blkoffs, hdr.glob_mulfac,
-                                   codec.CELLS)
-    rows_h, invmap_h = codec.sparse_chunks(dec)
-    rows, invmap = torch.from_numpy(rows_h).to(dev), torch.from_numpy(invmap_h).to(dev)
-    vk = fused_inverse.fused_inverse(rows, invmap, SHAPE)
-    vp = fused_inverse.fused_inverse_plain(rows, invmap, SHAPE)
+    del vt
+
+    # the device entropy decoder: each kernel against its plain version on
+    # the CI container (the main path's shapes, timed for the report) and
+    # on a noise container (every token class, 1,024-subsegment chains)
+    def decode_stages(label, cont, iters, plain_iters):
+        hdr, blkoffs, _, pbase = cvt.container.unpack(cont)
+        p = entropy_decode.plan(cont)
+        check(p is not None, f"{label}: plan accepts the container")
+        b = entropy_decode.upload(p, dev)
+        nsub, cells, nnn = b["sub_block"].numel(), p["cells"], hdr.grid[3]
+        sf = p["scalefac"][0]
+        stream, reset, starts, sblk = (b["stream"], b["sub_reset"], b["starts"],
+                                       b["sub_block"])
+        chain = np.diff(np.append(p["starts"], nsub)).max()
+        print(f"  {label}: {len(cont)} B, {nsub} subsegments, "
+              f"{starts.numel()} chains (longest {chain}), "
+              f"{p['raw_ids'].size} raw blocks", flush=True)
+        Mk, Pk = entropy_decode.parse_maps(stream, nsub, cells)
+        Mp, Pp = entropy_decode.parse_maps_plain(stream, nsub, cells)
+        check(torch.equal(Mk, Mp) and torch.equal(Pk, Pp),
+              f"{label}: decode_maps M and P bit-equal to the plain version")
+        ek, ck = entropy_decode.chase(Pk, reset, starts, cells)
+        ep, cp = entropy_decode.chase_plain(Pk, reset, cells)
+        check(torch.equal(ek, ep) and torch.equal(ck, cp),
+              f"{label}: decode_chase e32 and c32 bit-equal to the plain "
+              "(Sklansky) version")
+        dk = entropy_decode.emit(stream, Mk, ek, ck, sblk, sf, nnn, cells)
+        dp = entropy_decode.emit_plain(stream, Mk, ek, ck, sblk, sf, nnn, cells)
+        check(torch.equal(dk.view(torch.int32), dp.view(torch.int32)),
+              f"{label}: decode_emit dense coefficients equal to the plain "
+              "version as uint32")
+        entropy_decode.overlay_raw(dk, b["raw_rows"], b["raw_ids"])
+        nat = rle_host.decode_payloads(cont[pbase:], blkoffs, hdr.glob_mulfac, cells)
+        check(np.array_equal(dk.cpu().numpy().view(np.uint32), nat.view(np.uint32)),
+              f"{label}: dense coefficients equal to native decode_payloads "
+              "as uint32")
+        errs = dict(
+            decode_maps=float(max((Mk - Mp).abs().max(), (Pk - Pp).abs().max())),
+            decode_chase=float(max((ek - ep).abs().max(), (ck - cp).abs().max())),
+            decode_emit=float((dk - torch.from_numpy(nat).to(dev)).abs().max()),
+        )
+        times = dict(
+            decode_maps=(
+                cuda_ms(lambda: entropy_decode.parse_maps(stream, nsub, cells), iters),
+                cuda_ms(lambda: entropy_decode.parse_maps_plain(stream, nsub, cells),
+                        plain_iters)),
+            decode_chase=(
+                cuda_ms(lambda: entropy_decode.chase(Pk, reset, starts, cells), iters),
+                cuda_ms(lambda: entropy_decode.chase_plain(Pk, reset, cells),
+                        plain_iters)),
+            decode_emit=(
+                cuda_ms(lambda: entropy_decode.emit(stream, Mk, ek, ck, sblk, sf,
+                                                    nnn, cells), iters),
+                cuda_ms(lambda: entropy_decode.emit_plain(stream, Mk, ek, ck, sblk,
+                                                          sf, nnn, cells),
+                        plain_iters)),
+        )
+        for k, (ms, pms) in times.items():
+            print(f"  {label}: {k} kernel {ms:.4f} ms, plain {pms:.3f} ms on {card}")
+        return dk, errs, times
+
+    dense, errs, times = decode_stages("CI container", data, 20, 3)
+    noise = np.random.default_rng(0).standard_normal(SHAPE, dtype=np.float32)
+    ndata, nratio = cvt.compress(noise, NOISE_SCALE, device="cuda")
+    del noise
+    print(f"  noise container: N(0,1) {SHAPE} at scale {NOISE_SCALE}, "
+          f"ratio {nratio:.2f}")
+    _, nerrs, ntimes = decode_stages("noise container", ndata, 5, 1)
+    del ndata
+    torch.cuda.empty_cache()
+    for k in ("decode_maps", "decode_chase", "decode_emit"):
+        report[k] = dict(max_abs_err=max(errs[k], nerrs[k]), ms=times[k][0],
+                         plain_ms=times[k][1], noise_ms=ntimes[k][0],
+                         noise_plain_ms=ntimes[k][1])
+
+    # fused_inverse: the dense mode the device engine feeds it (reported),
+    # and the chunk-sparse mode of the host engine
+    rows = dense.view(-1, fused_inverse.CHUNK)
+    vk = fused_inverse.fused_inverse(rows, None, SHAPE)
+    vp = fused_inverse.fused_inverse_plain(rows, None, SHAPE)
     torch.cuda.synchronize()
     e = rel_rms(vk, vp)
-    check(e < TRANSFORM_TOL, f"fused_inverse rel RMS {e:.3e} < 1e-5 "
-          f"({rows_h.shape[0]} of {invmap_h.size} chunks non-zero)")
+    check(e < TRANSFORM_TOL, f"fused_inverse (dense) rel RMS {e:.3e} < 1e-5")
     report["fused_inverse"] = dict(
         max_abs_err=float((vk - vp).abs().max()),
-        ms=cuda_ms(lambda: fused_inverse.fused_inverse(rows, invmap, SHAPE), 20),
+        ms=cuda_ms(lambda: fused_inverse.fused_inverse(rows, None, SHAPE), 20),
         plain_ms=cuda_ms(
-            lambda: fused_inverse.fused_inverse_plain(rows, invmap, SHAPE), 3),
+            lambda: fused_inverse.fused_inverse_plain(rows, None, SHAPE), 3),
     )
-    del vk, vp, vt
+    rows_h, invmap_h = codec.sparse_chunks(dense.cpu().numpy())
+    srows, sinv = torch.from_numpy(rows_h).to(dev), torch.from_numpy(invmap_h).to(dev)
+    vs = fused_inverse.fused_inverse(srows, sinv, SHAPE)
+    e = rel_rms(vs, vp)
+    check(e < TRANSFORM_TOL, f"fused_inverse (chunk-sparse, {rows_h.shape[0]} of "
+          f"{invmap_h.size} chunks) rel RMS {e:.3e} < 1e-5 of the dense plain")
+    print(f"  fused_inverse chunk-sparse kernel "
+          f"{cuda_ms(lambda: fused_inverse.fused_inverse(srows, sinv, SHAPE), 20):.3f}"
+          f" ms on {card}")
+    del vk, vp, vs, dense, rows, srows, sinv
 
     # -- phase 3: the main path through the public API --------------------
-    print("phase 3: main path, compress -> decompress on", name, flush=True)
+    print("phase 3: main path, compress -> decompress (engine auto = device) on",
+          name, flush=True)
     _kernels.reset_counts()
     data, ratio = cvt.compress(vol, SCALE, block=(32, 32, 32), device="cuda")
     out = cvt.decompress(data, device="cuda")
@@ -205,15 +294,19 @@ def main():
     check(err < 2e-4 and snr > 75.0, f"err {err:.4e} < 2e-4, SNR {snr:.2f} dB > 75")
     check(abs(ratio - REF_RATIO) / REF_RATIO < 0.01,
           f"ratio {ratio:.1f} within 1% of {REF_RATIO}")
+    out_host = cvt.decompress(data, device="cuda", engine="host")
+    e = rel_rms(out.cpu(), out_host.cpu())
+    check(e < TRANSFORM_TOL, f"engine device within rel RMS {e:.3e} of engine host")
     nat = rle_host.host_decompress(data)
     e = rel_rms(torch.from_numpy(nat), torch.from_numpy(out_h))
     check(e < TRANSFORM_TOL, f"port container decodes under native "
           f"cvx_decompress_outofplace within rel RMS {e:.3e}")
     dn, rn = rle_host.host_compress(vol, SCALE)
-    outn = cvt.decompress(dn, device="cuda").cpu().numpy()
-    e = rel_rms(torch.from_numpy(outn), torch.from_numpy(rle_host.host_decompress(dn)))
+    outn = cvt.decompress(dn, device="cuda", engine="device").cpu()
+    e = rel_rms(outn, torch.from_numpy(rle_host.host_decompress(dn)))
     check(e < TRANSFORM_TOL, f"native cvx_compress container (ratio {rn:.1f}) "
-          f"decodes in the port within rel RMS {e:.3e} of native")
+          f"decodes on the device engine within rel RMS {e:.3e} of native")
+    del out, out_host, outn
 
     def run_compress():
         cvt.compress(vol, SCALE, device="cuda")
@@ -223,25 +316,31 @@ def main():
     def run_compress_resident():  # a volume already on the card
         cvt.compress(vdev, SCALE)
 
-    def run_decompress():
-        cvt.decompress(data, device="cuda")
+    def run_decompress(engine="auto"):
+        cvt.decompress(data, device="cuda", engine=engine)
         torch.cuda.synchronize()
 
     run_compress()
     run_compress_resident()
+    run_decompress("host")
     c_med, c_all = wall_ms(run_compress, 5)
     r_med, r_all = wall_ms(run_compress_resident, 5)
     d_med, d_all = wall_ms(run_decompress, 5)
+    h_med, h_all = wall_ms(lambda: run_decompress("host"), 5)
     mcells = vol.size / 1e6
     print(f"  compress   median {c_med:.2f} ms ({mcells / c_med * 1e3:.0f} MC/s) "
           f"runs {[round(x, 2) for x in c_all]} on {card}")
     print(f"  compress (volume on the card) median {r_med:.2f} ms "
           f"({mcells / r_med * 1e3:.0f} MC/s) runs {[round(x, 2) for x in r_all]} "
           f"on {card}")
-    print(f"  decompress median {d_med:.2f} ms ({mcells / d_med * 1e3:.0f} MC/s) "
-          f"runs {[round(x, 2) for x in d_all]} on {card}")
+    print(f"  decompress (device engine) median {d_med:.2f} ms "
+          f"({mcells / d_med * 1e3:.0f} MC/s) runs {[round(x, 2) for x in d_all]} "
+          f"on {card}")
+    print(f"  decompress (host engine) median {h_med:.2f} ms "
+          f"({mcells / h_med * 1e3:.0f} MC/s) runs {[round(x, 2) for x in h_all]} "
+          f"on {card}")
     for k, r in report.items():
-        print(f"  {k}: kernel {r['ms']:.3f} ms, plain {r['plain_ms']:.3f} ms "
+        print(f"  {k}: kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.3f} ms "
               f"on {card}")
 
     # one profiled compress + decompress: host spans, kernel device time,
@@ -277,6 +376,11 @@ def main():
     print(f"  profiled window {window_us / 1e3:.2f} ms, device busy "
           f"{busy_us / 1e3:.3f} ms, idle share {idle:.4f} on {card}")
     print(f"  host spans (ms): {spans}")
+    check(all(s in spans for s in DECODE_SPANS),
+          f"the profiled decompress ran the device engine's spans {DECODE_SPANS}")
+    check("cvx.decode_host" not in spans and "cvx.sparse_chunks" not in spans,
+          "the profiled decompress did no per-cell host work (no cvx.decode_host, "
+          "no cvx.sparse_chunks)")
 
     meta = {
         "fused_encode": ("csrc/fused_encode.cu",
@@ -286,6 +390,13 @@ def main():
                          "cvxcompress_tpu/ops/pack_pallas.py:605"),
         "fused_inverse": ("csrc/fused_inverse.cu",
                           "cvxcompress_tpu/ops/fused_inverse.py:128", None),
+        "decode_maps": ("csrc/decode_maps.cu",
+                        "cvxcompress_tpu/ops/entropy_decode.py:336", None),
+        "decode_chase": ("csrc/decode_chase.cu",
+                         "cvxcompress_tpu/ops/entropy_decode.py:258", None),
+        "decode_emit": ("csrc/decode_emit.cu",
+                        "cvxcompress_tpu/ops/entropy_decode.py:733",
+                        "cvxcompress_tpu/ops/codec.py:856"),
     }
     kernels = []
     for k, r in report.items():
@@ -294,11 +405,14 @@ def main():
                "source": f"cvxcompress_tpu_torch/{src}", "replaces": rep,
                "launches": counts[k], "max_abs_err": r["max_abs_err"],
                "ms": r["ms"], "plain_ms": r["plain_ms"]}
+        if "noise_ms" in r:
+            row.update(noise_ms=r["noise_ms"], noise_plain_ms=r["noise_plain_ms"])
         if also:
             row["also_replaces"] = also
         kernels.append(row)
     print(json.dumps({"kernels": kernels, "compress_ms": c_med,
-                      "compress_resident_ms": r_med, "decompress_ms": d_med, "ratio": ratio, "err": err,
+                      "compress_resident_ms": r_med, "decompress_ms": d_med,
+                      "decompress_host_engine_ms": h_med, "ratio": ratio, "err": err,
                       "snr_db": snr, "card": card, "spans_ms": spans,
                       "device_idle_share": idle}))
     print(json.dumps({"ok": True, "device": {

@@ -4,11 +4,16 @@ The PyTorch counterpart of `cvxcompress_tpu/api.py` for the ported slice:
 32^3 blocks with the global RMS.  `device` is explicit: a torch volume
 brings its own, a numpy volume goes where the caller says ("cpu" runs the
 plain PyTorch versions of the kernels, "cuda" the CUDA kernels; "cuda"
-without a card raises).
+without a card raises).  `engine` picks the decompress engine
+(ops/codec.py `decompress`): "auto", "device" or "host".
 """
 
 from __future__ import annotations
 
+import numpy as np
+import torch
+
+from . import container as ctn
 from .ops import codec
 
 
@@ -18,9 +23,9 @@ def compress(vol, scale, block=(32, 32, 32), use_local_rms=False, device=None):
                           device=device)
 
 
-def decompress(data, device="cpu"):
+def decompress(data, device="cpu", engine="auto"):
     """Decompress a container -> (nz, ny, nx) float32 tensor on `device`."""
-    return codec.decompress(data, device=device)
+    return codec.decompress(data, device=device, engine=engine)
 
 
 class CvxCompress:
@@ -30,8 +35,26 @@ class CvxCompress:
     equivalent and are accepted and ignored.
     """
 
-    def __init__(self, device="cpu"):
+    @staticmethod
+    def Min_BX():
+        return ctn.MIN_B
+
+    @staticmethod
+    def Max_BX():
+        return ctn.MAX_B
+
+    Min_BY = Min_BX
+    Max_BY = Max_BX
+    Min_BZ = Min_BX
+    Max_BZ = Max_BX
+
+    @staticmethod
+    def Is_Valid_Block_Size(bx, by, bz):
+        return ctn.is_valid_block_size(bx, by, bz)
+
+    def __init__(self, device="cpu", engine="auto"):
         self.device = device
+        self.engine = engine
 
     def Compress(self, scale, vol, bx, by, bz, use_local_RMS=False, num_threads=None):
         """Returns (container, ratio)."""
@@ -42,4 +65,21 @@ class CvxCompress:
     def Decompress(self, compressed, num_threads=None):
         """Out-of-place decompress; returns the volume as a tensor."""
         del num_threads
-        return decompress(compressed, device=self.device)
+        return decompress(compressed, device=self.device, engine=self.engine)
+
+    def Decompress_Inplace(self, vol, compressed, num_threads=None):
+        """Decompress into the caller's (nz, ny, nx) tensor or array.
+
+        Mirrors cvx_decompress_inplace (CvxCompress.hxx:160-167); the shape
+        must match the container's header, else ValueError.
+        """
+        del num_threads
+        out = decompress(compressed, device=self.device, engine=self.engine)
+        if tuple(vol.shape) != tuple(out.shape):
+            raise ValueError(f"volume shape {tuple(vol.shape)} != container "
+                             f"{tuple(out.shape)}")
+        if isinstance(vol, torch.Tensor):
+            vol.copy_(out)
+        else:
+            np.copyto(vol, out.cpu().numpy())
+        return vol

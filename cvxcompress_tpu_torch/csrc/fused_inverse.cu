@@ -1,18 +1,21 @@
-// fused_inverse: chunk-sparse coefficients -> 32^3 inverse wavelet -> volume.
+// fused_inverse: block-major coefficients -> 32^3 inverse wavelet -> volume.
 //
 // Replaces the TPU kernel fused_inverse.stripe_fused_inverse
 // (cvxcompress_tpu/ops/fused_inverse.py:128), together with the XLA
-// sparse-to-plane expand in front of it (ops/codec.py:1040-1068).  Its
-// input is what the host decode uploads (codec.sparse_chunks): the non-zero
-// 128-cell chunks as rows (nrows, 128) and invmap (nnn*256,), each chunk's
-// row, where any index >= nrows stands for an all-zero chunk.
+// sparse-to-plane expand in front of it (ops/codec.py:1040-1068).  Two
+// input modes:
+// - dense (invmap == nullptr): rows is the whole block-major buffer
+//   (nnn*256, 128), as the device entropy decoder writes it;
+// - chunk-sparse: what the host decode uploads (codec.sparse_chunks), the
+//   non-zero 128-cell chunks as rows (nrows, 128) and invmap (nnn*256,),
+//   each chunk's row, where any index >= nrows stands for an all-zero chunk.
 //
 // One CTA per block: gather the block's 256 chunk rows into shared memory
 // (zeros for all-zero chunks), run the x, y and z inverse operators in f32,
 // and write the block into the (nz, ny, nx) volume, clipped at the edges.
 // What bounds it on an H100: the 3.1 M FMA per block from shared memory by
-// one resident CTA per SM, then the 128 KiB each block writes; the
-// coefficients read are only the non-zero chunks.
+// one resident CTA per SM, then the 128 KiB each block writes and, in the
+// dense mode, the 128 KiB each block reads.
 
 #include "common.cuh"
 
@@ -35,11 +38,17 @@ fused_inverse_kernel(const float* __restrict__ rows, int64_t nrows,
   const int x0 = ix * B, y0 = iy * B, z0 = iz * B;
 
   for (int i = threadIdx.x; i < B * B; i += blockDim.x) op[i] = op_g[i];
-  const int32_t* imap = invmap + blk * CHUNKS_PER_BLOCK;
-  for (int c = threadIdx.x; c < CELLS; c += blockDim.x) {
-    const uint32_t r = (uint32_t)imap[c / CHUNK];
-    s[sidx_flat(c)] =
-        (int64_t)r < nrows ? rows[(int64_t)r * CHUNK + (c % CHUNK)] : 0.0f;
+  if (invmap == nullptr) {
+    const float* src = rows + blk * CELLS;
+    for (int c = threadIdx.x; c < CELLS; c += blockDim.x)
+      s[sidx_flat(c)] = src[c];
+  } else {
+    const int32_t* imap = invmap + blk * CHUNKS_PER_BLOCK;
+    for (int c = threadIdx.x; c < CELLS; c += blockDim.x) {
+      const uint32_t r = (uint32_t)imap[c / CHUNK];
+      s[sidx_flat(c)] =
+          (int64_t)r < nrows ? rows[(int64_t)r * CHUNK + (c % CHUNK)] : 0.0f;
+    }
   }
   __syncthreads();
   transform_axis(s, op, 0);

@@ -1,8 +1,9 @@
 """Build, load and launch the hand-written CUDA kernels of csrc/.
 
-The sources are compiled at first use with nvcc for sm_90a (Hopper) into
-one shared library with a plain C interface, loaded with ctypes: every
-pointer and the stream pass as `c_void_p`.  The library lands in
+The sources are compiled at first use with nvcc for sm_90a (Hopper), one
+nvcc per source, all started together, and linked into one shared library
+with a plain C interface, loaded with ctypes: every pointer and the stream
+pass as `c_void_p`.  The library lands in
 `build/kernels/` beside the package (listed in .gitignore), named by a hash
 of the sources so an edited kernel is never served from a stale build.
 
@@ -43,9 +44,18 @@ _SIGNATURES = {
         _VP, ctypes.c_int64, _VP, _VP, ctypes.c_int, ctypes.c_int,
         ctypes.c_int, _VP, _VP,
     ],
+    "cvx_decode_maps": [_VP, ctypes.c_int64, ctypes.c_int, _VP, _VP, _VP],
+    "cvx_decode_chase": [
+        _VP, _VP, ctypes.c_int64, ctypes.c_int64, ctypes.c_int, _VP, _VP, _VP,
+    ],
+    "cvx_decode_emit": [
+        _VP, _VP, _VP, _VP, _VP, ctypes.c_int64, ctypes.c_float, ctypes.c_int,
+        ctypes.c_int64, _VP, _VP,
+    ],
 }
 
-launches = {"fused_encode": 0, "emit_payload": 0, "fused_inverse": 0}
+launches = {"fused_encode": 0, "emit_payload": 0, "fused_inverse": 0,
+            "decode_maps": 0, "decode_chase": 0, "decode_emit": 0}
 build_info = {}  # library path, build seconds, nvcc's -Xptxas -v report
 
 _lib = None
@@ -91,21 +101,36 @@ def build():
                 build_info.update(path=so, seconds=0.0, log="(cached)")
                 return so
             tmp = f"{so}.{os.getpid()}.tmp"
-            cmd = [
-                _nvcc(), *ARCH_FLAGS, "-std=c++17", "-O3", "-shared",
-                "-Xcompiler", "-fPIC", "-Xptxas", "-v", "-o", tmp,
-                *[p for p in srcs if p.endswith(".cu")],
-            ]
+            objdir = f"{tmp}.d"
+            os.makedirs(objdir, exist_ok=True)
+            nvcc = _nvcc()
+            common = [nvcc, *ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC"]
             t0 = time.perf_counter()
-            res = subprocess.run(cmd, capture_output=True, text=True)
+            cus = [p for p in srcs if p.endswith(".cu")]
+            objs = [os.path.join(objdir, os.path.basename(p) + ".o") for p in cus]
+            procs = [
+                subprocess.Popen(
+                    [*common, "-Xptxas", "-v", "-c", "-o", o, p],
+                    stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+                )
+                for p, o in zip(cus, objs)
+            ]
+            logs = [pr.communicate()[0] for pr in procs]
+            log = "".join(f"== {os.path.basename(p)}\n{lg}" for p, lg in zip(cus, logs))
+            if any(pr.returncode != 0 for pr in procs):
+                raise RuntimeError(f"nvcc failed:\n{log}")
+            res = subprocess.run([*common, "-shared", "-o", tmp, *objs],
+                                 capture_output=True, text=True)
             if res.returncode != 0:
                 raise RuntimeError(
-                    f"nvcc failed ({res.returncode}):\n{res.stdout}{res.stderr}"
+                    f"nvcc link failed ({res.returncode}):\n{res.stdout}{res.stderr}"
                 )
             os.replace(tmp, so)
+            for o in objs:
+                os.remove(o)
+            os.rmdir(objdir)
             build_info.update(
-                path=so, seconds=time.perf_counter() - t0,
-                log=res.stdout + res.stderr,
+                path=so, seconds=time.perf_counter() - t0, log=log,
             )
         finally:
             fcntl.flock(lf, fcntl.LOCK_UN)

@@ -1,4 +1,4 @@
-"""The codec: compress on the device, host entropy decode + device inverse.
+"""The codec: compress on the device; decompress on the device or the host.
 
 Compress (CvxCompress::Compress semantics, CvxCompress.cpp:231-427), one
 straight path:
@@ -12,10 +12,16 @@ straight path:
      coefficients, when there are any);
   7. the host assembles the container (ops/rle_device.py, container.py).
 
-Decompress (the JAX package's `engine="host"`, `cvxcompress_tpu/ops/
-codec.py:1490-1523`): the native library decodes every block on the host,
-only the non-zero 128-cell chunks go up to the device (`sparse_chunks`),
-and fused_inverse (ops/fused_inverse.py) runs the inverse there.
+Decompress has two engines, as in the JAX package (`cvxcompress_tpu/ops/
+codec.py:1490-1523`):
+- "device" (`decompress_device`): the host plans (ops/entropy_decode.py
+  `plan`: the payload copied into aligned rows, ∝ compressed bytes) and
+  uploads one blob; the device parses the stream (decode_maps,
+  decode_chase), emits the coefficients into a dense block-major buffer
+  (decode_emit), overlays the raw blocks and runs fused_inverse on it;
+- "host": the native library decodes every block on the host, only the
+  non-zero 128-cell chunks go up to the device (`sparse_chunks`), and
+  fused_inverse runs the inverse there.
 
 Each stage runs inside a `torch.profiler.record_function` span named
 "cvx.<stage>", so a profiler trace attributes host and device time to the
@@ -33,7 +39,9 @@ from torch.profiler import record_function
 
 from .. import container as ctn
 from ..utils import io
-from . import fused_inverse, pack, quant, rle_device, rle_host, tokenize
+from . import (
+    entropy_decode, fused_inverse, pack, quant, rle_device, rle_host, tokenize,
+)
 
 BLOCK = (32, 32, 32)
 CELLS = 32 * 32 * 32
@@ -122,19 +130,35 @@ def sparse_chunks(coeffs):
     return np.ascontiguousarray(flat[idx]), invmap
 
 
-def decompress(data, device="cpu"):
-    """Decompress a container to a (nz, ny, nx) f32 tensor on `device`.
+def decompress_device(data, device):
+    """The device engine (`cvxcompress_tpu/ops/codec.py:1235`): the volume
+    as a tensor on `device`, or None when `plan` rejects the container's
+    spans.  The container is already validated and in the ported slice."""
+    with record_function("cvx.plan"):
+        p = entropy_decode.plan(data)
+    if p is None:
+        return None
+    hdr, cells = p["hdr"], p["cells"]
+    with record_function("cvx.plan_h2d"):
+        b = entropy_decode.upload(p, device)
+    nsub = b["sub_block"].numel()
+    with record_function("cvx.decode_maps"):
+        M, P = entropy_decode.parse_maps(b["stream"], nsub, cells)
+    with record_function("cvx.decode_chase"):
+        e32, c32 = entropy_decode.chase(P, b["sub_reset"], b["starts"], cells)
+    with record_function("cvx.decode_emit"):
+        dense = entropy_decode.emit(b["stream"], M, e32, c32, b["sub_block"],
+                                    p["scalefac"][0], hdr.grid[3], cells)
+    with record_function("cvx.overlay_raw"):
+        entropy_decode.overlay_raw(dense, b["raw_rows"], b["raw_ids"])
+    with record_function("cvx.fused_inverse"):
+        return fused_inverse.fused_inverse(
+            dense.view(-1, CHUNK), None, (hdr.nz, hdr.ny, hdr.nx)
+        )
 
-    Accepts containers of this port, of the JAX package, of the oracle and
-    of the native library (the decode is offset-table driven).  The
-    container is validated structurally first.
-    """
-    io.validate(data)
-    hdr, blkoffs, _, payload_base = ctn.unpack(data)
-    _check_slice((hdr.bx, hdr.by, hdr.bz), hdr.use_local_rms)
-    device = torch.device(device)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError("device='cuda' requested but no CUDA device")
+
+def _decode_host(data, hdr, blkoffs, payload_base, device):
+    """The host engine: native decode, chunk-sparse upload, inverse."""
     raw = np.frombuffer(memoryview(data), dtype=np.uint8)
     with record_function("cvx.decode_host"):
         coeffs = rle_host.decode_payloads(
@@ -149,3 +173,39 @@ def decompress(data, device="cpu"):
         return fused_inverse.fused_inverse(
             rows_t, invmap_t, (hdr.nz, hdr.ny, hdr.nx)
         )
+
+
+ENGINES = ("auto", "device", "host")
+
+
+def decompress(data, device="cpu", engine="auto"):
+    """Decompress a container to a (nz, ny, nx) f32 tensor on `device`.
+
+    engine:
+      "auto"   -- the device engine when `device` is CUDA, the host engine
+                  on the CPU (where the native decoder is the faster one);
+      "device" -- the device entropy decoder (its plain versions on the
+                  CPU); a container whose spans `plan` rejects raises
+                  ValueError;
+      "host"   -- native host decode, chunk-sparse upload, inverse.
+    Under "auto" a container the device engine rejects takes the host
+    engine.  Accepts containers of this port, of the JAX package, of the
+    oracle and of the native library; the container is validated
+    structurally first.
+    """
+    if engine not in ENGINES:
+        raise ValueError(f"engine must be one of {ENGINES}, got {engine!r}")
+    io.validate(data)
+    hdr, blkoffs, _, payload_base = ctn.unpack(data)
+    _check_slice((hdr.bx, hdr.by, hdr.bz), hdr.use_local_rms)
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("device='cuda' requested but no CUDA device")
+    if engine == "device" or (engine == "auto" and device.type == "cuda"):
+        out = decompress_device(data, device)
+        if out is not None:
+            return out
+        if engine == "device":
+            raise ValueError("container not decodable on the device engine "
+                             "(degenerate payload spans)")
+    return _decode_host(data, hdr, blkoffs, payload_base, device)

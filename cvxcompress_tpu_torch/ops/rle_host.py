@@ -3,7 +3,8 @@
 The C++ library in `native/` belongs to neither framework: the JAX package
 binds it in `cvxcompress_tpu/ops/rle_host.py`, the port binds it here.  It
 gives the port its host entropy decoder (`decode_payloads`), the per-chunk
-non-zero flags for the sparse upload (`chunk_flags`), the host encoder
+non-zero flags for the sparse upload (`chunk_flags`), the ragged memcpy that
+stages the device decoder's plan (`ragged_copy_fill`), the host encoder
 (`encode_payloads`, a stage-exact check of the emit kernel) and the
 reference-compatible C ABI (`host_compress`, `host_decompress`).
 
@@ -80,6 +81,10 @@ def lib():
             h.cvx_encode_payloads.argtypes = [
                 _VP, _VP, ctypes.c_int64, ctypes.c_int64, _VP, _VP, _VP,
             ]
+            h.cvx_ragged_copy_fill.restype = None
+            h.cvx_ragged_copy_fill.argtypes = [
+                _VP, _VP, _VP, _VP, _VP, ctypes.c_int64, ctypes.c_int64,
+            ]
             h.cvx_chunk_flags.restype = None
             h.cvx_chunk_flags.argtypes = [_VP, ctypes.c_int64, ctypes.c_int64, _VP]
             h.cvx_compress.restype = ctypes.c_float
@@ -137,6 +142,29 @@ def encode_payloads(coeffs, mulfac):
         _p(coeffs), _p(mulfacs), nnn, cells, _p(buf), _p(sizes), _p(raw)
     )
     return [buf[i, : sizes[i]] for i in range(nnn)], sizes, raw.astype(bool)
+
+
+def ragged_copy_fill(src, soff, dst, doff, nbytes, align):
+    """dst[doff[i]:+nbytes[i]] = src[soff[i]:+nbytes[i]] for every i, then
+    zero each span's tail up to the next multiple of `align` (a power of 2).
+
+    `src` and `dst` are uint8 arrays; the spans are the caller's contract
+    (checked here only against the arrays' ends).
+    """
+    soff = np.ascontiguousarray(soff, dtype=np.int64)
+    doff = np.ascontiguousarray(doff, dtype=np.int64)
+    nb = np.ascontiguousarray(nbytes, dtype=np.int64)
+    if src.dtype != np.uint8 or dst.dtype != np.uint8 or not dst.flags.c_contiguous:
+        raise ValueError("ragged_copy_fill copies between contiguous uint8 arrays")
+    src = np.ascontiguousarray(src)
+    if soff.size:
+        padded = nb + ((-nb) & (int(align) - 1))
+        if ((soff + nb).max() > src.size or (doff + padded).max() > dst.size
+                or soff.min() < 0 or doff.min() < 0 or nb.min() < 0):
+            raise ValueError("ragged_copy_fill span out of bounds")
+    lib().cvx_ragged_copy_fill(
+        _p(src), _p(soff), _p(dst), _p(doff), _p(nb), soff.size, int(align)
+    )
 
 
 def chunk_flags(coeffs, chunk):

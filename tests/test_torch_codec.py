@@ -46,11 +46,13 @@ def test_import_leaves_jax_out():
     code = (
         "import sys, numpy as np\n"
         "import cvxcompress_tpu_torch as cvt\n"
-        "from cvxcompress_tpu_torch.ops import (_kernels, codec, fused_inverse,"
-        " pack, quant, rle_device, rle_host, tokenize, wavelet, blocks)\n"
+        "from cvxcompress_tpu_torch.ops import (_kernels, codec, entropy_decode,"
+        " fused_inverse, pack, quant, rle_device, rle_host, tokenize, wavelet,"
+        " blocks)\n"
         "from cvxcompress_tpu_torch.utils import io\n"
         "v = np.ones((32, 32, 40), np.float32)\n"
         "cvt.decompress(cvt.compress(v, 1e-2)[0])\n"
+        "cvt.decompress(cvt.compress(v, 1e-2)[0], engine='device')\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
         " or m.startswith('cvxcompress_tpu.') or m == 'cvxcompress_tpu']\n"
         "assert not bad, bad\n"

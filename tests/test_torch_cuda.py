@@ -13,8 +13,10 @@ import pytest
 torch = pytest.importorskip("torch")  # the port's tests need PyTorch
 
 import cvxcompress_tpu_torch as cvt
+from cvxcompress_tpu_torch import container as ctn
 from cvxcompress_tpu_torch.ops import (
-    _kernels, codec, fused_inverse, pack, quant, rle_device, rle_host, tokenize,
+    _kernels, codec, entropy_decode, fused_inverse, pack, quant, rle_device,
+    rle_host, tokenize,
 )
 
 pytestmark = pytest.mark.cuda
@@ -125,10 +127,77 @@ def test_main_path_counts_and_agrees_with_cpu(dev, rng):
     torch.cuda.synchronize()
     assert _kernels.launches == {
         "fused_encode": 1, "emit_payload": 1, "fused_inverse": 1,
+        "decode_maps": 1, "decode_chase": 1, "decode_emit": 1,
     }
     ref, _ = cvt.compress(vol, 1e-2, device="cpu")
     assert abs(int(data.size) - int(ref.size)) <= max(64, 0.01 * ref.size)
     assert rel_rms(out.cpu(), cvt.decompress(data, device="cpu")) < TRANSFORM_TOL
+
+
+def decode_kernels_vs_plain(data, dev):
+    """Each decode kernel against its plain version on the same inputs
+    (bit-equal); returns the dense coefficients with the raw overlay."""
+    p = entropy_decode.plan(data)
+    b = entropy_decode.upload(p, dev)
+    nsub, cells, nnn = b["sub_block"].numel(), p["cells"], p["hdr"].grid[3]
+    sf = p["scalefac"][0]
+    M, P = entropy_decode.parse_maps(b["stream"], nsub, cells)
+    Mp, Pp = entropy_decode.parse_maps_plain(b["stream"], nsub, cells)
+    assert torch.equal(M, Mp) and torch.equal(P, Pp)
+    e32, c32 = entropy_decode.chase(P, b["sub_reset"], b["starts"], cells)
+    ep, cp = entropy_decode.chase_plain(P, b["sub_reset"], cells)
+    assert torch.equal(e32, ep) and torch.equal(c32, cp)
+    args = (b["stream"], M, e32, c32, b["sub_block"], sf, nnn, cells)
+    dense = entropy_decode.emit(*args)
+    assert torch.equal(dense.view(torch.int32),
+                       entropy_decode.emit_plain(*args).view(torch.int32))
+    return entropy_decode.overlay_raw(dense, b["raw_rows"], b["raw_ids"])
+
+
+@pytest.mark.parametrize("scale,block", [
+    (1e-4, (16, 16, 16)), (1e-2, (16, 16, 16)), (1.0, (16, 16, 16)),
+    (1e-1, (32, 32, 32)),  # blocks of many 512-byte segments
+    (1e-9, (8, 8, 8)),  # raw fallback
+])
+def test_decode_kernels_match_plain_and_native(dev, rng, scale, block):
+    vol = rng.standard_normal((32, 64, 64)).astype(np.float32)
+    if scale >= 1e-6:  # (outliers lift the RMS: no raw fallback with them)
+        vol[0, 0, :3] = [1e3, -1e3, 1e4]  # wide escapes
+    data, _ = rle_host.host_compress(vol, scale, block=block)
+    dense = decode_kernels_vs_plain(data, dev)
+    hdr, blkoffs, _, pbase = ctn.unpack(data)
+    nat = rle_host.decode_payloads(data[pbase:], blkoffs, hdr.glob_mulfac,
+                                   dense.shape[1])
+    np.testing.assert_array_equal(dense.cpu().numpy().view(np.uint32),
+                                  nat.view(np.uint32))
+    assert bool((blkoffs < 0).any()) == (scale < 1e-6)
+
+
+@pytest.mark.parametrize("seed", range(3))
+def test_decode_kernels_on_corrupt_payloads(dev, seed):
+    vol = volume(np.random.default_rng(seed), (64, 64, 96))
+    data, _ = rle_host.host_compress(vol, 1e-2)
+    _, _, _, pbase = ctn.unpack(data)
+    r = np.random.default_rng(seed)
+    flips = r.integers(pbase, data.size - 8, 40)
+    data[flips] ^= r.integers(1, 255, 40).astype(np.uint8)
+    decode_kernels_vs_plain(data, dev)
+    out = cvt.decompress(data, device="cuda", engine="device")
+    torch.cuda.synchronize()
+    assert tuple(out.shape) == (64, 64, 96)
+
+
+def test_device_engine_matches_host_engine(dev, rng):
+    vol = volume(rng, (64, 96, 96))
+    data, _ = cvt.compress(vol, 1e-2, device="cuda")
+    out = cvt.decompress(data, device="cuda", engine="device")
+    ref = cvt.decompress(data, device="cuda", engine="host")
+    assert rel_rms(out, ref) < TRANSFORM_TOL
+    coeffs = decode_kernels_vs_plain(data, dev)
+    rows = coeffs.view(-1, fused_inverse.CHUNK)
+    got = fused_inverse.fused_inverse(rows, None, vol.shape)
+    assert rel_rms(got, fused_inverse.fused_inverse_plain(rows, None, vol.shape)) \
+        < TRANSFORM_TOL
 
 
 def test_kernel_wrappers_reject_bad_inputs(dev):
