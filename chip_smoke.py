@@ -4,22 +4,31 @@
     python3 chip_smoke.py
 
 Builds the CUDA kernels (csrc/, nvcc for sm_90a) and the native host library
-(make -C native), compares every kernel of the main path with its plain
-PyTorch version at the reference CI shape (the entropy decode kernels also
-on a noise container of the same shape, and against the native decoder),
-then drives the main path once through the public API — compress the
-(352, 416, 320) sinusoid at scale 1e-2 with 32^3 blocks on the card,
-decompress it with the device engine (entropy parse, emit and inverse on
-the card) — and checks the quality bars, the launch counts, the host
+(make -C native), then, for each of the two ported paths:
+
+- config A, the reference CI input: the (352, 416, 320) sinusoid at scale
+  1e-2 with 32^3 blocks (phases 2 and 3);
+- config B, the JAX package's bench config B: the (384, 384, 384) sinusoid
+  at scale 1e-2 with 128^3 blocks (phases 2b and 3b);
+
+it compares every kernel of the path with its plain PyTorch version at the
+path's shapes (also on an N(0,1) noise volume of the same shape, the
+decoder's heavy case, and against the native encoder and decoder), then
+drives the path once through the public API on the default device —
+compress on the card, decompress with the device engine (entropy parse,
+emit and inverse on the card) — and checks the quality bars, the launch
+counts (set to 0 just before the drive, read just after), the host
 engine's agreement and the interop with the native C ABI.  It imports
 nothing of JAX.
 
 Output: the card's name and power limit first, progress lines, then on
-the line before the last a JSON object with each kernel's launches, error
-and time beside its plain version's, and on the last line
+the line before the last a JSON object with each kernel's launches, error,
+time beside its plain version's and its bound (the least time the card
+could take for the same work), and on the last line
 {"ok": true, "device": {...}}.  Any failed check raises (exit code != 0)
-and prints no result; so does a machine without a CUDA card.  A profiler
-trace of one compress + decompress goes to build/chip_smoke_trace.json.
+and prints no result; so does a machine without a CUDA card.  Profiler
+traces of one compress + decompress per config go to
+build/chip_smoke_trace_{A,B}.json.
 """
 
 from __future__ import annotations
@@ -40,7 +49,19 @@ REF_RATIO = 1148.6  # the JAX package's record on this input
 TRANSFORM_TOL = 1e-5  # relative RMS, the reference's fast-vs-slow bar
 NOISE_SCALE = 1e-1  # N(0,1) at this scale: ~4:1, the decoder's heavy case
 DECODE_SPANS = ("cvx.plan", "cvx.plan_h2d", "cvx.decode_maps", "cvx.decode_chase",
-                "cvx.decode_emit", "cvx.overlay_raw", "cvx.fused_inverse")
+                "cvx.decode_emit", "cvx.overlay_raw")
+SHAPE_B = (384, 384, 384)  # bench config B (bench.py:589, :595)
+BLOCK_B = (128, 128, 128)
+# the JAX package's record on config B (BENCH_dev_r05.json, B_north_star_128c)
+REF_B = dict(ratio=21411.6, err=3.511e-5, snr=89.1)
+# H100 SXM peaks (NVIDIA's data sheet): HBM3 bytes/s, f32 FLOP/s off the
+# tensor cores
+HBM_BPS = 3.35e12
+F32_FLOPS = 67e12
+KERNELS_A = ("fused_encode", "emit_payload", "fused_inverse")
+DECODE_KERNELS = ("decode_maps", "decode_chase", "decode_emit")
+KERNELS_B = ("block_fwd_z", "block_encode_xy", "block_emit", "block_inv_xy",
+             "block_inv_z")
 
 
 def check(cond, msg):
@@ -84,6 +105,12 @@ def cuda_ms(fn, iters):
     return t0.elapsed_time(t1) / iters
 
 
+def bound(nbytes, flops):
+    """The least time for the work: bytes over HBM, FLOP over f32 peak."""
+    tb, tf = nbytes / HBM_BPS * 1e3, flops / F32_FLOPS * 1e3
+    return dict(bound_ms=max(tb, tf), bound_by="bytes" if tb >= tf else "operations")
+
+
 def wall_ms(fn, runs):
     """Median host-clock time of fn() (which synchronises) over `runs`."""
     times = []
@@ -94,7 +121,52 @@ def wall_ms(fn, runs):
     return statistics.median(times), times
 
 
+def profiled(run_compress, run_decompress, tag, card):
+    """One profiled compress + decompress: host spans (ms), device busy and
+    idle share of the window; the trace goes to build/."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t = time.perf_counter()
+        run_compress()
+        run_decompress()
+        window_us = (time.perf_counter() - t) * 1e6
+    trace_dir = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build")
+    os.makedirs(trace_dir, exist_ok=True)
+    prof.export_chrome_trace(os.path.join(trace_dir, f"chip_smoke_trace_{tag}.json"))
+    cpu_t, cuda_t = torch.autograd.DeviceType.CPU, torch.autograd.DeviceType.CUDA
+    spans = {ev.key: round(ev.cpu_time_total / 1e3, 3) for ev in prof.key_averages()
+             if ev.key.startswith("cvx.") and ev.device_type == cpu_t}
+    # device busy = union of the kernels' and copies' intervals (user spans
+    # mirrored onto the device timeline and profiler bookkeeping excluded)
+    busy = sorted(
+        (ev.time_range.start, ev.time_range.end) for ev in prof.events()
+        if ev.device_type == cuda_t and not ev.name.startswith("cvx.")
+        and not getattr(ev, "is_user_annotation", False)
+        and ev.name != "Activity Buffer Request"
+    )
+    busy_us, end = 0.0, float("-inf")
+    for a, b in busy:
+        if b > end:
+            busy_us += b - max(a, end)
+            end = b
+    idle = 1.0 - busy_us / window_us
+    dev_ms = sorted(
+        ((ev.key, getattr(ev, "device_time_total", 0) / 1e3)
+         for ev in prof.key_averages()
+         if not ev.key.startswith("cvx.") and ev.key != "Activity Buffer Request"),
+        key=lambda kv: -kv[1])
+    print(f"  config {tag}: device ms by kernel or copy: "
+          + ", ".join(f"{k[:48]} {ms:.3f}" for k, ms in dev_ms[:12] if ms > 0))
+    print(f"  config {tag}: profiled window {window_us / 1e3:.2f} ms, device busy "
+          f"{busy_us / 1e3:.3f} ms, idle share {idle:.4f} on {card}")
+    print(f"  config {tag}: host spans (ms): {spans}")
+    return spans, idle
+
+
 def main():
+    t_start = time.perf_counter()
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True,
@@ -109,8 +181,8 @@ def main():
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     import cvxcompress_tpu_torch as cvt
     from cvxcompress_tpu_torch.ops import (
-        _kernels, codec, entropy_decode, fused_inverse, pack, quant, rle_device,
-        rle_host, tokenize,
+        _kernels, codec, entropy_decode, fused_compress, fused_inverse, pack,
+        quant, rle_device, rle_host, tokenize,
     )
 
     check("jax" not in sys.modules, "the port imported no jax")
@@ -147,10 +219,14 @@ def main():
     check(torch.equal(sk, s2) and torch.equal(rk, r2),
           "fused_encode sizes/raw bit-equal to the plain tokenize of its coefficients")
     check(torch.equal(dk, d2), "fused_encode descriptors bit-equal likewise")
+    cells = ck.numel()
     report["fused_encode"] = dict(
         max_abs_err=float((ck - cp).abs().max()),
         ms=cuda_ms(lambda: tokenize.fused_encode(vt, mulfac), 20),
         plain_ms=cuda_ms(lambda: tokenize.fused_encode_plain(vt, mulfac), 3),
+        # volume in; coefficients and descriptors out; 3 x 32 taps x 2 + the
+        # scale per cell (the tokenize's integer work is not counted)
+        **bound(4 * vol.size + 8 * cells + 5 * sk.numel(), 193 * cells),
     )
     del cp, dp, sp, rp, d2, s2, r2
 
@@ -167,11 +243,15 @@ def main():
           "native cvx_encode_payloads sizes/raw equal the kernel's")
     check(np.array_equal(native, stk.cpu().numpy()),
           "stream bit-equal to native cvx_encode_payloads, block by block")
+    live_groups = int(((dk & 7).view(-1, 8).sum(1) > 0).sum())
     report["emit_payload"] = dict(
         max_abs_err=float((stk.int() - stp.int()).abs().max()) if total else 0.0,
         ms=cuda_ms(lambda: pack.emit_payload(ck, mulfac, dk, base, rk, total), 20),
         plain_ms=cuda_ms(
             lambda: pack.emit_payload_plain(ck, mulfac, dk, base, rk, total), 3),
+        # every descriptor, the coefficients of the groups with a token, the
+        # stream out
+        **bound(4 * cells + 32 * live_groups + 9 * sk.numel() + total, 0),
     )
     del ck, dk, stk, stp
 
@@ -179,8 +259,7 @@ def main():
     del vt
 
     # the device entropy decoder: each kernel against its plain version on
-    # the CI container (the main path's shapes, timed for the report) and
-    # on a noise container (every token class, 1,024-subsegment chains)
+    # a container (the main path's shapes, timed for the report)
     def decode_stages(label, cont, iters, plain_iters):
         hdr, blkoffs, _, pbase = cvt.container.unpack(cont)
         p = entropy_decode.plan(cont)
@@ -193,7 +272,7 @@ def main():
         chain = np.diff(np.append(p["starts"], nsub)).max()
         print(f"  {label}: {len(cont)} B, {nsub} subsegments, "
               f"{starts.numel()} chains (longest {chain}), "
-              f"{p['raw_ids'].size} raw blocks", flush=True)
+              f"{p['raw_ids'].size} raw blocks, cells {cells}", flush=True)
         Mk, Pk = entropy_decode.parse_maps(stream, nsub, cells)
         Mp, Pp = entropy_decode.parse_maps_plain(stream, nsub, cells)
         check(torch.equal(Mk, Mp) and torch.equal(Pk, Pp),
@@ -208,6 +287,7 @@ def main():
         check(torch.equal(dk.view(torch.int32), dp.view(torch.int32)),
               f"{label}: decode_emit dense coefficients equal to the plain "
               "version as uint32")
+        del dp
         entropy_decode.overlay_raw(dk, b["raw_rows"], b["raw_ids"])
         nat = rle_host.decode_payloads(cont[pbase:], blkoffs, hdr.glob_mulfac, cells)
         check(np.array_equal(dk.cpu().numpy().view(np.uint32), nat.view(np.uint32)),
@@ -218,6 +298,7 @@ def main():
             decode_chase=float(max((ek - ep).abs().max(), (ck - cp).abs().max())),
             decode_emit=float((dk - torch.from_numpy(nat).to(dev)).abs().max()),
         )
+        del Mp, Pp, nat
         times = dict(
             decode_maps=(
                 cuda_ms(lambda: entropy_decode.parse_maps(stream, nsub, cells), iters),
@@ -234,23 +315,32 @@ def main():
                                                           sf, nnn, cells),
                         plain_iters)),
         )
+        # bytes: stream in, M (32 x 4 B) and P (25 x 4 B) per subsegment out;
+        # P, the chain starts in, e32 and c32 out; stream, M, e32, c32 and
+        # sub_block in, the dense buffer out (zeroed and written once)
+        bounds = dict(
+            decode_maps=bound(nsub * (32 + 128 + 100), 0),
+            decode_chase=bound(nsub * (100 + 8) + 4 * starts.numel(), 0),
+            decode_emit=bound(nsub * (32 + 128 + 12) + 4 * nnn * cells, 0),
+        )
         for k, (ms, pms) in times.items():
-            print(f"  {label}: {k} kernel {ms:.4f} ms, plain {pms:.3f} ms on {card}")
-        return dk, errs, times
+            print(f"  {label}: {k} kernel {ms:.4f} ms, plain {pms:.3f} ms, bound "
+                  f"{bounds[k]['bound_ms']:.4f} ms on {card}")
+        return dk, errs, times, bounds
 
-    dense, errs, times = decode_stages("CI container", data, 20, 3)
+    dense, errs, times, bounds = decode_stages("CI container", data, 20, 3)
     noise = np.random.default_rng(0).standard_normal(SHAPE, dtype=np.float32)
-    ndata, nratio = cvt.compress(noise, NOISE_SCALE, device="cuda")
+    ndata, nratio = cvt.compress(noise, NOISE_SCALE)
     del noise
     print(f"  noise container: N(0,1) {SHAPE} at scale {NOISE_SCALE}, "
           f"ratio {nratio:.2f}")
-    _, nerrs, ntimes = decode_stages("noise container", ndata, 5, 1)
+    _, nerrs, ntimes, _ = decode_stages("noise container", ndata, 5, 1)
     del ndata
     torch.cuda.empty_cache()
-    for k in ("decode_maps", "decode_chase", "decode_emit"):
+    for k in DECODE_KERNELS:
         report[k] = dict(max_abs_err=max(errs[k], nerrs[k]), ms=times[k][0],
                          plain_ms=times[k][1], noise_ms=ntimes[k][0],
-                         noise_plain_ms=ntimes[k][1])
+                         noise_plain_ms=ntimes[k][1], **bounds[k])
 
     # fused_inverse: the dense mode the device engine feeds it (reported),
     # and the chunk-sparse mode of the host engine
@@ -265,6 +355,7 @@ def main():
         ms=cuda_ms(lambda: fused_inverse.fused_inverse(rows, None, SHAPE), 20),
         plain_ms=cuda_ms(
             lambda: fused_inverse.fused_inverse_plain(rows, None, SHAPE), 3),
+        **bound(4 * rows.numel() + 4 * vol.size, 192 * rows.numel()),
     )
     rows_h, invmap_h = codec.sparse_chunks(dense.cpu().numpy())
     srows, sinv = torch.from_numpy(rows_h).to(dev), torch.from_numpy(invmap_h).to(dev)
@@ -276,17 +367,142 @@ def main():
           f"{cuda_ms(lambda: fused_inverse.fused_inverse(srows, sinv, SHAPE), 20):.3f}"
           f" ms on {card}")
     del vk, vp, vs, dense, rows, srows, sinv
+    torch.cuda.empty_cache()
 
-    # -- phase 3: the main path through the public API --------------------
-    print("phase 3: main path, compress -> decompress (engine auto = device) on",
-          name, flush=True)
+    # -- phase 2b: the 128^3 kernels against their plain versions, config B
+    print("phase 2b: 128^3 kernels vs plain versions at", SHAPE_B, flush=True)
+
+    def block_kernels(label, volb, scale, iters, plain_iters, native):
+        """The five 128^3 launches against their plain versions on `volb`,
+        and the decode kernels at cells = 2^21 on its container; returns
+        the 128^3 kernels' report and the decode kernels' times."""
+        vtb = torch.from_numpy(volb).to(dev)
+        mf = quant.global_mulfac(volb, scale)
+        out = {}
+        tk = fused_compress.fwd_z(vtb)
+        tp = fused_compress.fwd_z_plain(vtb)
+        torch.cuda.synchronize()
+        e = rel_rms(tk, tp)
+        check(e < TRANSFORM_TOL, f"{label}: block_fwd_z rel RMS {e:.3e} < 1e-5")
+        ncell = tk.numel()
+        out["block_fwd_z"] = dict(
+            max_abs_err=float((tk - tp).abs().max()),
+            ms=cuda_ms(lambda: fused_compress.fwd_z(vtb), iters),
+            plain_ms=cuda_ms(lambda: fused_compress.fwd_z_plain(vtb), plain_iters),
+            **bound(8 * ncell, 256 * ncell))
+        del tp
+        buf = torch.empty_like(tk)
+        ck, dk, cbk, sk, rk = fused_compress.encode_xy(tk, mf, out=buf)
+        cp = fused_compress.encode_xy_plain(tk, mf)[0]
+        torch.cuda.synchronize()
+        e = rel_rms(ck, cp)
+        check(e < TRANSFORM_TOL, f"{label}: block_encode_xy coefficients rel RMS "
+              f"{e:.3e} < 1e-5")
+        err_xy = float((ck - cp).abs().max())
+        del cp
+        d2, cb2, s2, r2 = fused_compress.tokenize_plain(tokenize.scaled(ck, mf))
+        check(torch.equal(dk, d2) and torch.equal(cbk, cb2) and torch.equal(sk, s2)
+              and torch.equal(rk, r2), f"{label}: block_encode_xy desc, chunk_bytes, "
+              "sizes and raw bit-equal to the plain tokenize of its coefficients")
+        del d2, cb2, s2, r2
+        nchunks = cbk.numel()
+        out["block_encode_xy"] = dict(
+            max_abs_err=err_xy,
+            ms=cuda_ms(lambda: fused_compress.encode_xy(tk, mf, out=buf), iters),
+            plain_ms=cuda_ms(lambda: fused_compress.encode_xy_plain(tk, mf),
+                             plain_iters),
+            # slice in; coefficients, descriptors and chunk counts out; 2 x 128
+            # taps x 2 + the scale per cell
+            **bound(12 * ncell + 4 * nchunks + 4 * sk.numel(), 513 * ncell))
+        del tk, buf
+        cb64 = cbk.to(torch.int64)
+        cbase = torch.cumsum(cb64, 0) - cb64
+        total = int(cb64.sum())
+        stk = pack.emit_chunks(ck, mf, dk, cbk, cbase, total)
+        stp = pack.emit_chunks_plain(ck, mf, dk, cbk, cbase, total)
+        check(torch.equal(stk, stp), f"{label}: block_emit stream ({total} B, "
+              f"{int(rk.sum())} raw blocks) bit-equal to the plain version")
+        if native:
+            streams, nsizes, nraw = rle_host.encode_payloads(ck.cpu().numpy(), mf)
+            nat = np.concatenate([s for s, r in zip(streams, nraw) if not r])
+            check(np.array_equal(nsizes, sk.cpu().numpy())
+                  and np.array_equal(nat, stk.cpu().numpy()),
+                  f"{label}: stream bit-equal to native cvx_encode_payloads on the "
+                  "kernel's coefficients")
+        live = int((cbk > 0).sum())
+        out["block_emit"] = dict(
+            max_abs_err=float((stk.int() - stp.int()).abs().max()) if total else 0.0,
+            ms=cuda_ms(lambda: pack.emit_chunks(ck, mf, dk, cbk, cbase, total), iters),
+            plain_ms=cuda_ms(
+                lambda: pack.emit_chunks_plain(ck, mf, dk, cbk, cbase, total),
+                plain_iters),
+            # every chunk count, the live chunks' coefficients, descriptors
+            # and base, the stream out
+            **bound(4 * nchunks + 1032 * live + total, 0))
+        del ck, dk, cbk, stk, stp, cbase
+        bdata, bratio = codec.compress(vtb, scale, block=BLOCK_B)
+        del vtb
+        torch.cuda.empty_cache()
+        print(f"  {label}: container {bdata.size} B, ratio {bratio:.1f}")
+        bdense, berrs, btimes, bbounds = decode_stages(
+            f"{label} container", bdata, iters, plain_iters)
+        rows = bdense.view(-1, fused_inverse.CHUNK)
+        xk = fused_inverse.block_inv_xy(rows, volb.shape)
+        xp = fused_inverse.block_inv_xy_plain(rows, volb.shape)
+        torch.cuda.synchronize()
+        e = rel_rms(xk, xp)
+        check(e < TRANSFORM_TOL, f"{label}: block_inv_xy rel RMS {e:.3e} < 1e-5")
+        out["block_inv_xy"] = dict(
+            max_abs_err=float((xk - xp).abs().max()),
+            ms=cuda_ms(lambda: fused_inverse.block_inv_xy(rows, volb.shape), iters),
+            plain_ms=cuda_ms(lambda: fused_inverse.block_inv_xy_plain(rows, volb.shape),
+                             plain_iters),
+            **bound(8 * ncell, 512 * ncell))
+        del xp
+        zp = fused_inverse.block_inv_z_plain(xk)
+        zk = fused_inverse.block_inv_z(xk.clone())
+        torch.cuda.synchronize()
+        e = rel_rms(zk, zp)
+        check(e < TRANSFORM_TOL, f"{label}: block_inv_z rel RMS {e:.3e} < 1e-5")
+        e = rel_rms(zk, fused_inverse.block_fused_inverse_plain(rows, volb.shape))
+        check(e < TRANSFORM_TOL, f"{label}: block_fused_inverse (both launches) rel "
+              f"RMS {e:.3e} < 1e-5 of block_fused_inverse_plain")
+        scratch = xk.clone()
+        out["block_inv_z"] = dict(
+            max_abs_err=float((zk - zp).abs().max()),
+            ms=cuda_ms(lambda: fused_inverse.block_inv_z(scratch), iters),
+            plain_ms=cuda_ms(lambda: fused_inverse.block_inv_z_plain(xk), plain_iters),
+            **bound(8 * ncell, 256 * ncell))
+        del xk, zk, zp, scratch, rows, bdense
+        torch.cuda.empty_cache()
+        for k, r in out.items():
+            print(f"  {label}: {k} kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.3f} ms,"
+                  f" bound {r['bound_ms']:.4f} ms ({r['bound_by']}) on {card}")
+        return out, btimes
+
+    vol_b = sinusoid(*SHAPE_B, PERIODS)
+    breport, _ = block_kernels("config B", vol_b, SCALE, 10, 2, native=True)
+    report.update(breport)
+    noise_b = np.random.default_rng(0).standard_normal(SHAPE_B, dtype=np.float32)
+    nreport, nbtimes = block_kernels("config B noise", noise_b, NOISE_SCALE, 3, 1,
+                                        native=False)
+    del noise_b
+    for k, r in nreport.items():
+        report[k].update(noise_ms=r["ms"], noise_plain_ms=r["plain_ms"])
+    print(f"  config B noise container: decode_chase {nbtimes['decode_chase'][0]:.4f}"
+          f" ms (one chain per block at cells = 2^21) on {card}")
+
+    # -- phase 3: the main path through the public API, config A ---------
+    print("phase 3: main path A, compress -> decompress (default device, engine "
+          "auto = device) on", name, flush=True)
     _kernels.reset_counts()
-    data, ratio = cvt.compress(vol, SCALE, block=(32, 32, 32), device="cuda")
-    out = cvt.decompress(data, device="cuda")
+    data, ratio = cvt.compress(vol, SCALE, block=(32, 32, 32))
+    out = cvt.decompress(data)
     torch.cuda.synchronize()
-    counts = dict(_kernels.launches)
-    print(f"  launches on the main path: {counts}")
-    check(all(counts[k] > 0 for k in report), "every kernel launched on the main path")
+    counts_a = dict(_kernels.launches)
+    print(f"  launches on main path A: {counts_a}")
+    check(all(counts_a[k] > 0 for k in KERNELS_A + DECODE_KERNELS),
+          "every kernel of path A launched on it")
     out_h = out.cpu().numpy()
     check(out_h.shape == SHAPE and bool(np.isfinite(out_h).all()),
           f"decompressed volume finite, shape {SHAPE}")
@@ -294,7 +510,7 @@ def main():
     check(err < 2e-4 and snr > 75.0, f"err {err:.4e} < 2e-4, SNR {snr:.2f} dB > 75")
     check(abs(ratio - REF_RATIO) / REF_RATIO < 0.01,
           f"ratio {ratio:.1f} within 1% of {REF_RATIO}")
-    out_host = cvt.decompress(data, device="cuda", engine="host")
+    out_host = cvt.decompress(data, engine="host")
     e = rel_rms(out.cpu(), out_host.cpu())
     check(e < TRANSFORM_TOL, f"engine device within rel RMS {e:.3e} of engine host")
     nat = rle_host.host_decompress(data)
@@ -302,85 +518,87 @@ def main():
     check(e < TRANSFORM_TOL, f"port container decodes under native "
           f"cvx_decompress_outofplace within rel RMS {e:.3e}")
     dn, rn = rle_host.host_compress(vol, SCALE)
-    outn = cvt.decompress(dn, device="cuda", engine="device").cpu()
+    outn = cvt.decompress(dn, engine="device").cpu()
     e = rel_rms(outn, torch.from_numpy(rle_host.host_decompress(dn)))
     check(e < TRANSFORM_TOL, f"native cvx_compress container (ratio {rn:.1f}) "
           f"decodes on the device engine within rel RMS {e:.3e} of native")
     del out, out_host, outn
 
-    def run_compress():
-        cvt.compress(vol, SCALE, device="cuda")
+    def timed_path(tag, v, block, d):
+        """Medians of 5: compress (numpy in), compress (volume on the card),
+        decompress on both engines; then one profiled compress + decompress."""
+        vdev = torch.from_numpy(v).to(dev)
 
-    vdev = torch.from_numpy(vol).to(dev)
+        def run_compress():
+            cvt.compress(v, SCALE, block=block)
 
-    def run_compress_resident():  # a volume already on the card
-        cvt.compress(vdev, SCALE)
+        def run_compress_resident():  # a volume already on the card
+            cvt.compress(vdev, SCALE, block=block)
 
-    def run_decompress(engine="auto"):
-        cvt.decompress(data, device="cuda", engine=engine)
-        torch.cuda.synchronize()
+        def run_decompress(engine="auto"):
+            cvt.decompress(d, engine=engine)
+            torch.cuda.synchronize()
 
-    run_compress()
-    run_compress_resident()
-    run_decompress("host")
-    c_med, c_all = wall_ms(run_compress, 5)
-    r_med, r_all = wall_ms(run_compress_resident, 5)
-    d_med, d_all = wall_ms(run_decompress, 5)
-    h_med, h_all = wall_ms(lambda: run_decompress("host"), 5)
-    mcells = vol.size / 1e6
-    print(f"  compress   median {c_med:.2f} ms ({mcells / c_med * 1e3:.0f} MC/s) "
-          f"runs {[round(x, 2) for x in c_all]} on {card}")
-    print(f"  compress (volume on the card) median {r_med:.2f} ms "
-          f"({mcells / r_med * 1e3:.0f} MC/s) runs {[round(x, 2) for x in r_all]} "
-          f"on {card}")
-    print(f"  decompress (device engine) median {d_med:.2f} ms "
-          f"({mcells / d_med * 1e3:.0f} MC/s) runs {[round(x, 2) for x in d_all]} "
-          f"on {card}")
-    print(f"  decompress (host engine) median {h_med:.2f} ms "
-          f"({mcells / h_med * 1e3:.0f} MC/s) runs {[round(x, 2) for x in h_all]} "
-          f"on {card}")
-    for k, r in report.items():
-        print(f"  {k}: kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.3f} ms "
-              f"on {card}")
-
-    # one profiled compress + decompress: host spans, kernel device time,
-    # device idle share of the window
-    from torch.profiler import ProfilerActivity, profile
-
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t = time.perf_counter()
         run_compress()
-        run_decompress()
-        window_us = (time.perf_counter() - t) * 1e6
-    trace_dir = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build")
-    os.makedirs(trace_dir, exist_ok=True)
-    prof.export_chrome_trace(os.path.join(trace_dir, "chip_smoke_trace.json"))
-    cpu_t, cuda_t = torch.autograd.DeviceType.CPU, torch.autograd.DeviceType.CUDA
-    spans = {ev.key: round(ev.cpu_time_total / 1e3, 3) for ev in prof.key_averages()
-             if ev.key.startswith("cvx.") and ev.device_type == cpu_t}
-    # device busy = union of the kernels' and copies' intervals (user spans
-    # mirrored onto the device timeline and profiler bookkeeping excluded)
-    busy = sorted(
-        (ev.time_range.start, ev.time_range.end) for ev in prof.events()
-        if ev.device_type == cuda_t and not ev.name.startswith("cvx.")
-        and not getattr(ev, "is_user_annotation", False)
-        and ev.name != "Activity Buffer Request"
-    )
-    busy_us, end = 0.0, float("-inf")
-    for a, b in busy:
-        if b > end:
-            busy_us += b - max(a, end)
-            end = b
-    idle = 1.0 - busy_us / window_us
-    print(prof.key_averages().table(sort_by="cpu_time_total", row_limit=25))
-    print(f"  profiled window {window_us / 1e3:.2f} ms, device busy "
-          f"{busy_us / 1e3:.3f} ms, idle share {idle:.4f} on {card}")
-    print(f"  host spans (ms): {spans}")
-    check(all(s in spans for s in DECODE_SPANS),
-          f"the profiled decompress ran the device engine's spans {DECODE_SPANS}")
-    check("cvx.decode_host" not in spans and "cvx.sparse_chunks" not in spans,
-          "the profiled decompress did no per-cell host work (no cvx.decode_host, "
-          "no cvx.sparse_chunks)")
+        run_compress_resident()
+        run_decompress("host")
+        res = {}
+        mcells = v.size / 1e6
+        for key, fn in (("compress", run_compress),
+                        ("compress_resident", run_compress_resident),
+                        ("decompress", run_decompress),
+                        ("decompress_host_engine", lambda: run_decompress("host"))):
+            med, runs = wall_ms(fn, 5)
+            res[f"{key}_ms"] = med
+            print(f"  config {tag}: {key} median {med:.2f} ms "
+                  f"({mcells / med * 1e3:.0f} MC/s) runs {[round(x, 2) for x in runs]}"
+                  f" on {card}")
+        spans, idle = profiled(run_compress, run_decompress, tag, card)
+        check(all(sp in spans for sp in DECODE_SPANS),
+              f"config {tag}: the profiled decompress ran the device engine's "
+              f"spans {DECODE_SPANS}")
+        check("cvx.decode_host" not in spans and "cvx.sparse_chunks" not in spans,
+              f"config {tag}: the profiled decompress did no per-cell host work "
+              "(no cvx.decode_host, no cvx.sparse_chunks)")
+        res.update(spans_ms=spans, device_idle_share=idle)
+        return res
+
+    res_a = timed_path("A", vol, (32, 32, 32), data)
+    check("cvx.fused_inverse" in res_a["spans_ms"], "config A: inverse span ran")
+
+    # -- phase 3b: the main path through the public API, config B --------
+    print("phase 3b: main path B (128^3 blocks), compress -> decompress (default "
+          "device, engine auto = device) on", name, flush=True)
+    _kernels.reset_counts()
+    data_b, ratio_b = cvt.compress(vol_b, SCALE, block=BLOCK_B)
+    out_b = cvt.decompress(data_b)
+    torch.cuda.synchronize()
+    counts_b = dict(_kernels.launches)
+    print(f"  launches on main path B: {counts_b}")
+    check(all(counts_b[k] > 0 for k in KERNELS_B + DECODE_KERNELS),
+          "every kernel of path B launched on it")
+    check(out_b.device.type == "cuda", "the default device is the card")
+    ob = out_b.cpu().numpy()
+    check(ob.shape == SHAPE_B and bool(np.isfinite(ob).all()),
+          f"decompressed volume finite, shape {SHAPE_B}")
+    err_b, snr_b = err_snr(vol_b, ob)
+    check(err_b < 2e-4 and snr_b > 75.0,
+          f"err {err_b:.4e} < 2e-4 (JAX record {REF_B['err']}), SNR {snr_b:.2f} dB > 75 "
+          f"(JAX record {REF_B['snr']})")
+    check(abs(ratio_b - REF_B["ratio"]) / REF_B["ratio"] < 0.01,
+          f"ratio {ratio_b:.1f} within 1% of {REF_B['ratio']}")
+    e = rel_rms(out_b, cvt.decompress(data_b, engine="host"))
+    check(e < TRANSFORM_TOL, f"engine device within rel RMS {e:.3e} of engine host")
+    e = rel_rms(torch.from_numpy(rle_host.host_decompress(data_b)), torch.from_numpy(ob))
+    check(e < TRANSFORM_TOL, f"port container decodes under native "
+          f"cvx_decompress_outofplace within rel RMS {e:.3e}")
+    del out_b, ob
+    res_b = timed_path("B", vol_b, BLOCK_B, data_b)
+    check("cvx.block_fused_inverse" in res_b["spans_ms"], "config B: inverse span ran")
+
+    for k, r in report.items():
+        print(f"  {k}: kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.3f} ms, bound "
+              f"{r['bound_ms']:.4f} ms ({r['bound_by']}) on {card}")
 
     meta = {
         "fused_encode": ("csrc/fused_encode.cu",
@@ -397,24 +615,39 @@ def main():
         "decode_emit": ("csrc/decode_emit.cu",
                         "cvxcompress_tpu/ops/entropy_decode.py:733",
                         "cvxcompress_tpu/ops/codec.py:856"),
+        "block_fwd_z": ("csrc/block_encode.cu",
+                        "cvxcompress_tpu/ops/fused_compress.py:422", None),
+        "block_encode_xy": ("csrc/block_encode.cu",
+                            "cvxcompress_tpu/ops/fused_compress.py:422", None),
+        "block_emit": ("csrc/block_emit.cu",
+                       "cvxcompress_tpu/ops/pack_pallas.py:515", None),
+        "block_inv_xy": ("csrc/block_inverse.cu",
+                         "cvxcompress_tpu/ops/fused_inverse.py:65", None),
+        "block_inv_z": ("csrc/block_inverse.cu",
+                        "cvxcompress_tpu/ops/fused_inverse.py:65", None),
     }
     kernels = []
     for k, r in report.items():
         src, rep, also = meta[k]
+        # launches on the path's own drive: config B for the 128^3 kernels
+        launches = counts_b[k] if k in KERNELS_B else counts_a[k]
+        # no single PyTorch call computes any of these functions (PERF.md)
         row = {"name": k, "route": "cuda",
                "source": f"cvxcompress_tpu_torch/{src}", "replaces": rep,
-               "launches": counts[k], "max_abs_err": r["max_abs_err"],
-               "ms": r["ms"], "plain_ms": r["plain_ms"]}
+               "launches": launches, "max_abs_err": r["max_abs_err"],
+               "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+               "bound_by": r["bound_by"], "library_ms": None}
         if "noise_ms" in r:
             row.update(noise_ms=r["noise_ms"], noise_plain_ms=r["noise_plain_ms"])
         if also:
             row["also_replaces"] = also
         kernels.append(row)
-    print(json.dumps({"kernels": kernels, "compress_ms": c_med,
-                      "compress_resident_ms": r_med, "decompress_ms": d_med,
-                      "decompress_host_engine_ms": h_med, "ratio": ratio, "err": err,
-                      "snr_db": snr, "card": card, "spans_ms": spans,
-                      "device_idle_share": idle}))
+    print(f"  chip_smoke.py ran {time.perf_counter() - t_start:.1f} s on {card}")
+    print(card)
+    print(json.dumps({"kernels": kernels, "card": card,
+                      "config_a": dict(ratio=ratio, err=err, snr_db=snr, **res_a),
+                      "config_b": dict(ratio=ratio_b, err=err_b, snr_db=snr_b,
+                                       **res_b)}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))
     return 0

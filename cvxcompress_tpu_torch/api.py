@@ -1,11 +1,13 @@
 """Public API, shaped by the reference's class CvxCompress (CvxCompress.hxx:19-135).
 
 The PyTorch counterpart of `cvxcompress_tpu/api.py` for the ported slice:
-32^3 blocks with the global RMS.  `device` is explicit: a torch volume
-brings its own, a numpy volume goes where the caller says ("cpu" runs the
-plain PyTorch versions of the kernels, "cuda" the CUDA kernels; "cuda"
-without a card raises).  `engine` picks the decompress engine
-(ops/codec.py `decompress`): "auto", "device" or "host".
+32^3 blocks, and 128^3 blocks over dims that are multiples of 128, with the
+global RMS.  Everything runs on the CUDA card unless the caller asks for
+the CPU: a torch volume brings its own device, a numpy volume and every
+decompress go to `device`, "cuda" by default ("cpu" runs the plain PyTorch
+versions of the kernels; "cuda" without a card raises, nothing falls back).
+`engine` picks the decompress engine (ops/codec.py `decompress`): "auto",
+"device" or "host".
 """
 
 from __future__ import annotations
@@ -18,12 +20,15 @@ from .ops import codec
 
 
 def compress(vol, scale, block=(32, 32, 32), use_local_rms=False, device=None):
-    """Compress a (nz, ny, nx) float32 volume -> (container uint8 ndarray, ratio)."""
+    """Compress a (nz, ny, nx) float32 volume -> (container uint8 ndarray, ratio).
+
+    `device` None: the tensor's own device, or "cuda" for a numpy volume.
+    """
     return codec.compress(vol, scale, block=block, use_local_rms=use_local_rms,
                           device=device)
 
 
-def decompress(data, device="cpu", engine="auto"):
+def decompress(data, device="cuda", engine="auto"):
     """Decompress a container -> (nz, ny, nx) float32 tensor on `device`."""
     return codec.decompress(data, device=device, engine=engine)
 
@@ -32,7 +37,9 @@ class CvxCompress:
     """Class surface mirroring the reference API (CvxCompress.hxx:19-135).
 
     The thread-count parameters of the reference overloads have no device
-    equivalent and are accepted and ignored.
+    equivalent and are accepted and ignored.  `device` ("cuda" by default)
+    is where numpy volumes go and where Decompress returns its tensor;
+    `Compress(scale, vol, 128, 128, 128)` takes the 128^3 path.
     """
 
     @staticmethod
@@ -52,7 +59,7 @@ class CvxCompress:
     def Is_Valid_Block_Size(bx, by, bz):
         return ctn.is_valid_block_size(bx, by, bz)
 
-    def __init__(self, device="cpu", engine="auto"):
+    def __init__(self, device="cuda", engine="auto"):
         self.device = device
         self.engine = engine
 

@@ -47,8 +47,7 @@ emit_payload_kernel(const float* __restrict__ coeffs, float mulfac,
   uint8_t* p = out + base[blk] + off;
 
   for (int g = 0; g < CELLS_PER_THREAD / 8; ++g) {
-    float fv[8];
-    int32_t iv[8], d[8];
+    int32_t d[8];
     const float4 a = *reinterpret_cast<const float4*>(cblk + 8 * g);
     const float4 b = *reinterpret_cast<const float4*>(cblk + 8 * g + 4);
     const float cv[8] = {a.x, a.y, a.z, a.w, b.x, b.y, b.z, b.w};
@@ -56,62 +55,7 @@ emit_payload_kernel(const float* __restrict__ coeffs, float mulfac,
     const int4 d1 = *reinterpret_cast<const int4*>(dblk + 8 * g + 4);
     d[0] = d0.x; d[1] = d0.y; d[2] = d0.z; d[3] = d0.w;
     d[4] = d1.x; d[5] = d1.y; d[6] = d1.z; d[7] = d1.w;
-#pragma unroll
-    for (int l = 0; l < 8; ++l) {
-      fv[l] = __fmul_rn(cv[l], mulfac);
-      iv[l] = cvtt(fv[l]);
-    }
-    const int mode = group_mode(iv);
-#pragma unroll
-    for (int l = 0; l < 8; ++l) {
-      const int cost = d[l] & 7;
-      if (cost == 0) continue;
-      const int32_t v = iv[l];
-      if (mode == 1) {
-        *p++ = (uint8_t)v;
-      } else if (mode == 2) {
-        if (l == 0) *p++ = 0x82;  // VLESC2_8x
-        *p++ = (uint8_t)v;
-        *p++ = (uint8_t)(v >> 8);
-      } else if (mode == 3) {
-        if (l == 0) *p++ = 0x7E;  // VLESC3_8x
-        *p++ = (uint8_t)v;
-        *p++ = (uint8_t)(v >> 8);
-        *p++ = (uint8_t)(v >> 16);
-      } else if (v == 0) {  // the token that flushes a zero run
-        const int32_t rl = (int32_t)((uint32_t)d[l] >> 4);
-        if (cost == 1) {
-          *p++ = 0;
-        } else if (cost == 2) {
-          *p++ = 127;  // RLESC1
-          *p++ = (uint8_t)rl;
-        } else {  // RLESC3 (+ the trailing single zero of a split run)
-          *p++ = 125;
-          *p++ = (uint8_t)rl;
-          *p++ = (uint8_t)(rl >> 8);
-          *p++ = (uint8_t)(rl >> 16);
-          if (cost == 5) *p++ = 0;
-        }
-      } else if (is_byte(v)) {
-        *p++ = (uint8_t)v;
-      } else if (is_short(v)) {
-        *p++ = 0x83;  // VLESC2
-        *p++ = (uint8_t)v;
-        *p++ = (uint8_t)(v >> 8);
-      } else if (is_i3(v)) {
-        *p++ = 0x81;  // VLESC3
-        *p++ = (uint8_t)v;
-        *p++ = (uint8_t)(v >> 8);
-        *p++ = (uint8_t)(v >> 16);
-      } else {
-        const uint32_t bits = __float_as_uint(fv[l]);
-        *p++ = 0x80;  // VLESC4: the scaled float itself
-        *p++ = (uint8_t)bits;
-        *p++ = (uint8_t)(bits >> 8);
-        *p++ = (uint8_t)(bits >> 16);
-        *p++ = (uint8_t)(bits >> 24);
-      }
-    }
+    p = emit_group(p, cv, d, mulfac);
   }
 }
 

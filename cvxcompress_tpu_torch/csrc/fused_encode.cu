@@ -97,11 +97,7 @@ fused_encode_kernel(const float* __restrict__ vol, int nx, int ny, int nz,
         const bool nz_next =
             i + 1 < CELLS_PER_THREAD ? ((nonzero >> (i + 1)) & 1) != 0
                                      : !next_zero;
-        const bool run_end = nz_next;  // block end also ends the run
-        const int32_t len = c - last;
-        const int cst = run_end ? run_cost(len) : 0;
-        d[l] = cst | ((int)run_end << 3) |
-               ((len < MAX_RUN24 ? len : MAX_RUN24) << 4);
+        d[l] = zero_desc(nz_next, c - last);  // block end also ends the run
       }
       total_cost += d[l] & 7;
     }

@@ -1,0 +1,175 @@
+// The token grammar shared by the encode and emit kernels of every block
+// geometry: the cvttps quantizer, the token classes and group-of-8 modes,
+// the byte costs, a block-wide scan, and the writer of one group's tokens.
+#pragma once
+
+#include <cstdint>
+#include <cuda_runtime.h>
+
+namespace cvx {
+
+// x86 cvttss2si: truncate toward zero; NaN and out-of-range give INT32_MIN.
+// __float2int_rz alone saturates and maps NaN to 0, hence the mask.
+__device__ __forceinline__ int32_t cvtt(float f) {
+  return (f >= -2147483648.0f && f < 2147483648.0f) ? __float2int_rz(f)
+                                                     : INT32_MIN;
+}
+
+__device__ __forceinline__ bool is_byte(int32_t v) { return v > -125 && v < 125; }
+__device__ __forceinline__ bool is_short(int32_t v) { return v >= -32768 && v <= 32767; }
+__device__ __forceinline__ bool is_i3(int32_t v) { return v >= -8388608 && v <= 8388607; }
+
+// Group-of-8 mode: 0 mixed, 1 eight plain bytes, 2 VLESC2_8x, 3 VLESC3_8x,
+// with the reference's selection guards (Run_Length_Encode_Slow.cpp:216,
+// 231, 246).
+__device__ __forceinline__ int group_mode(const int32_t iv[8]) {
+  int nzero = 0, nb = 0, ns = 0, n3 = 0;
+#pragma unroll
+  for (int l = 0; l < 8; ++l) {
+    nzero += iv[l] == 0;
+    nb += is_byte(iv[l]);
+    ns += is_short(iv[l]);
+    n3 += is_i3(iv[l]);
+  }
+  if (nzero != 0) return 0;
+  if (nb == 8) return 1;
+  if (ns == 8 && nb + (8 - nb) * 3 > 17) return 2;
+  if (n3 == 8 && nb + (ns - nb) * 3 + (8 - ns) * 4 > 25) return 3;
+  return 0;
+}
+
+constexpr int32_t MAX_RUN24 = (1 << 24) - 1;
+
+// Byte cost of a non-zero cell's token, given its group mode and lane.
+__device__ __forceinline__ int value_cost(int mode, int lane, int32_t v) {
+  if (mode == 1) return 1;
+  if (mode == 2) return lane == 0 ? 3 : 2;
+  if (mode == 3) return lane == 0 ? 4 : 3;
+  if (is_byte(v)) return 1;
+  if (is_short(v)) return 3;
+  if (is_i3(v)) return 4;
+  return 5;
+}
+
+// Byte cost of the token that flushes a zero run of `len` cells.
+__device__ __forceinline__ int run_cost(int32_t len) {
+  return len == 1 ? 1 : len < 256 ? 2 : len <= MAX_RUN24 ? 4 : 5;
+}
+
+// Descriptor of a zero cell: cost | run_end << 3 | min(run_len, 2^24-1) << 4.
+__device__ __forceinline__ int32_t zero_desc(bool run_end, int32_t len) {
+  const int cst = run_end ? run_cost(len) : 0;
+  return cst | ((int)run_end << 3) | ((len < MAX_RUN24 ? len : MAX_RUN24) << 4);
+}
+
+struct MaxOp {
+  __device__ int operator()(int a, int b) const { return a > b ? a : b; }
+};
+struct SumOp {
+  __device__ int operator()(int a, int b) const { return a + b; }
+};
+
+// Block-wide exclusive scan over the CTA's threads' values; `*total`
+// receives the combination of all of them.  `buf` holds 32 ints of shared
+// memory.  Every thread of the block must call it.
+template <typename Op>
+__device__ int block_exclusive_scan(int v, int identity, Op op, int* buf,
+                                    int* total) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int nwarps = blockDim.x >> 5;
+  int inc = v;
+#pragma unroll
+  for (int o = 1; o < 32; o <<= 1) {
+    const int n = __shfl_up_sync(0xffffffffu, inc, o);
+    if (lane >= o) inc = op(inc, n);
+  }
+  if (lane == 31) buf[warp] = inc;
+  __syncthreads();
+  if (warp == 0) {
+    int w = lane < nwarps ? buf[lane] : identity;
+#pragma unroll
+    for (int o = 1; o < 32; o <<= 1) {
+      const int n = __shfl_up_sync(0xffffffffu, w, o);
+      if (lane >= o) w = op(w, n);
+    }
+    buf[lane] = w;
+  }
+  __syncthreads();
+  int excl = __shfl_up_sync(0xffffffffu, inc, 1);
+  if (lane == 0) excl = identity;
+  const int res = op(warp == 0 ? identity : buf[warp - 1], excl);
+  *total = buf[nwarps - 1];
+  __syncthreads();  // buf may be reused by the next scan
+  return res;
+}
+
+// Writes the tokens of one group of 8 cells at p and returns the byte after
+// them.  `cv` holds the group's UNSCALED coefficients and `d` their
+// descriptors; values, classes and the group mode are re-derived with the
+// encoder's one f32 rounding (fv = cv * mulfac), so the bytes agree with the
+// costs the descriptors carry.
+__device__ __forceinline__ uint8_t* emit_group(uint8_t* p, const float cv[8],
+                                               const int32_t d[8],
+                                               float mulfac) {
+  float fv[8];
+  int32_t iv[8];
+#pragma unroll
+  for (int l = 0; l < 8; ++l) {
+    fv[l] = __fmul_rn(cv[l], mulfac);
+    iv[l] = cvtt(fv[l]);
+  }
+  const int mode = group_mode(iv);
+#pragma unroll
+  for (int l = 0; l < 8; ++l) {
+    const int cost = d[l] & 7;
+    if (cost == 0) continue;
+    const int32_t v = iv[l];
+    if (mode == 1) {
+      *p++ = (uint8_t)v;
+    } else if (mode == 2) {
+      if (l == 0) *p++ = 0x82;  // VLESC2_8x
+      *p++ = (uint8_t)v;
+      *p++ = (uint8_t)(v >> 8);
+    } else if (mode == 3) {
+      if (l == 0) *p++ = 0x7E;  // VLESC3_8x
+      *p++ = (uint8_t)v;
+      *p++ = (uint8_t)(v >> 8);
+      *p++ = (uint8_t)(v >> 16);
+    } else if (v == 0) {  // the token that flushes a zero run
+      const int32_t rl = (int32_t)((uint32_t)d[l] >> 4);
+      if (cost == 1) {
+        *p++ = 0;
+      } else if (cost == 2) {
+        *p++ = 127;  // RLESC1
+        *p++ = (uint8_t)rl;
+      } else {  // RLESC3 (+ the trailing single zero of a split run)
+        *p++ = 125;
+        *p++ = (uint8_t)rl;
+        *p++ = (uint8_t)(rl >> 8);
+        *p++ = (uint8_t)(rl >> 16);
+        if (cost == 5) *p++ = 0;
+      }
+    } else if (is_byte(v)) {
+      *p++ = (uint8_t)v;
+    } else if (is_short(v)) {
+      *p++ = 0x83;  // VLESC2
+      *p++ = (uint8_t)v;
+      *p++ = (uint8_t)(v >> 8);
+    } else if (is_i3(v)) {
+      *p++ = 0x81;  // VLESC3
+      *p++ = (uint8_t)v;
+      *p++ = (uint8_t)(v >> 8);
+      *p++ = (uint8_t)(v >> 16);
+    } else {
+      const uint32_t bits = __float_as_uint(fv[l]);
+      *p++ = 0x80;  // VLESC4: the scaled float itself
+      *p++ = (uint8_t)bits;
+      *p++ = (uint8_t)(bits >> 8);
+      *p++ = (uint8_t)(bits >> 16);
+      *p++ = (uint8_t)(bits >> 24);
+    }
+  }
+  return p;
+}
+
+}  // namespace cvx

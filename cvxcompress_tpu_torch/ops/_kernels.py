@@ -52,10 +52,22 @@ _SIGNATURES = {
         _VP, _VP, _VP, _VP, _VP, ctypes.c_int64, ctypes.c_float, ctypes.c_int,
         ctypes.c_int64, _VP, _VP,
     ],
+    "cvx_block_fwd_z": [_VP, ctypes.c_int, ctypes.c_int, ctypes.c_int, _VP, _VP, _VP],
+    "cvx_block_encode_xy": [
+        _VP, _VP, ctypes.c_float, ctypes.c_int64, _VP, _VP, _VP, _VP, _VP, _VP,
+    ],
+    "cvx_block_emit": [
+        _VP, ctypes.c_float, _VP, _VP, _VP, ctypes.c_int64, _VP, _VP,
+    ],
+    "cvx_block_inv_xy": [
+        _VP, _VP, ctypes.c_int, ctypes.c_int, ctypes.c_int, _VP, _VP,
+    ],
+    "cvx_block_inv_z": [_VP, ctypes.c_int, ctypes.c_int, ctypes.c_int, _VP, _VP],
 }
 
-launches = {"fused_encode": 0, "emit_payload": 0, "fused_inverse": 0,
-            "decode_maps": 0, "decode_chase": 0, "decode_emit": 0}
+# one counter per launched kernel (the 128^3 encode and inverse are two
+# launches each, so a run shows every pass)
+launches = {name[len("cvx_"):]: 0 for name in _SIGNATURES}
 build_info = {}  # library path, build seconds, nvcc's -Xptxas -v report
 
 _lib = None

@@ -1,13 +1,17 @@
 """The codec: compress on the device; decompress on the device or the host.
 
 Compress (CvxCompress::Compress semantics, CvxCompress.cpp:231-427), one
-straight path:
+straight path, its kernels chosen by the block geometry:
   1. mulfac from the global RMS (ops/quant.py);
-  2. fused_encode (ops/tokenize.py): transform, tokenize, per-block sizes;
+  2. the encode kernel: transform, tokenize, per-block sizes
+     (32^3: ops/tokenize.py `fused_encode`; 128^3 over dims that are
+     multiples of 128: ops/fused_compress.py `block_encode`, which also
+     gives every 128-cell chunk's byte count);
   3. one small read-back of the per-block sizes and raw flags;
-  4. the exclusive cumsum of the non-raw blocks' sizes gives every block's
-     base in the stream;
-  5. emit_payload (ops/pack.py) writes a stream of exactly that many bytes;
+  4. the exclusive cumsum of the non-raw blocks' sizes (32^3) or chunks'
+     byte counts (128^3) gives every block's or chunk's base in the stream;
+  5. the emit kernel writes a stream of exactly that many bytes
+     (ops/pack.py `emit_payload`, `emit_chunks`);
   6. one device-to-host copy of the stream (plus the raw blocks'
      coefficients, when there are any);
   7. the host assembles the container (ops/rle_device.py, container.py).
@@ -18,17 +22,23 @@ codec.py:1490-1523`):
   `plan`: the payload copied into aligned rows, ∝ compressed bytes) and
   uploads one blob; the device parses the stream (decode_maps,
   decode_chase), emits the coefficients into a dense block-major buffer
-  (decode_emit), overlays the raw blocks and runs fused_inverse on it;
+  (decode_emit), overlays the raw blocks and runs the inverse kernel on it
+  (32^3: `fused_inverse`; 128^3: `block_fused_inverse`);
 - "host": the native library decodes every block on the host, only the
-  non-zero 128-cell chunks go up to the device (`sparse_chunks`), and
-  fused_inverse runs the inverse there.
+  non-zero 128-cell chunks go up to the device (`sparse_chunks`), and the
+  inverse kernel runs there (at 128^3 after one `index_copy_` of the chunks
+  into a zeroed dense buffer).
 
 Each stage runs inside a `torch.profiler.record_function` span named
 "cvx.<stage>", so a profiler trace attributes host and device time to the
 stages.
 
-This slice covers 32^3 blocks with the global RMS; other block shapes and
-the local RMS raise NotImplementedError (see ROADMAP.md).
+Everything runs on the CUDA card unless the caller asks for the CPU
+(`device="cpu"`, where the plain PyTorch versions of the kernels run); on
+a machine without a card the default raises.  This slice covers 32^3
+blocks, and 128^3 blocks over dims that are multiples of 128, with the
+global RMS; other geometries and the local RMS raise NotImplementedError
+(see ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -40,21 +50,37 @@ from torch.profiler import record_function
 from .. import container as ctn
 from ..utils import io
 from . import (
-    entropy_decode, fused_inverse, pack, quant, rle_device, rle_host, tokenize,
+    entropy_decode, fused_compress, fused_inverse, pack, quant, rle_device,
+    rle_host, tokenize,
 )
 
 BLOCK = (32, 32, 32)
-CELLS = 32 * 32 * 32
 CHUNK = 128
 
 
-def _check_slice(block, use_local_rms):
-    if tuple(block) != BLOCK or use_local_rms:
-        raise NotImplementedError(
-            f"block={tuple(block)}, use_local_rms={use_local_rms}: this port "
-            "covers 32^3 blocks with the global RMS only; the rest is "
-            "still to be ported (ROADMAP.md)"
-        )
+def _check_slice(vol_shape, block, use_local_rms):
+    block = tuple(block)
+    if not use_local_rms and (
+        block == BLOCK or fused_compress.fused_path_ok(vol_shape, block)
+    ):
+        return
+    raise NotImplementedError(
+        f"block={block}, shape={tuple(vol_shape)}, use_local_rms="
+        f"{use_local_rms}: this port covers 32^3 blocks, and 128^3 blocks "
+        "over dims that are multiples of 128, with the global RMS only; the "
+        "rest is still to be ported (ROADMAP.md)"
+    )
+
+
+def _target(device):
+    """The torch device to run on: "cuda" unless the caller names another;
+    a CUDA device on a machine without a card raises."""
+    device = torch.device("cuda" if device is None else device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(f"device {str(device)!r} (the default) needs a CUDA "
+                           "card and there is none; pass device='cpu' to run "
+                           "the plain PyTorch versions on the CPU")
+    return device
 
 
 def _device_volume(vol, device):
@@ -66,9 +92,7 @@ def _device_volume(vol, device):
             )
         t = vol
     else:
-        device = torch.device(device or "cpu")
-        if device.type == "cuda" and not torch.cuda.is_available():
-            raise RuntimeError("device='cuda' requested but no CUDA device")
+        device = _target(device)
         t = torch.from_numpy(np.ascontiguousarray(vol, dtype=np.float32))
         t = t.to(device)
     if t.dim() != 3:
@@ -80,10 +104,13 @@ def compress(vol, scale, block=BLOCK, use_local_rms=False, device=None):
     """Compress a (nz, ny, nx) f32 volume. Returns (container uint8, ratio).
 
     `vol` is a numpy array or a torch tensor; a tensor brings its own device,
-    a numpy volume goes to `device` ("cpu" when None).  On the CPU the plain
-    PyTorch versions of the kernels run, on "cuda" the kernels.
+    a numpy volume goes to `device` ("cuda" when None).  On "cuda" the
+    kernels run, on "cpu" their plain PyTorch versions.  `block` is (32, 32,
+    32), or (128, 128, 128) over dims that are multiples of 128.
     """
-    _check_slice(block, use_local_rms)
+    _check_slice(np.shape(vol), block, use_local_rms)
+    block = tuple(block)
+    cells = block[0] * block[1] * block[2]
     with record_function("cvx.volume_h2d"):
         t = _device_volume(vol, device)
     nz, ny, nx = t.shape
@@ -91,16 +118,28 @@ def compress(vol, scale, block=BLOCK, use_local_rms=False, device=None):
         mulfac = quant.global_mulfac(
             t if isinstance(vol, torch.Tensor) else vol, scale
         )
-    with record_function("cvx.fused_encode"):
-        coeffs, desc, sizes, raw = tokenize.fused_encode(t, mulfac)
+    if block == BLOCK:
+        with record_function("cvx.fused_encode"):
+            coeffs, desc, sizes, raw = tokenize.fused_encode(t, mulfac)
+    else:
+        with record_function("cvx.block_encode"):
+            coeffs, desc, chunk_bytes, sizes, raw = fused_compress.block_encode(
+                t, mulfac)
     with record_function("cvx.sizes_readback"):
         sr = torch.stack([sizes, raw.to(torch.int32)]).cpu().numpy()
     sizes_h, raw_h = sr[0].astype(np.int64), sr[1].astype(bool)
-    with record_function("cvx.emit_payload"):
-        nr_sizes = torch.where(raw, 0, sizes).to(torch.int64)
-        base = torch.cumsum(nr_sizes, 0) - nr_sizes
-        total = int(sizes_h[~raw_h].sum())
-        stream = pack.emit_payload(coeffs, mulfac, desc, base, raw, total)
+    total = int(sizes_h[~raw_h].sum())
+    if block == BLOCK:
+        with record_function("cvx.emit_payload"):
+            nr_sizes = torch.where(raw, 0, sizes).to(torch.int64)
+            base = torch.cumsum(nr_sizes, 0) - nr_sizes
+            stream = pack.emit_payload(coeffs, mulfac, desc, base, raw, total)
+    else:
+        with record_function("cvx.emit_chunks"):
+            cb = chunk_bytes.to(torch.int64)
+            base = torch.cumsum(cb, 0) - cb
+            stream = pack.emit_chunks(coeffs, mulfac, desc, chunk_bytes, base,
+                                      total)
     with record_function("cvx.stream_d2h"):
         stream_h = stream.cpu().numpy()
         raw_bytes_h = None
@@ -109,9 +148,9 @@ def compress(vol, scale, block=BLOCK, use_local_rms=False, device=None):
             raw_bytes_h = coeffs[raw].cpu().numpy().view(np.uint8)
     with record_function("cvx.assemble"):
         payload, _ = rle_device.assemble_payload_blockorder(
-            stream_h, sizes_h, raw_h, raw_bytes_h, CELLS
+            stream_h, sizes_h, raw_h, raw_bytes_h, cells
         )
-        hdr = ctn.Header(nx, ny, nz, *BLOCK, mulfac, False)
+        hdr = ctn.Header(nx, ny, nz, *block, mulfac, False)
         data = ctn.pack_stream(hdr, sizes_h, raw_h, payload)
     return data, (nx * ny * nz * 4) / data.size
 
@@ -128,6 +167,18 @@ def sparse_chunks(coeffs):
     invmap = np.full(flat.shape[0], idx.size, dtype=np.int32)
     invmap[idx] = np.arange(idx.size, dtype=np.int32)
     return np.ascontiguousarray(flat[idx]), invmap
+
+
+def _inverse(dense, hdr):
+    """The inverse kernel of the container's geometry on the dense
+    block-major coefficients."""
+    shape = (hdr.nz, hdr.ny, hdr.nx)
+    rows = dense.view(-1, CHUNK)
+    if (hdr.bx, hdr.by, hdr.bz) == BLOCK:
+        with record_function("cvx.fused_inverse"):
+            return fused_inverse.fused_inverse(rows, None, shape)
+    with record_function("cvx.block_fused_inverse"):
+        return fused_inverse.block_fused_inverse(rows, shape)
 
 
 def decompress_device(data, device):
@@ -151,35 +202,42 @@ def decompress_device(data, device):
                                     p["scalefac"][0], hdr.grid[3], cells)
     with record_function("cvx.overlay_raw"):
         entropy_decode.overlay_raw(dense, b["raw_rows"], b["raw_ids"])
-    with record_function("cvx.fused_inverse"):
-        return fused_inverse.fused_inverse(
-            dense.view(-1, CHUNK), None, (hdr.nz, hdr.ny, hdr.nx)
-        )
+    return _inverse(dense, hdr)
 
 
 def _decode_host(data, hdr, blkoffs, payload_base, device):
     """The host engine: native decode, chunk-sparse upload, inverse."""
     raw = np.frombuffer(memoryview(data), dtype=np.uint8)
+    shape = (hdr.nz, hdr.ny, hdr.nx)
     with record_function("cvx.decode_host"):
         coeffs = rle_host.decode_payloads(
-            raw[payload_base:], blkoffs, hdr.glob_mulfac, CELLS
+            raw[payload_base:], blkoffs, hdr.glob_mulfac,
+            hdr.bx * hdr.by * hdr.bz,
         )
     with record_function("cvx.sparse_chunks"):
         rows, invmap = sparse_chunks(coeffs)
+    if (hdr.bx, hdr.by, hdr.bz) == BLOCK:
+        with record_function("cvx.chunks_h2d"):
+            rows_t = torch.from_numpy(rows).to(device)
+            invmap_t = torch.from_numpy(invmap).to(device)
+        with record_function("cvx.fused_inverse"):
+            return fused_inverse.fused_inverse(rows_t, invmap_t, shape)
     with record_function("cvx.chunks_h2d"):
         rows_t = torch.from_numpy(rows).to(device)
-        invmap_t = torch.from_numpy(invmap).to(device)
-    with record_function("cvx.fused_inverse"):
-        return fused_inverse.fused_inverse(
-            rows_t, invmap_t, (hdr.nz, hdr.ny, hdr.nx)
-        )
+        ids_t = torch.from_numpy(np.flatnonzero(invmap < rows.shape[0])).to(device)
+    with record_function("cvx.densify"):
+        dense = torch.zeros((invmap.size, CHUNK), dtype=torch.float32,
+                            device=device)
+        dense.index_copy_(0, ids_t, rows_t)
+    return _inverse(dense, hdr)
 
 
 ENGINES = ("auto", "device", "host")
 
 
-def decompress(data, device="cpu", engine="auto"):
-    """Decompress a container to a (nz, ny, nx) f32 tensor on `device`.
+def decompress(data, device="cuda", engine="auto"):
+    """Decompress a container to a (nz, ny, nx) f32 tensor on `device`
+    ("cuda" by default, "cpu" for the plain PyTorch versions).
 
     engine:
       "auto"   -- the device engine when `device` is CUDA, the host engine
@@ -197,10 +255,9 @@ def decompress(data, device="cpu", engine="auto"):
         raise ValueError(f"engine must be one of {ENGINES}, got {engine!r}")
     io.validate(data)
     hdr, blkoffs, _, payload_base = ctn.unpack(data)
-    _check_slice((hdr.bx, hdr.by, hdr.bz), hdr.use_local_rms)
-    device = torch.device(device)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError("device='cuda' requested but no CUDA device")
+    _check_slice((hdr.nz, hdr.ny, hdr.nx), (hdr.bx, hdr.by, hdr.bz),
+                 hdr.use_local_rms)
+    device = _target(device)
     if engine == "device" or (engine == "auto" and device.type == "cuda"):
         out = decompress_device(data, device)
         if out is not None:

@@ -13,6 +13,12 @@ coefficients as 128-cell rows (nrows, 128) f32, in one of two modes:
 TPU counterpart: `cvxcompress_tpu/ops/fused_inverse.py`
 `stripe_fused_inverse` (:128), fed by `ops/codec.py:1068`
 `_decompress_sparse`.
+
+`block_fused_inverse` (csrc/block_inverse.cu, plain version
+`block_fused_inverse_plain`) is the 128^3 inverse (K8 port, counterpart of
+`block_fused_inverse` :65): the dense block-major (nnn*16384, 128) buffer
+the device entropy decoder writes -> the (nz, ny, nx) volume, dims
+multiples of 128.
 """
 
 from __future__ import annotations
@@ -23,6 +29,7 @@ from . import _kernels, blocks, wavelet
 
 BLOCK = (32, 32, 32)
 CHUNK = 128
+B128 = 128
 
 
 def fused_inverse_plain(rows, invmap, vol_shape):
@@ -64,3 +71,67 @@ def fused_inverse(rows, invmap, vol_shape):
         op.data_ptr(), nx, ny, nz, vol.data_ptr(),
     )
     return vol
+
+
+def block_inv_xy_plain(dense, vol_shape):
+    """Plain version of pass 1: the x, then y inverse of every block, laid
+    out as the volume."""
+    op = wavelet.operator(B128, inverse=True, device=dense.device)
+    t = torch.einsum("nzyx,Xx->nzyX", dense.reshape(-1, B128, B128, B128), op)
+    t = torch.einsum("nzyx,Yy->nzYx", t, op)
+    return blocks.from_blocks(t, vol_shape, (B128,) * 3)
+
+
+def block_inv_z_plain(vol):
+    """Plain version of pass 2: the z inverse of every block."""
+    op = wavelet.operator(B128, inverse=True, device=vol.device)
+    t = torch.einsum("nzyx,Zz->nZyx", blocks.to_blocks(vol, (B128,) * 3), op)
+    return blocks.from_blocks(t, vol.shape, (B128,) * 3)
+
+
+def block_fused_inverse_plain(dense, vol_shape):
+    """Plain PyTorch version of the 128^3 kernel (same volume)."""
+    return block_inv_z_plain(block_inv_xy_plain(dense, vol_shape))
+
+
+def _check_dims(vol_shape):
+    if len(vol_shape) != 3 or any(n % B128 for n in vol_shape):
+        raise ValueError(f"the 128^3 inverse needs (nz, ny, nx) multiples of "
+                         f"{B128}, got {tuple(vol_shape)}")
+
+
+def block_inv_xy(dense, vol_shape):
+    """Pass 1 (kernel `block_inv_xy`): the x and y inverse of every z-slice,
+    written to its place in a new (nz, ny, nx) volume."""
+    _check_dims(vol_shape)
+    nz, ny, nx = vol_shape
+    if dense.numel() != nz * ny * nx:
+        raise ValueError(f"dense holds {dense.numel()} cells, {tuple(vol_shape)} "
+                         f"needs {nz * ny * nx}")
+    if dense.device.type == "cpu":
+        return block_inv_xy_plain(dense, vol_shape)
+    _kernels.check_cuda(dense, dtypes=(torch.float32,))
+    vol = torch.empty(vol_shape, dtype=torch.float32, device=dense.device)
+    op = wavelet.operator(B128, inverse=True, device=dense.device)
+    _kernels.launch("block_inv_xy", dense.data_ptr(), op.data_ptr(), nx, ny, nz,
+                    vol.data_ptr())
+    return vol
+
+
+def block_inv_z(vol):
+    """Pass 2 (kernel `block_inv_z`): the z inverse of every block, in place
+    on a CUDA volume."""
+    _check_dims(vol.shape)
+    if vol.device.type == "cpu":
+        return block_inv_z_plain(vol)
+    _kernels.check_cuda(vol, dtypes=(torch.float32,))
+    nz, ny, nx = vol.shape
+    op = wavelet.operator(B128, inverse=True, device=vol.device)
+    _kernels.launch("block_inv_z", op.data_ptr(), nx, ny, nz, vol.data_ptr())
+    return vol
+
+
+def block_fused_inverse(dense, vol_shape):
+    """(nz, ny, nx) f32 volume from the dense (nnn*16384, 128) coefficient
+    rows of 128^3 blocks (dims multiples of 128); see the module doc."""
+    return block_inv_z(block_inv_xy(dense, vol_shape))

@@ -11,6 +11,12 @@ splices their coefficients in (`rle_device.assemble_payload_blockorder`).
 
 TPU counterparts: `pack_pallas.pack_staging_seg` (:479) and
 `pack_pallas.tile_compact` (:605).
+
+`emit_chunks` (csrc/block_emit.cu, plain version `emit_chunks_plain`) is
+the same stream for the 128^3 blocks of ops/fused_compress.py, laid out by
+128-cell chunk: each chunk's tokens land at its own base, the exclusive
+cumsum of the chunk byte counts (0 in raw blocks).  TPU counterpart:
+`pack_pallas.pack_staging` (:515) inside `rle_device.pack_active` (:401).
 """
 
 from __future__ import annotations
@@ -19,6 +25,8 @@ import torch
 
 from . import _kernels, quant, rle_device
 from .tokenize import scaled
+
+CHUNK = 128
 
 
 def _byte(v, k):
@@ -111,5 +119,47 @@ def emit_payload(coeffs, mulfac, desc, base, raw, total):
     _kernels.launch(
         "emit_payload", coeffs.data_ptr(), float(mulfac), desc.data_ptr(),
         base.data_ptr(), raw.data_ptr(), nnn, out.data_ptr(),
+    )
+    return out
+
+
+def emit_chunks_plain(coeffs, mulfac, desc, chunk_bytes, chunk_base, total):
+    """Plain PyTorch version of the chunk kernel (same stream)."""
+    rows = coeffs.reshape(-1, CHUNK)
+    planes, cost = token_bytes(rows, mulfac, desc.reshape(-1, CHUNK))
+    cost = torch.where((chunk_bytes == 0)[:, None], 0, cost)
+    pos = chunk_base[:, None] + (torch.cumsum(cost, dim=1) - cost)
+    out = torch.zeros(total, dtype=torch.uint8, device=coeffs.device)
+    for k, plane in enumerate(planes):
+        m = cost > k
+        out[pos[m] + k] = plane[m].to(torch.uint8)
+    return out
+
+
+def emit_chunks(coeffs, mulfac, desc, chunk_bytes, chunk_base, total):
+    """Block-ordered payload stream (total,) uint8 of the non-raw blocks.
+
+    coeffs (nnn, cells) f32 unscaled, desc (nnn, cells) int32, chunk_bytes
+    (nchunks,) int32 (0 for every chunk of a raw block), chunk_base
+    (nchunks,) int64 the exclusive cumsum of chunk_bytes; `total` is their
+    sum.
+    """
+    if coeffs.device.type == "cpu":
+        return emit_chunks_plain(coeffs, mulfac, desc, chunk_bytes, chunk_base,
+                                 total)
+    _kernels.check_cuda(
+        coeffs, desc, chunk_bytes, chunk_base,
+        dtypes=(torch.float32, torch.int32, torch.int32, torch.int64),
+    )
+    nchunks = chunk_bytes.numel()
+    if (coeffs.numel() != nchunks * CHUNK or desc.numel() != coeffs.numel()
+            or chunk_base.numel() != nchunks):
+        raise ValueError(f"{nchunks} chunks need {nchunks * CHUNK} coefficients "
+                         f"and descriptors and {nchunks} bases, got "
+                         f"{coeffs.numel()}, {desc.numel()}, {chunk_base.numel()}")
+    out = torch.empty(total, dtype=torch.uint8, device=coeffs.device)
+    _kernels.launch(
+        "block_emit", coeffs.data_ptr(), float(mulfac), desc.data_ptr(),
+        chunk_bytes.data_ptr(), chunk_base.data_ptr(), nchunks, out.data_ptr(),
     )
     return out

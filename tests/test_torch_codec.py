@@ -36,23 +36,28 @@ def rel_rms(got, ref):
 def radial():
     """Unaligned on every axis, with noise: edge blocks and every token."""
     vol = make_radial_volume(nz=40, ny=50, nx=70)
-    data, _ = cvt.compress(vol, 1e-2)
+    data, _ = cvt.compress(vol, 1e-2, device="cpu")
     return vol, data
 
 
 def test_import_leaves_jax_out():
-    """The port imports neither jax nor the JAX package, even after a full
-    roundtrip through every module."""
+    """The port imports neither jax nor the JAX package, even after full
+    roundtrips through every module, at 32^3 and at 128^3."""
     code = (
         "import sys, numpy as np\n"
         "import cvxcompress_tpu_torch as cvt\n"
         "from cvxcompress_tpu_torch.ops import (_kernels, codec, entropy_decode,"
-        " fused_inverse, pack, quant, rle_device, rle_host, tokenize, wavelet,"
-        " blocks)\n"
+        " fused_compress, fused_inverse, pack, quant, rle_device, rle_host,"
+        " tokenize, wavelet, blocks)\n"
         "from cvxcompress_tpu_torch.utils import io\n"
         "v = np.ones((32, 32, 40), np.float32)\n"
-        "cvt.decompress(cvt.compress(v, 1e-2)[0])\n"
-        "cvt.decompress(cvt.compress(v, 1e-2)[0], engine='device')\n"
+        "cvt.decompress(cvt.compress(v, 1e-2, device='cpu')[0], device='cpu')\n"
+        "cvt.decompress(cvt.compress(v, 1e-2, device='cpu')[0], device='cpu',"
+        " engine='device')\n"
+        "w = np.zeros((128, 128, 128), np.float32)\n"
+        "w[60:70, 60:70, 60:70] = 1.0\n"
+        "d = cvt.compress(w, 1e-2, block=(128, 128, 128), device='cpu')[0]\n"
+        "assert cvt.decompress(d, device='cpu').shape == (128, 128, 128)\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
         " or m.startswith('cvxcompress_tpu.') or m == 'cvxcompress_tpu']\n"
         "assert not bad, bad\n"
@@ -66,8 +71,8 @@ def test_import_leaves_jax_out():
 def test_roundtrip_sinusoid_quality_bars():
     """The reference CI bars on a small sinusoid."""
     vol = make_sinusoid_volume(96, 64, 64, periods=3)
-    data, ratio = cvt.compress(vol, 1e-2, block=(32, 32, 32))
-    out = cvt.decompress(data)
+    data, ratio = cvt.compress(vol, 1e-2, block=(32, 32, 32), device="cpu")
+    out = cvt.decompress(data, device="cpu")
     assert isinstance(out, torch.Tensor) and out.dtype == torch.float32
     err, snr = rel_error_and_snr(vol, out.numpy())
     assert err < 2e-4, err
@@ -81,7 +86,7 @@ def test_port_container_decodes_elsewhere(radial, decoder):
     """Port containers decode under the oracle, the JAX package and the
     native C ABI, within the transform tolerance of the port's own decode."""
     vol, data = radial
-    mine = cvt.decompress(data).numpy()
+    mine = cvt.decompress(data, device="cpu").numpy()
     if decoder == "oracle":
         other = ocodec.decompress(data)
     elif decoder == "jax":
@@ -100,7 +105,7 @@ def test_port_container_decodes_elsewhere(radial, decoder):
 def test_size_close_to_oracle(shape, kind):
     vol = (make_radial_volume(*shape) if kind == "radial"
            else make_sinusoid_volume(*shape, periods=3))
-    mine, _ = cvt.compress(vol, 1e-2)
+    mine, _ = cvt.compress(vol, 1e-2, device="cpu")
     ref, _ = ocodec.compress(vol, 1e-2)
     assert abs(int(mine.size) - int(ref.size)) <= max(64, 0.01 * ref.size)
 
@@ -116,7 +121,7 @@ def test_port_decodes_foreign_containers(radial, producer):
         data, _ = jcodec.compress(vol, 1e-2)
     else:
         data, _ = rle_host.host_compress(vol, 1e-2)
-    mine = cvt.decompress(data).numpy()
+    mine = cvt.decompress(data, device="cpu").numpy()
     assert rel_rms(mine, jcodec.decompress(data)) < TRANSFORM_TOL
 
 
@@ -124,10 +129,10 @@ def test_raw_fallback_roundtrip(rng):
     """Noise at scale 1e-8 makes blocks fall back to raw coefficients; the
     container still roundtrips, here and under the oracle."""
     vol = rng.standard_normal((40, 50, 70)).astype(np.float32)
-    data, ratio = cvt.compress(vol, 1e-8)
+    data, ratio = cvt.compress(vol, 1e-8, device="cpu")
     _, blkoffs, _, _ = ctn.unpack(data)
     assert (blkoffs < 0).any() and ratio < 1.0
-    out = cvt.decompress(data).numpy()
+    out = cvt.decompress(data, device="cpu").numpy()
     assert rel_rms(out, vol) < 1e-5
     assert rel_rms(ocodec.decompress(data), vol) < 1e-5
 
@@ -157,21 +162,21 @@ def test_container_copy_matches_jax(radial, rng):
 def test_validate_rejects_damage(radial):
     _, data = radial
     with pytest.raises(ValueError):
-        cvt.decompress(data[: data.size // 2])
+        cvt.decompress(data[: data.size // 2], device="cpu")
     with pytest.raises(ValueError):
-        cvt.decompress(data[:20])
+        cvt.decompress(data[:20], device="cpu")
 
 
 def test_outside_the_slice_raises(radial):
     """Local RMS and block shapes other than 32^3 are not ported yet."""
     vol, _ = radial
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        cvt.compress(vol, 1e-2, use_local_rms=True)
+        cvt.compress(vol, 1e-2, use_local_rms=True, device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        cvt.compress(vol, 1e-2, block=(16, 16, 16))
+        cvt.compress(vol, 1e-2, block=(16, 16, 16), device="cpu")
     data16, _ = ocodec.compress(vol, 1e-2, block=(16, 16, 16))
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        cvt.decompress(data16)
+        cvt.decompress(data16, device="cpu")
 
 
 def test_cuda_without_card_raises(radial):
@@ -191,16 +196,33 @@ def test_cuda_without_card_raises(radial):
         _kernels.check_cuda(torch.zeros(4), dtypes=(torch.float32,))
 
 
+def test_default_device_is_the_card(radial):
+    """With no `device`, compress, decompress and CvxCompress run on "cuda";
+    without a card that raises: nothing falls back to the CPU."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is present")
+    vol, data = radial
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        cvt.compress(vol, 1e-2)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        cvt.decompress(data)
+    with pytest.raises(RuntimeError):
+        cvt.CvxCompress().Compress(1e-2, vol, 32, 32, 32)
+    with pytest.raises(RuntimeError):
+        cvt.CvxCompress().Decompress(data)
+    assert cvt.CvxCompress().device == "cuda"
+
+
 def test_class_surface_and_native_c_abi(radial):
     """CvxCompress().Compress / .Decompress, and a container from the native
     reference C ABI (cvx_compress) decoding in the port."""
     vol, _ = radial
-    codec = cvt.CvxCompress()
+    codec = cvt.CvxCompress(device="cpu")
     data, ratio = codec.Compress(1e-2, vol, 32, 32, 32)
     out = codec.Decompress(data).numpy()
     assert rel_error_and_snr(vol, out)[0] < 1e-2
     native, _ = rle_host.host_compress(vol, 1e-2)
     ref, _ = jrle_host.host_compress(vol, 1e-2)
     np.testing.assert_array_equal(native, ref)
-    mine = cvt.decompress(native).numpy()
+    mine = cvt.decompress(native, device="cpu").numpy()
     assert rel_rms(mine, rle_host.host_decompress(native)) < TRANSFORM_TOL

@@ -15,8 +15,8 @@ torch = pytest.importorskip("torch")  # the port's tests need PyTorch
 import cvxcompress_tpu_torch as cvt
 from cvxcompress_tpu_torch import container as ctn
 from cvxcompress_tpu_torch.ops import (
-    _kernels, codec, entropy_decode, fused_inverse, pack, quant, rle_device,
-    rle_host, tokenize,
+    _kernels, codec, entropy_decode, fused_compress, fused_inverse, pack, quant,
+    rle_device, rle_host, tokenize,
 )
 
 pytestmark = pytest.mark.cuda
@@ -125,10 +125,9 @@ def test_main_path_counts_and_agrees_with_cpu(dev, rng):
     data, _ = cvt.compress(vol, 1e-2, device="cuda")
     out = cvt.decompress(data, device="cuda")
     torch.cuda.synchronize()
-    assert _kernels.launches == {
-        "fused_encode": 1, "emit_payload": 1, "fused_inverse": 1,
-        "decode_maps": 1, "decode_chase": 1, "decode_emit": 1,
-    }
+    once = ("fused_encode", "emit_payload", "fused_inverse", "decode_maps",
+            "decode_chase", "decode_emit")
+    assert _kernels.launches == {k: int(k in once) for k in _kernels.launches}
     ref, _ = cvt.compress(vol, 1e-2, device="cpu")
     assert abs(int(data.size) - int(ref.size)) <= max(64, 0.01 * ref.size)
     assert rel_rms(out.cpu(), cvt.decompress(data, device="cpu")) < TRANSFORM_TOL
@@ -209,3 +208,120 @@ def test_kernel_wrappers_reject_bad_inputs(dev):
             torch.zeros((1, 128), device=dev),
             torch.zeros(5, dtype=torch.int32, device=dev), (32, 32, 32),
         )
+
+
+# -- the 128^3 whole-block kernels ------------------------------------------
+
+BLOCK128 = (128, 128, 128)
+
+
+def volume128(kind, shape):
+    """Inputs of the 128^3 kernels: "sparse" (x40 noise at 20 % density, every
+    token class), "cube" (zero but for a small cube: zero runs over whole
+    z-slices, the look-back's long walk), "sine" (the smooth CI field)."""
+    r = np.random.default_rng(128)
+    if kind == "sparse":
+        v = (r.standard_normal(shape) * 40).astype(np.float32)
+        v[r.random(shape) >= 0.2] = 0.0
+        return v, 37.5
+    if kind == "cube":
+        v = np.zeros(shape, np.float32)
+        v[70:78, 40:46, 20:25] = 25.0
+        return v, 37.5
+    v = volume(r, shape)
+    return v, quant.global_mulfac(v, 1e-2)
+
+
+def encode128_vs_plain(vt, mulfac):
+    """block_encode against its plain version; returns the kernel's outputs."""
+    ck, dk, cbk, sk, rk = fused_compress.block_encode(vt, mulfac)
+    cp = fused_compress.block_encode_plain(vt, mulfac)[0]
+    torch.cuda.synchronize()
+    assert rel_rms(ck, cp) < TRANSFORM_TOL
+    d2, cb2, s2, r2 = fused_compress.tokenize_plain(tokenize.scaled(ck, mulfac))
+    assert torch.equal(dk, d2) and torch.equal(cbk, cb2)
+    assert torch.equal(sk, s2) and torch.equal(rk, r2)
+    return ck, dk, cbk, sk, rk
+
+
+@pytest.mark.parametrize("kind,shape", [
+    ("sparse", (128, 128, 256)), ("cube", (128, 128, 256)),
+    ("sine", (128, 128, 256)), ("sine", (384, 384, 384)),
+])
+def test_block128_kernels_match_plain(dev, kind, shape):
+    vol, mulfac = volume128(kind, shape)
+    vt = torch.from_numpy(vol).to(dev)
+    ck, dk, cbk, sk, rk = encode128_vs_plain(vt, mulfac)
+    base = torch.cumsum(cbk.long(), 0) - cbk.long()
+    total = int(cbk.sum())
+    got = pack.emit_chunks(ck, mulfac, dk, cbk, base, total)
+    assert torch.equal(got, pack.emit_chunks_plain(ck, mulfac, dk, cbk, base, total))
+    streams, nsizes, nraw = rle_host.encode_payloads(ck.cpu().numpy(), mulfac)
+    np.testing.assert_array_equal(nsizes, sk.cpu().numpy())
+    parts = [st for st, r in zip(streams, nraw) if not r]
+    native = np.concatenate(parts) if parts else np.zeros(0, np.uint8)
+    np.testing.assert_array_equal(got.cpu().numpy(), native)
+    rows = ck.view(-1, 128)
+    vk = fused_inverse.block_fused_inverse(rows, shape)
+    vp = fused_inverse.block_fused_inverse_plain(rows, shape)
+    torch.cuda.synchronize()
+    assert rel_rms(vk, vp) < TRANSFORM_TOL
+    assert rel_rms(vk.cpu(), torch.from_numpy(vol)) < TRANSFORM_TOL
+
+
+def test_block128_raw_fallback_on_the_card(dev):
+    """x1000 noise beside a quiet block at 1e-8: block 0 falls back to raw;
+    kernel and plain version agree, and the stream skips the raw block."""
+    vol = (np.random.default_rng(81).standard_normal((128, 128, 256))
+           * 1000).astype(np.float32)
+    vol[:, :, 128:] *= 1e-6
+    mulfac = quant.global_mulfac(vol, 1e-8)
+    ck, dk, cbk, sk, rk = encode128_vs_plain(torch.from_numpy(vol).to(dev), mulfac)
+    assert rk.tolist() == [True, False]
+    assert int(cbk[:16384].sum()) == 0 and int(sk[0]) == 4 * 128 ** 3
+    data, _ = cvt.compress(vol, 1e-8, block=BLOCK128)
+    out = cvt.decompress(data)
+    ref = cvt.decompress(data, engine="host")
+    assert torch.equal(out, ref)
+
+
+def test_block128_roundtrip_on_the_card(dev):
+    """The public API at 128^3 on the default device: each 128^3 kernel and
+    each decode kernel launches once; the container and the volume agree
+    with the plain CPU path and the native decoder."""
+    vol = volume(np.random.default_rng(5), (128, 256, 128))
+    _kernels.reset_counts()
+    data, _ = cvt.compress(vol, 1e-2, block=BLOCK128)
+    out = cvt.decompress(data)
+    torch.cuda.synchronize()
+    once = ("block_fwd_z", "block_encode_xy", "block_emit", "block_inv_xy",
+            "block_inv_z", "decode_maps", "decode_chase", "decode_emit")
+    assert _kernels.launches == {k: int(k in once) for k in _kernels.launches}
+    assert out.device.type == "cuda"
+    ref, _ = cvt.compress(vol, 1e-2, block=BLOCK128, device="cpu")
+    assert abs(int(data.size) - int(ref.size)) <= max(64, 0.01 * ref.size)
+    assert rel_rms(out.cpu(), cvt.decompress(data, device="cpu")) < TRANSFORM_TOL
+    assert rel_rms(out, cvt.decompress(data, engine="host")) < TRANSFORM_TOL
+    nat = torch.from_numpy(rle_host.host_decompress(data))
+    assert rel_rms(out.cpu(), nat) < TRANSFORM_TOL
+
+
+def test_block128_decode_kernels_at_two_million_cells(dev):
+    """The decode kernels at cells = 2^21 on a noise container (one chain of
+    tens of thousands of subsegments per block) match their plain versions
+    and the native decoder."""
+    vol = np.random.default_rng(21).standard_normal((128, 128, 256)).astype(np.float32)
+    data, _ = rle_host.host_compress(vol, 1.0, block=BLOCK128)
+    dense = decode_kernels_vs_plain(data, dev)
+    hdr, blkoffs, _, pbase = ctn.unpack(data)
+    nat = rle_host.decode_payloads(data[pbase:], blkoffs, hdr.glob_mulfac, 128 ** 3)
+    np.testing.assert_array_equal(dense.cpu().numpy().view(np.uint32),
+                                  nat.view(np.uint32))
+
+
+def test_block128_wrappers_reject_bad_inputs(dev):
+    with pytest.raises(ValueError):
+        fused_compress.block_encode(torch.zeros((128, 128, 200), device=dev), 1.0)
+    with pytest.raises(ValueError):
+        fused_inverse.block_fused_inverse(torch.zeros((10, 128), device=dev),
+                                          BLOCK128)

@@ -57,11 +57,13 @@ def reorder_payload(data, seed):
 def _container(kind):
     rng = np.random.default_rng(3)
     if kind == "sinusoid":
-        return cvt.compress(make_sinusoid_volume(64, 64, 64, periods=3), 1e-2)[0]
+        return cvt.compress(make_sinusoid_volume(64, 64, 64, periods=3), 1e-2,
+                            device="cpu")[0]
     if kind == "radial":  # unaligned on every axis: edge blocks
-        return cvt.compress(make_radial_volume(40, 50, 70), 1e-2)[0]
+        return cvt.compress(make_radial_volume(40, 50, 70), 1e-2, device="cpu")[0]
     if kind == "raw_noise":
-        return cvt.compress(rng.standard_normal((40, 50, 70)).astype(np.float32), 1e-9)[0]
+        return cvt.compress(rng.standard_normal((40, 50, 70)).astype(np.float32),
+                            1e-9, device="cpu")[0]
     if kind == "oracle":
         return ocodec.compress(make_radial_volume(40, 50, 70), 1e-2)[0]
     if kind == "native_shuffled":
@@ -344,9 +346,9 @@ def test_emit_matches_emit_kernel_interpret():
 
 def test_device_engine_matches_host_engine_and_jax():
     vol = make_sinusoid_volume(96, 64, 64, periods=3)
-    data, ratio = cvt.compress(vol, 1e-2)
-    dev = cvt.decompress(data, engine="device").numpy()
-    host = cvt.decompress(data, engine="host").numpy()
+    data, ratio = cvt.compress(vol, 1e-2, device="cpu")
+    dev = cvt.decompress(data, device="cpu", engine="device").numpy()
+    host = cvt.decompress(data, device="cpu", engine="host").numpy()
     assert rel_rms(dev, host) < TRANSFORM_TOL
     assert rel_rms(dev, jcodec.decompress(data, engine="device")) < TRANSFORM_TOL
     err, snr = rel_error_and_snr(vol, dev)
@@ -356,8 +358,9 @@ def test_device_engine_matches_host_engine_and_jax():
 @pytest.mark.parametrize("kind", ["oracle", "native_shuffled", "raw_noise"])
 def test_device_engine_decodes_foreign_containers(kind):
     data = _container(kind)
-    dev = cvt.decompress(data, engine="device").numpy()
-    np.testing.assert_array_equal(dev, cvt.decompress(data, engine="host").numpy())
+    dev = cvt.decompress(data, device="cpu", engine="device").numpy()
+    np.testing.assert_array_equal(
+        dev, cvt.decompress(data, device="cpu", engine="host").numpy())
 
 
 # (g) corrupt payloads -----------------------------------------------------
@@ -383,7 +386,7 @@ def test_corrupt_payload_never_crashes_and_stays_in_its_blocks(seed):
     assert (~hit).any()
     np.testing.assert_array_equal(got[~hit].view(np.uint32),
                                   clean[~hit].view(np.uint32))
-    vol = cvt.decompress(bad, engine="device")
+    vol = cvt.decompress(bad, device="cpu", engine="device")
     assert tuple(vol.shape) == (64, 64, 96)
 
 
@@ -391,25 +394,25 @@ def test_corrupt_payload_never_crashes_and_stays_in_its_blocks(seed):
 
 
 def test_degenerate_container_raises_on_device_decodes_on_auto():
-    data = cvt.compress(make_radial_volume(40, 50, 70), 1e-2)[0].copy()
+    data = cvt.compress(make_radial_volume(40, 50, 70), 1e-2, device="cpu")[0].copy()
     offs = data[32: 32 + 8 * 12].view(np.int64)
     offs[1] = offs[0]  # two blocks share one payload
     cvt.utils.io.validate(data)
     assert ted.plan(data) is None and ed.plan(data) is None
     assert codec.decompress_device(data, "cpu") is None
     with pytest.raises(ValueError, match="device engine"):
-        cvt.decompress(data, engine="device")
-    out = cvt.decompress(data, engine="auto").numpy()
+        cvt.decompress(data, device="cpu", engine="device")
+    out = cvt.decompress(data, device="cpu", engine="auto").numpy()
     assert rel_rms(out, jcodec.decompress(data, engine="host")) < TRANSFORM_TOL
     with pytest.raises(ValueError, match="engine"):
-        cvt.decompress(data, engine="gpu")
+        cvt.decompress(data, device="cpu", engine="gpu")
 
 
 # the class surface --------------------------------------------------------
 
 
 def test_class_surface_block_limits_and_inplace():
-    c = cvt.CvxCompress()
+    c = cvt.CvxCompress(device="cpu")
     assert (c.Min_BX(), c.Max_BX(), c.Min_BY(), c.Max_BY(), c.Min_BZ(),
             c.Max_BZ()) == (8, 256, 8, 256, 8, 256)
     assert cvt.CvxCompress.Is_Valid_Block_Size(32, 32, 32)
@@ -422,7 +425,7 @@ def test_class_surface_block_limits_and_inplace():
     assert c.Decompress_Inplace(arr, data) is arr
     np.testing.assert_array_equal(arr, ref)
     t = torch.zeros((40, 50, 70))
-    cvt.CvxCompress(engine="device").Decompress_Inplace(t, data)
+    cvt.CvxCompress(device="cpu", engine="device").Decompress_Inplace(t, data)
     assert rel_rms(t.numpy(), ref) < TRANSFORM_TOL
     with pytest.raises(ValueError, match="shape"):
         c.Decompress_Inplace(np.zeros((40, 50, 71), np.float32), data)

@@ -29,7 +29,8 @@ def test_operators_bit_equal_to_jax(n):
 
 
 @pytest.mark.parametrize(
-    "block_zyx", [(32, 32, 32), (8, 16, 32), (1, 16, 16), (16, 8, 64)]
+    "block_zyx",
+    [(32, 32, 32), (8, 16, 32), (1, 16, 16), (16, 8, 64), (128, 128, 128)],
 )
 def test_plain_transforms_match_oracle(block_zyx, rng):
     """forward_blocks / inverse_blocks stay within 1e-5 of the scalar
