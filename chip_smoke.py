@@ -4,12 +4,16 @@
     python3 chip_smoke.py
 
 Builds the CUDA kernels (csrc/, nvcc for sm_90a) and the native host library
-(make -C native), then, for each of the two ported paths:
+(make -C native), then, for each of the ported paths:
 
 - config A, the reference CI input: the (352, 416, 320) sinusoid at scale
   1e-2 with 32^3 blocks (phases 2 and 3);
 - config B, the JAX package's bench config B: the (384, 384, 384) sinusoid
   at scale 1e-2 with 128^3 blocks (phases 2b and 3b);
+- both with the local RMS, `use_local_rms=True` (phases 2c, 3c and 3d; the
+  kernels also on a "ramp" volume whose block RMS span 10^4, with an
+  all-zero, a ~1e-38 and a NaN block; the ratio and the mulfac table held
+  against the native library's local codec run in the same script);
 
 it compares every kernel of the path with its plain PyTorch version at the
 path's shapes (also on an N(0,1) noise volume of the same shape, the
@@ -28,7 +32,7 @@ could take for the same work), and on the last line
 {"ok": true, "device": {...}}.  Any failed check raises (exit code != 0)
 and prints no result; so does a machine without a CUDA card.  Profiler
 traces of one compress + decompress per config go to
-build/chip_smoke_trace_{A,B}.json.
+build/chip_smoke_trace_{A,B,3c,3d}.json.
 """
 
 from __future__ import annotations
@@ -54,14 +58,19 @@ SHAPE_B = (384, 384, 384)  # bench config B (bench.py:589, :595)
 BLOCK_B = (128, 128, 128)
 # the JAX package's record on config B (BENCH_dev_r05.json, B_north_star_128c)
 REF_B = dict(ratio=21411.6, err=3.511e-5, snr=89.1)
-# H100 SXM peaks (NVIDIA's data sheet): HBM3 bytes/s, f32 FLOP/s off the
-# tensor cores
+# H100 SXM peaks (NVIDIA's data sheet): HBM3 bytes/s, f32 and f64 FLOP/s off
+# the tensor cores
 HBM_BPS = 3.35e12
 F32_FLOPS = 67e12
+F64_FLOPS = 34e12
 KERNELS_A = ("fused_encode", "emit_payload", "fused_inverse")
 DECODE_KERNELS = ("decode_maps", "decode_chase", "decode_emit")
 KERNELS_B = ("block_fwd_z", "block_encode_xy", "block_emit", "block_inv_xy",
              "block_inv_z")
+# the local-RMS paths: config A and B with use_local_rms=True
+KERNELS_C = ("fused_encode_local", "emit_payload", "fused_inverse")
+KERNELS_D = ("block_fwd_z", "block_casc_local", "block_scale_tok", "block_emit",
+             "block_inv_xy", "block_inv_z")
 
 
 def check(cond, msg):
@@ -74,6 +83,12 @@ def sinusoid(nz, ny, nx, periods):
     """vol[z, y, x] = sin(z*pi*periods/nz) (Test_With_Generated_Input.cpp)."""
     z = np.sin(np.arange(nz) * np.pi * periods / nz).astype(np.float32)
     return np.broadcast_to(z[:, None, None], (nz, ny, nx)).copy()
+
+
+def same(a, b):
+    """Bit-equal float tensors, a NaN matching a NaN (a NaN block's sums)."""
+    na = a.isnan()
+    return bool((na == b.isnan()).all()) and bool((a[~na] == b[~na]).all())
 
 
 def rel_rms(a, b):
@@ -105,10 +120,49 @@ def cuda_ms(fn, iters):
     return t0.elapsed_time(t1) / iters
 
 
-def bound(nbytes, flops):
-    """The least time for the work: bytes over HBM, FLOP over f32 peak."""
-    tb, tf = nbytes / HBM_BPS * 1e3, flops / F32_FLOPS * 1e3
+def bound(nbytes, flops, flops64=0):
+    """The least time for the work: bytes over HBM, f32 and f64 FLOP over
+    their peaks."""
+    tb = nbytes / HBM_BPS * 1e3
+    tf = (flops / F32_FLOPS + flops64 / F64_FLOPS) * 1e3
     return dict(bound_ms=max(tb, tf), bound_by="bytes" if tb >= tf else "operations")
+
+
+def cascade_flops(n, inverse=False):
+    """f32 FLOP per sample of one axis' multi-level Antonini 7/9 cascade over
+    n samples, as short symmetric filters compute it (native/cvx_host.cpp):
+    an analysis lowpass output takes 4 pair adds, 5 multiplies and 4 adds
+    (13 FLOP), a highpass one 3, 4 and 3 (10); synthesis swaps the two, an
+    even output 10 and an odd one 13.  The levels are n, n - n//2, ..., 2.
+    The kernels apply the composed dense operator instead; the bound counts
+    the function's work, not theirs."""
+    lo, hi = (10, 13) if inverse else (13, 10)
+    total, m = 0, n
+    while m >= 2:
+        total += lo * (m - m // 2) + hi * (m // 2)
+        m -= m // 2
+    return total / n
+
+
+C32, C128 = cascade_flops(32), cascade_flops(128)
+C32_INV, C128_INV = cascade_flops(32, inverse=True), cascade_flops(128, inverse=True)
+
+
+def ramp(vol, b):
+    """`vol` with its b^3 blocks scaled by 10^-(block index mod 5) (block RMS
+    10^4 apart) and the guard cases in three blocks: all-zero (rms 0), ~1e-38
+    (1/(rms * scale) overflows) and one NaN (rms NaN); each gets mulfac 1.0,
+    and the NaN block's coefficients are all NaN: raw fallback."""
+    nz, ny, nx = vol.shape
+    nb = (-(-nz // b), -(-ny // b), -(-nx // b))
+    k = np.arange(np.prod(nb)) % 5
+    f = np.kron((10.0 ** -k).astype(np.float32).reshape(nb), np.ones((b, b, b), np.float32))
+    v = vol * f[:nz, :ny, :nx]
+    v[:b, :b, b:2 * b] = 0.0
+    v[:b, :b, 2 * b:3 * b] = np.float32(1e-38)
+    v[:b, b:2 * b, :b] = 0.5
+    v[b // 2, b + b // 2, b // 2] = np.nan
+    return v
 
 
 def wall_ms(fn, runs):
@@ -121,46 +175,71 @@ def wall_ms(fn, runs):
     return statistics.median(times), times
 
 
-def profiled(run_compress, run_decompress, tag, card):
-    """One profiled compress + decompress: host spans (ms), device busy and
-    idle share of the window; the trace goes to build/."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile
+def profiled(run_compress, run_decompress, tag, card, tries=4):
+    """One profiled compress + decompress (`run_decompress` synchronises):
+    host spans (ms), device busy and idle share of the window, span
+    `cvx.window`; the trace goes to build/.
 
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t = time.perf_counter()
-        run_compress()
-        run_decompress()
-        window_us = (time.perf_counter() - t) * 1e6
+    CUPTI may lose the device records of a profiling session's first
+    activities: the trace then holds the runtime call (cudaMemcpyAsync,
+    cudaLaunchKernel) with its correlation id but no copy or kernel with
+    that id.  So each session first makes a few small launches, and the
+    window counts only when every launch, copy and set issued in it has its
+    device record; else it is profiled again, `tries` times at most, and the
+    idle share is None: not measured."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile, record_function
+
     trace_dir = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build")
     os.makedirs(trace_dir, exist_ok=True)
-    prof.export_chrome_trace(os.path.join(trace_dir, f"chip_smoke_trace_{tag}.json"))
-    cpu_t, cuda_t = torch.autograd.DeviceType.CPU, torch.autograd.DeviceType.CUDA
+    path = os.path.join(trace_dir, f"chip_smoke_trace_{tag}.json")
+    issue = ("cudaLaunch", "cuLaunch", "cudaMemcpy", "cuMemcpy", "cudaMemset", "cuMemset")
+    for attempt in range(1, tries + 1):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            warm = torch.zeros(1, device="cuda")
+            for _ in range(8):
+                warm.add_(1.0)
+            torch.cuda.synchronize()
+            with record_function("cvx.window"):
+                run_compress()
+                run_decompress()
+        prof.export_chrome_trace(path)
+        with open(path) as f:
+            events = json.load(f)["traceEvents"]
+        win = next(e for e in events
+                   if e.get("cat") == "user_annotation" and e.get("name") == "cvx.window")
+        t0, t1 = win["ts"], win["ts"] + win["dur"]
+        calls = {e["args"]["correlation"] for e in events
+                 if e.get("cat") in ("cuda_runtime", "cuda_driver")
+                 and t0 <= e["ts"] <= t1 and e["name"].startswith(issue)}
+        device = [e for e in events
+                  if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")
+                  and e["args"].get("correlation") in calls]
+        lost = len(calls) - len({e["args"]["correlation"] for e in device})
+        if not lost:
+            break
+        print(f"  config {tag}: try {attempt}: the trace lacks the device records of "
+              f"{lost} of the window's {len(calls)} launches, copies and sets")
+    cpu_t = torch.autograd.DeviceType.CPU
     spans = {ev.key: round(ev.cpu_time_total / 1e3, 3) for ev in prof.key_averages()
-             if ev.key.startswith("cvx.") and ev.device_type == cpu_t}
-    # device busy = union of the kernels' and copies' intervals (user spans
-    # mirrored onto the device timeline and profiler bookkeeping excluded)
-    busy = sorted(
-        (ev.time_range.start, ev.time_range.end) for ev in prof.events()
-        if ev.device_type == cuda_t and not ev.name.startswith("cvx.")
-        and not getattr(ev, "is_user_annotation", False)
-        and ev.name != "Activity Buffer Request"
-    )
+             if ev.key.startswith("cvx.") and ev.key != "cvx.window"
+             and ev.device_type == cpu_t}
+    # device busy = union of the window's kernels', copies' and sets' intervals
     busy_us, end = 0.0, float("-inf")
-    for a, b in busy:
+    for a, b in sorted((e["ts"], e["ts"] + e["dur"]) for e in device):
         if b > end:
             busy_us += b - max(a, end)
             end = b
-    idle = 1.0 - busy_us / window_us
-    dev_ms = sorted(
-        ((ev.key, getattr(ev, "device_time_total", 0) / 1e3)
-         for ev in prof.key_averages()
-         if not ev.key.startswith("cvx.") and ev.key != "Activity Buffer Request"),
-        key=lambda kv: -kv[1])
-    print(f"  config {tag}: device ms by kernel or copy: "
-          + ", ".join(f"{k[:48]} {ms:.3f}" for k, ms in dev_ms[:12] if ms > 0))
+    window_us = t1 - t0
+    idle = None if lost else 1.0 - busy_us / window_us
+    dev_ms = {}
+    for e in device:
+        dev_ms[e["name"]] = dev_ms.get(e["name"], 0.0) + e["dur"] / 1e3
+    print(f"  config {tag}: device ms by kernel or copy: " + ", ".join(
+        f"{k[:48]} {ms:.3f}" for k, ms in sorted(dev_ms.items(), key=lambda kv: -kv[1])[:12]))
     print(f"  config {tag}: profiled window {window_us / 1e3:.2f} ms, device busy "
-          f"{busy_us / 1e3:.3f} ms, idle share {idle:.4f} on {card}")
+          f"{busy_us / 1e3:.3f} ms, idle share "
+          f"{'not measured (records lost)' if idle is None else f'{idle:.4f}'} on {card}")
     print(f"  config {tag}: host spans (ms): {spans}")
     return spans, idle
 
@@ -210,8 +289,8 @@ def main():
     mulfac = quant.global_mulfac(vol, SCALE)
     report = {}
 
-    ck, dk, sk, rk = tokenize.fused_encode(vt, mulfac)
-    cp, dp, sp, rp = tokenize.fused_encode_plain(vt, mulfac)
+    ck, dk, sk, rk, mk = tokenize.fused_encode(vt, mulfac)
+    cp, dp, sp, rp, _ = tokenize.fused_encode_plain(vt, mulfac)
     torch.cuda.synchronize()
     e = rel_rms(ck, cp)
     check(e < TRANSFORM_TOL, f"fused_encode coefficients rel RMS {e:.3e} < 1e-5")
@@ -224,17 +303,17 @@ def main():
         max_abs_err=float((ck - cp).abs().max()),
         ms=cuda_ms(lambda: tokenize.fused_encode(vt, mulfac), 20),
         plain_ms=cuda_ms(lambda: tokenize.fused_encode_plain(vt, mulfac), 3),
-        # volume in; coefficients and descriptors out; 3 x 32 taps x 2 + the
-        # scale per cell (the tokenize's integer work is not counted)
-        **bound(4 * vol.size + 8 * cells + 5 * sk.numel(), 193 * cells),
+        # volume in; coefficients and descriptors out; three cascades and
+        # the scale per cell (the tokenize's integer work is not counted)
+        **bound(4 * vol.size + 8 * cells + 5 * sk.numel(), (3 * C32 + 1) * cells),
     )
     del cp, dp, sp, rp, d2, s2, r2
 
     nr = torch.where(rk, 0, sk).to(torch.int64)
     base = torch.cumsum(nr, 0) - nr
     total = int(nr.sum())
-    stk = pack.emit_payload(ck, mulfac, dk, base, rk, total)
-    stp = pack.emit_payload_plain(ck, mulfac, dk, base, rk, total)
+    stk = pack.emit_payload(ck, mk, dk, base, rk, total)
+    stp = pack.emit_payload_plain(ck, mk, dk, base, rk, total)
     check(torch.equal(stk, stp), f"emit_payload stream ({total} B) bit-equal to plain")
     streams, nsizes, nraw = rle_host.encode_payloads(ck.cpu().numpy(), mulfac)
     native = np.concatenate([s for s, r in zip(streams, nraw) if not r])
@@ -246,14 +325,14 @@ def main():
     live_groups = int(((dk & 7).view(-1, 8).sum(1) > 0).sum())
     report["emit_payload"] = dict(
         max_abs_err=float((stk.int() - stp.int()).abs().max()) if total else 0.0,
-        ms=cuda_ms(lambda: pack.emit_payload(ck, mulfac, dk, base, rk, total), 20),
+        ms=cuda_ms(lambda: pack.emit_payload(ck, mk, dk, base, rk, total), 20),
         plain_ms=cuda_ms(
-            lambda: pack.emit_payload_plain(ck, mulfac, dk, base, rk, total), 3),
+            lambda: pack.emit_payload_plain(ck, mk, dk, base, rk, total), 3),
         # every descriptor, the coefficients of the groups with a token, the
         # stream out
         **bound(4 * cells + 32 * live_groups + 9 * sk.numel() + total, 0),
     )
-    del ck, dk, stk, stp
+    del ck, dk, mk, stk, stp
 
     data, _ = codec.compress(vt, SCALE)
     del vt
@@ -266,7 +345,7 @@ def main():
         check(p is not None, f"{label}: plan accepts the container")
         b = entropy_decode.upload(p, dev)
         nsub, cells, nnn = b["sub_block"].numel(), p["cells"], hdr.grid[3]
-        sf = p["scalefac"][0]
+        sf = b["scalefac"]
         stream, reset, starts, sblk = (b["stream"], b["sub_reset"], b["starts"],
                                        b["sub_block"])
         chain = np.diff(np.append(p["starts"], nsub)).max()
@@ -289,7 +368,8 @@ def main():
               "version as uint32")
         del dp
         entropy_decode.overlay_raw(dk, b["raw_rows"], b["raw_ids"])
-        nat = rle_host.decode_payloads(cont[pbase:], blkoffs, hdr.glob_mulfac, cells)
+        nat = rle_host.decode_payloads(cont[pbase:], blkoffs, hdr.glob_mulfac, cells,
+                                       cvt.container.unpack(cont)[2])
         check(np.array_equal(dk.cpu().numpy().view(np.uint32), nat.view(np.uint32)),
               f"{label}: dense coefficients equal to native decode_payloads "
               "as uint32")
@@ -316,12 +396,13 @@ def main():
                         plain_iters)),
         )
         # bytes: stream in, M (32 x 4 B) and P (25 x 4 B) per subsegment out;
-        # P, the chain starts in, e32 and c32 out; stream, M, e32, c32 and
-        # sub_block in, the dense buffer out (zeroed and written once)
+        # P, the chain starts in, e32 and c32 out; stream, M, e32, c32,
+        # sub_block and the scalefac table in, the dense buffer out (zeroed
+        # and written once)
         bounds = dict(
             decode_maps=bound(nsub * (32 + 128 + 100), 0),
             decode_chase=bound(nsub * (100 + 8) + 4 * starts.numel(), 0),
-            decode_emit=bound(nsub * (32 + 128 + 12) + 4 * nnn * cells, 0),
+            decode_emit=bound(nsub * (32 + 128 + 12) + 4 * nnn * (cells + 1), 0),
         )
         for k, (ms, pms) in times.items():
             print(f"  {label}: {k} kernel {ms:.4f} ms, plain {pms:.3f} ms, bound "
@@ -355,7 +436,7 @@ def main():
         ms=cuda_ms(lambda: fused_inverse.fused_inverse(rows, None, SHAPE), 20),
         plain_ms=cuda_ms(
             lambda: fused_inverse.fused_inverse_plain(rows, None, SHAPE), 3),
-        **bound(4 * rows.numel() + 4 * vol.size, 192 * rows.numel()),
+        **bound(4 * rows.numel() + 4 * vol.size, 3 * C32_INV * rows.numel()),
     )
     rows_h, invmap_h = codec.sparse_chunks(dense.cpu().numpy())
     srows, sinv = torch.from_numpy(rows_h).to(dev), torch.from_numpy(invmap_h).to(dev)
@@ -389,10 +470,10 @@ def main():
             max_abs_err=float((tk - tp).abs().max()),
             ms=cuda_ms(lambda: fused_compress.fwd_z(vtb), iters),
             plain_ms=cuda_ms(lambda: fused_compress.fwd_z_plain(vtb), plain_iters),
-            **bound(8 * ncell, 256 * ncell))
+            **bound(8 * ncell, C128 * ncell))
         del tp
         buf = torch.empty_like(tk)
-        ck, dk, cbk, sk, rk = fused_compress.encode_xy(tk, mf, out=buf)
+        ck, dk, cbk, sk, rk, mk = fused_compress.encode_xy(tk, mf, out=buf)
         cp = fused_compress.encode_xy_plain(tk, mf)[0]
         torch.cuda.synchronize()
         e = rel_rms(ck, cp)
@@ -411,15 +492,15 @@ def main():
             ms=cuda_ms(lambda: fused_compress.encode_xy(tk, mf, out=buf), iters),
             plain_ms=cuda_ms(lambda: fused_compress.encode_xy_plain(tk, mf),
                              plain_iters),
-            # slice in; coefficients, descriptors and chunk counts out; 2 x 128
-            # taps x 2 + the scale per cell
-            **bound(12 * ncell + 4 * nchunks + 4 * sk.numel(), 513 * ncell))
+            # slice in; coefficients, descriptors and chunk counts out; two
+            # cascades and the scale per cell
+            **bound(12 * ncell + 4 * nchunks + 4 * sk.numel(), (2 * C128 + 1) * ncell))
         del tk, buf
         cb64 = cbk.to(torch.int64)
         cbase = torch.cumsum(cb64, 0) - cb64
         total = int(cb64.sum())
-        stk = pack.emit_chunks(ck, mf, dk, cbk, cbase, total)
-        stp = pack.emit_chunks_plain(ck, mf, dk, cbk, cbase, total)
+        stk = pack.emit_chunks(ck, mk, dk, cbk, cbase, total)
+        stp = pack.emit_chunks_plain(ck, mk, dk, cbk, cbase, total)
         check(torch.equal(stk, stp), f"{label}: block_emit stream ({total} B, "
               f"{int(rk.sum())} raw blocks) bit-equal to the plain version")
         if native:
@@ -432,14 +513,14 @@ def main():
         live = int((cbk > 0).sum())
         out["block_emit"] = dict(
             max_abs_err=float((stk.int() - stp.int()).abs().max()) if total else 0.0,
-            ms=cuda_ms(lambda: pack.emit_chunks(ck, mf, dk, cbk, cbase, total), iters),
+            ms=cuda_ms(lambda: pack.emit_chunks(ck, mk, dk, cbk, cbase, total), iters),
             plain_ms=cuda_ms(
-                lambda: pack.emit_chunks_plain(ck, mf, dk, cbk, cbase, total),
+                lambda: pack.emit_chunks_plain(ck, mk, dk, cbk, cbase, total),
                 plain_iters),
             # every chunk count, the live chunks' coefficients, descriptors
-            # and base, the stream out
-            **bound(4 * nchunks + 1032 * live + total, 0))
-        del ck, dk, cbk, stk, stp, cbase
+            # and base, the table, the stream out
+            **bound(4 * nchunks + 1032 * live + 4 * sk.numel() + total, 0))
+        del ck, dk, cbk, mk, stk, stp, cbase
         bdata, bratio = codec.compress(vtb, scale, block=BLOCK_B)
         del vtb
         torch.cuda.empty_cache()
@@ -457,7 +538,7 @@ def main():
             ms=cuda_ms(lambda: fused_inverse.block_inv_xy(rows, volb.shape), iters),
             plain_ms=cuda_ms(lambda: fused_inverse.block_inv_xy_plain(rows, volb.shape),
                              plain_iters),
-            **bound(8 * ncell, 512 * ncell))
+            **bound(8 * ncell, 2 * C128_INV * ncell))
         del xp
         zp = fused_inverse.block_inv_z_plain(xk)
         zk = fused_inverse.block_inv_z(xk.clone())
@@ -472,7 +553,7 @@ def main():
             max_abs_err=float((zk - zp).abs().max()),
             ms=cuda_ms(lambda: fused_inverse.block_inv_z(scratch), iters),
             plain_ms=cuda_ms(lambda: fused_inverse.block_inv_z_plain(xk), plain_iters),
-            **bound(8 * ncell, 256 * ncell))
+            **bound(8 * ncell, C128_INV * ncell))
         del xk, zk, zp, scratch, rows, bdense
         torch.cuda.empty_cache()
         for k, r in out.items():
@@ -491,6 +572,132 @@ def main():
         report[k].update(noise_ms=r["ms"], noise_plain_ms=r["plain_ms"])
     print(f"  config B noise container: decode_chase {nbtimes['decode_chase'][0]:.4f}"
           f" ms (one chain per block at cells = 2^21) on {card}")
+
+    # -- phase 2c: the local-RMS kernels against their plain versions ------
+    print("phase 2c: local-RMS kernels vs plain versions at", SHAPE, "and", SHAPE_B,
+          flush=True)
+
+    def local_a(label, v, iters, plain_iters):
+        """fused_encode_local and emit_payload at its table, on `v` at A's
+        shape; returns the kernel's report."""
+        vt = torch.from_numpy(v).to(dev)
+        ck, dk, sk, rk, mk = tokenize.fused_encode(vt, scale=SCALE)
+        cp = tokenize.fused_encode_plain(vt, scale=SCALE)[0]
+        torch.cuda.synchronize()
+        fin = torch.isfinite(cp).all(1)
+        e = rel_rms(ck[fin], cp[fin])
+        check(e < TRANSFORM_TOL, f"{label}: fused_encode_local coefficients rel RMS "
+              f"{e:.3e} < 1e-5 ({int((~fin).sum())} non-finite blocks left out)")
+        err = float((ck[fin] - cp[fin]).abs().max())
+        del cp
+        mp = quant.mulfac_from_rms(quant.local_rms(ck), SCALE)
+        check(torch.equal(mk, mp), f"{label}: fused_encode_local table bit-equal to the "
+              f"plain local RMS of its coefficients (mulfacs {float(mk.min()):.4g} to "
+              f"{float(mk.max()):.4g})")
+        d2, s2, r2 = rle_device.tokenize(tokenize.scaled(ck, mk))
+        check(torch.equal(dk, d2) and torch.equal(sk, s2) and torch.equal(rk, r2),
+              f"{label}: fused_encode_local descriptors, sizes and raw flags "
+              f"({int(rk.sum())} raw) bit-equal to the plain tokenize at the table")
+        del d2, s2, r2
+        nr = torch.where(rk, 0, sk).to(torch.int64)
+        base = torch.cumsum(nr, 0) - nr
+        total = int(nr.sum())
+        stk = pack.emit_payload(ck, mk, dk, base, rk, total)
+        check(torch.equal(stk, pack.emit_payload_plain(ck, mk, dk, base, rk, total)),
+              f"{label}: emit_payload stream ({total} B) at the table bit-equal to plain")
+        streams, nsizes, nraw = rle_host.encode_payloads(ck.cpu().numpy(),
+                                                         mk.cpu().numpy())
+        native = np.concatenate([st for st, r in zip(streams, nraw) if not r])
+        check(np.array_equal(nsizes, sk.cpu().numpy()) and np.array_equal(
+              native, stk.cpu().numpy()), f"{label}: stream bit-equal to native "
+              "cvx_encode_payloads on the kernel's coefficients and table")
+        cells = ck.numel()
+        del ck, dk, stk
+        return dict(
+            max_abs_err=err,
+            ms=cuda_ms(lambda: tokenize.fused_encode(vt, scale=SCALE), iters),
+            plain_ms=cuda_ms(lambda: tokenize.fused_encode_plain(vt, scale=SCALE),
+                             plain_iters),
+            # fused_encode's bytes and FLOP, the table out, the f64 square
+            # and add of every coefficient
+            **bound(4 * v.size + 8 * cells + 9 * sk.numel(), (3 * C32 + 1) * cells,
+                    2 * cells))
+
+    def local_b(label, v, iters, plain_iters):
+        """block_casc_local, block_scale_tok and emit_chunks at the table on
+        `v` at B's shape; returns the two kernels' reports."""
+        vt = torch.from_numpy(v).to(dev)
+        tk = fused_compress.fwd_z(vt)
+        del vt
+        cp, _ = fused_compress.casc_local_plain(tk)
+        ck, pk = fused_compress.casc_local(tk.clone())
+        torch.cuda.synchronize()
+        fin = torch.isfinite(cp).all(1)
+        e = rel_rms(ck[fin], cp[fin])
+        check(e < TRANSFORM_TOL, f"{label}: block_casc_local coefficients rel RMS "
+              f"{e:.3e} < 1e-5 ({int((~fin).sum())} non-finite blocks left out)")
+        err_c = float((ck[fin] - cp[fin]).abs().max())
+        del cp
+        pp = quant.cta_sumsq(ck.view(-1, 128 * 128), 256).view(-1, 128)
+        check(same(pk, pp), f"{label}: block_casc_local slice sums bit-equal to the "
+              "plain sums of its coefficients (NaN where the NaN block's are)")
+        dk, cbk, sk, rk, mk = fused_compress.scale_tok(ck, pk, SCALE)
+        dp, cbp, sp, rp, mp = fused_compress.scale_tok_plain(ck, pk, SCALE)
+        check(torch.equal(mk, mp) and torch.equal(dk, dp) and torch.equal(cbk, cbp)
+              and torch.equal(sk, sp) and torch.equal(rk, rp),
+              f"{label}: block_scale_tok table (mulfacs {float(mk.min()):.4g} to "
+              f"{float(mk.max()):.4g}), descriptors, chunk bytes, sizes and raw flags "
+              f"({int(rk.sum())} raw) bit-equal to the plain version")
+        del dp, cbp, sp, rp, mp
+        cb64 = cbk.to(torch.int64)
+        cbase = torch.cumsum(cb64, 0) - cb64
+        total = int(cb64.sum())
+        stk = pack.emit_chunks(ck, mk, dk, cbk, cbase, total)
+        check(torch.equal(stk, pack.emit_chunks_plain(ck, mk, dk, cbk, cbase, total)),
+              f"{label}: block_emit stream ({total} B) at the table bit-equal to plain")
+        streams, nsizes, nraw = rle_host.encode_payloads(ck.cpu().numpy(),
+                                                         mk.cpu().numpy())
+        parts = [st for st, r in zip(streams, nraw) if not r]
+        native = np.concatenate(parts) if parts else np.zeros(0, np.uint8)
+        check(np.array_equal(nsizes, sk.cpu().numpy()) and np.array_equal(
+              native, stk.cpu().numpy()), f"{label}: stream bit-equal to native "
+              "cvx_encode_payloads on the kernel's coefficients and table")
+        del stk, dk, cbk, cbase
+        ncell, nnn = ck.numel(), ck.shape[0]
+        scratch = tk.clone()
+        out = {
+            "block_casc_local": dict(
+                max_abs_err=err_c,
+                ms=cuda_ms(lambda: fused_compress.casc_local(scratch), iters),
+                plain_ms=cuda_ms(lambda: fused_compress.casc_local_plain(tk),
+                                 plain_iters),
+                # slice in and coefficients out, the slice sums out; two
+                # cascades per cell, the f64 square and add
+                **bound(8 * ncell + 8 * nnn * 128, 2 * C128 * ncell, 2 * ncell)),
+            "block_scale_tok": dict(
+                max_abs_err=0.0,
+                ms=cuda_ms(lambda: fused_compress.scale_tok(ck, pk, SCALE), iters),
+                plain_ms=cuda_ms(lambda: fused_compress.scale_tok_plain(ck, pk, SCALE),
+                                 plain_iters),
+                # coefficients and slice sums in; descriptors, chunk counts,
+                # sizes and the table out; the scale per cell
+                **bound(8 * ncell + 8 * nnn * 128 + ncell // 32 + 8 * nnn, ncell)),
+        }
+        del ck, pk, tk, scratch
+        torch.cuda.empty_cache()
+        return out
+
+    lrep = {"fused_encode_local": local_a("config A local", vol, 20, 3)}
+    rep_ramp = local_a("config A local ramp", ramp(vol, 32), 3, 1)
+    lrep["fused_encode_local"].update(ramp_ms=rep_ramp["ms"],
+                                      ramp_plain_ms=rep_ramp["plain_ms"])
+    lrep.update(local_b("config B local", vol_b, 10, 2))
+    for k, r in local_b("config B local ramp", ramp(vol_b, 128), 3, 1).items():
+        lrep[k].update(ramp_ms=r["ms"], ramp_plain_ms=r["plain_ms"])
+    for k, r in lrep.items():
+        print(f"  {k} kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.3f} ms, bound "
+              f"{r['bound_ms']:.4f} ms ({r['bound_by']}) on {card}")
+    report.update(lrep)
 
     # -- phase 3: the main path through the public API, config A ---------
     print("phase 3: main path A, compress -> decompress (default device, engine "
@@ -524,16 +731,17 @@ def main():
           f"decodes on the device engine within rel RMS {e:.3e} of native")
     del out, out_host, outn
 
-    def timed_path(tag, v, block, d):
-        """Medians of 5: compress (numpy in), compress (volume on the card),
-        decompress on both engines; then one profiled compress + decompress."""
+    def timed_path(tag, v, block, d, local=False, runs=5):
+        """Medians of `runs`: compress (numpy in), compress (volume on the
+        card), decompress on both engines; then one profiled compress +
+        decompress."""
         vdev = torch.from_numpy(v).to(dev)
 
         def run_compress():
-            cvt.compress(v, SCALE, block=block)
+            cvt.compress(v, SCALE, block=block, use_local_rms=local)
 
         def run_compress_resident():  # a volume already on the card
-            cvt.compress(vdev, SCALE, block=block)
+            cvt.compress(vdev, SCALE, block=block, use_local_rms=local)
 
         def run_decompress(engine="auto"):
             cvt.decompress(d, engine=engine)
@@ -548,10 +756,10 @@ def main():
                         ("compress_resident", run_compress_resident),
                         ("decompress", run_decompress),
                         ("decompress_host_engine", lambda: run_decompress("host"))):
-            med, runs = wall_ms(fn, 5)
+            med, times = wall_ms(fn, runs)
             res[f"{key}_ms"] = med
             print(f"  config {tag}: {key} median {med:.2f} ms "
-                  f"({mcells / med * 1e3:.0f} MC/s) runs {[round(x, 2) for x in runs]}"
+                  f"({mcells / med * 1e3:.0f} MC/s) runs {[round(x, 2) for x in times]}"
                   f" on {card}")
         spans, idle = profiled(run_compress, run_decompress, tag, card)
         check(all(sp in spans for sp in DECODE_SPANS),
@@ -596,6 +804,59 @@ def main():
     res_b = timed_path("B", vol_b, BLOCK_B, data_b)
     check("cvx.block_fused_inverse" in res_b["spans_ms"], "config B: inverse span ran")
 
+    # -- phases 3c and 3d: the local-RMS paths through the public API ------
+    def local_path(tag, v, block, kernels, ref_ratio):
+        """compress(use_local_rms=True) -> decompress on the default device,
+        held against the native library's local codec run here."""
+        print(f"phase {tag}: local-RMS path, block {block}, compress -> decompress "
+              "(default device, engine auto = device) on", name, flush=True)
+        _kernels.reset_counts()
+        d, r = cvt.compress(v, SCALE, block=block, use_local_rms=True)
+        o = cvt.decompress(d)
+        torch.cuda.synchronize()
+        counts = dict(_kernels.launches)
+        print(f"  launches on local path {tag}: {counts}")
+        check(all(counts[k] > 0 for k in kernels + DECODE_KERNELS),
+              f"every kernel of local path {tag} launched on it")
+        check(counts["fused_encode"] == counts["block_encode_xy"] == 0,
+              "no global-RMS encode kernel launched")
+        oh = o.cpu().numpy()
+        check(oh.shape == v.shape and bool(np.isfinite(oh).all()),
+              f"decompressed volume finite, shape {v.shape}")
+        err_l, snr_l = err_snr(v, oh)
+        check(err_l < 2e-4 and snr_l > 75.0, f"err {err_l:.4e} < 2e-4, SNR "
+              f"{snr_l:.2f} dB > 75")
+        t = time.perf_counter()
+        dn, rn = rle_host.host_compress(v, SCALE, block=block, use_local_rms=True)
+        native_s = time.perf_counter() - t
+        check(abs(r - rn) / rn < 0.01, f"ratio {r:.1f} within 1% of native "
+              f"cvx_compress_th(use_local_RMS=1) here, {rn:.1f} ({native_s:.2f} s on "
+              f"the host; {ref_ratio} on a CPU)")
+        hdr, _, mf, _ = cvt.container.unpack(d)
+        mfn = cvt.container.unpack(dn)[2]
+        rt = float(np.max(np.abs(mf.astype(np.float64) / mfn - 1.0)))
+        check(hdr.use_local_rms and hdr.glob_mulfac == 1.0 and rt < 1e-5,
+              f"local container: header mulfac 1.0, table within rtol {rt:.2e} of "
+              f"native's ({int((mf == mfn).sum())} of {mf.size} bit-equal)")
+        e = rel_rms(o, cvt.decompress(d, engine="host"))
+        check(e < TRANSFORM_TOL, f"engine device within rel RMS {e:.3e} of engine host")
+        e = rel_rms(torch.from_numpy(rle_host.host_decompress(d)), torch.from_numpy(oh))
+        check(e < TRANSFORM_TOL, f"port container decodes under native "
+              f"cvx_decompress_outofplace within rel RMS {e:.3e}")
+        outn = cvt.decompress(dn, engine="device").cpu()
+        e = rel_rms(outn, torch.from_numpy(rle_host.host_decompress(dn)))
+        check(e < TRANSFORM_TOL, f"native local container (ratio {rn:.1f}) decodes "
+              f"on the device engine within rel RMS {e:.3e} of native")
+        del o, oh, outn
+        decode_stages(f"local {tag} container", d, 3, 1)
+        torch.cuda.empty_cache()
+        res = timed_path(tag, v, block, d, local=True, runs=3)
+        return counts, dict(ratio=r, err=err_l, snr_db=snr_l, native_ratio=rn,
+                            table_rtol=rt, **res)
+
+    counts_c, res_c = local_path("3c", vol, (32, 32, 32), KERNELS_C, 1104.6)
+    counts_d, res_d = local_path("3d", vol_b, BLOCK_B, KERNELS_D, 21266.9)
+
     for k, r in report.items():
         print(f"  {k}: kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.3f} ms, bound "
               f"{r['bound_ms']:.4f} ms ({r['bound_by']}) on {card}")
@@ -625,20 +886,32 @@ def main():
                          "cvxcompress_tpu/ops/fused_inverse.py:65", None),
         "block_inv_z": ("csrc/block_inverse.cu",
                         "cvxcompress_tpu/ops/fused_inverse.py:65", None),
+        "fused_encode_local": ("csrc/fused_encode.cu",
+                               "cvxcompress_tpu/ops/tokenize_pallas.py:907", None),
+        "block_casc_local": ("csrc/block_encode_local.cu",
+                             "cvxcompress_tpu/ops/fused_compress.py:312",
+                             "cvxcompress_tpu/ops/fused_compress.py:361"),
+        "block_scale_tok": ("csrc/block_encode_local.cu",
+                            "cvxcompress_tpu/ops/fused_compress.py:395",
+                            "cvxcompress_tpu/ops/fused_compress.py:361"),
     }
     kernels = []
     for k, r in report.items():
         src, rep, also = meta[k]
-        # launches on the path's own drive: config B for the 128^3 kernels
-        launches = counts_b[k] if k in KERNELS_B else counts_a[k]
+        # launches on the path's own drive: the local paths for their
+        # kernels, config B for the other 128^3 kernels, A for the rest
+        launches = (counts_c[k] if k == "fused_encode_local" else
+                    counts_d[k] if k in KERNELS_D and k not in KERNELS_B else
+                    counts_b[k] if k in KERNELS_B else counts_a[k])
         # no single PyTorch call computes any of these functions (PERF.md)
         row = {"name": k, "route": "cuda",
                "source": f"cvxcompress_tpu_torch/{src}", "replaces": rep,
                "launches": launches, "max_abs_err": r["max_abs_err"],
                "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                "bound_by": r["bound_by"], "library_ms": None}
-        if "noise_ms" in r:
-            row.update(noise_ms=r["noise_ms"], noise_plain_ms=r["noise_plain_ms"])
+        for extra in ("noise_ms", "noise_plain_ms", "ramp_ms", "ramp_plain_ms"):
+            if extra in r:
+                row[extra] = r[extra]
         if also:
             row["also_replaces"] = also
         kernels.append(row)
@@ -647,7 +920,8 @@ def main():
     print(json.dumps({"kernels": kernels, "card": card,
                       "config_a": dict(ratio=ratio, err=err, snr_db=snr, **res_a),
                       "config_b": dict(ratio=ratio_b, err=err_b, snr_db=snr_b,
-                                       **res_b)}))
+                                       **res_b),
+                      "config_a_local": res_c, "config_b_local": res_d}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))
     return 0

@@ -2,7 +2,8 @@
 
 The PyTorch counterpart of `cvxcompress_tpu/api.py` for the ported slice:
 32^3 blocks, and 128^3 blocks over dims that are multiples of 128, with the
-global RMS.  Everything runs on the CUDA card unless the caller asks for
+global RMS or the local RMS (`use_local_rms=True`: each block quantized
+with 1/(rms*scale) of its own coefficients, the table in the container).  Everything runs on the CUDA card unless the caller asks for
 the CPU: a torch volume brings its own device, a numpy volume and every
 decompress go to `device`, "cuda" by default ("cpu" runs the plain PyTorch
 versions of the kernels; "cuda" without a card raises, nothing falls back).
@@ -23,6 +24,8 @@ def compress(vol, scale, block=(32, 32, 32), use_local_rms=False, device=None):
     """Compress a (nz, ny, nx) float32 volume -> (container uint8 ndarray, ratio).
 
     `device` None: the tensor's own device, or "cuda" for a numpy volume.
+    `use_local_rms` picks the reference's local-RMS mode: one mulfac per
+    block, from the RMS of the block's own wavelet coefficients.
     """
     return codec.compress(vol, scale, block=block, use_local_rms=use_local_rms,
                           device=device)
@@ -64,7 +67,9 @@ class CvxCompress:
         self.engine = engine
 
     def Compress(self, scale, vol, bx, by, bz, use_local_RMS=False, num_threads=None):
-        """Returns (container, ratio)."""
+        """Returns (container, ratio).  `use_local_RMS`: one mulfac per block
+        from its own coefficients' RMS (CvxCompress.cpp:343-348), else one
+        from the volume's."""
         del num_threads
         return compress(vol, scale, block=(bx, by, bz),
                         use_local_rms=use_local_RMS, device=self.device)

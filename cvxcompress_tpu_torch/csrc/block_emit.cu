@@ -14,8 +14,9 @@
 // costs one 4-byte read.  Otherwise each lane sums its cells' costs from the
 // descriptors, a half-warp exclusive scan gives its offset in the chunk, and
 // it writes its tokens at chunk_base[chunk] + offset, re-deriving values,
-// classes and group modes from the unscaled coefficients (emit_group in
-// tokens.cuh, shared with emit_payload).
+// classes and group modes from the unscaled coefficients and the block's
+// entry of the (nnn,) mulfac table (emit_group in tokens.cuh, shared with
+// emit_payload; one value repeated under the global RMS).
 // What bounds it on an H100: the chunk byte counts (4 B per 128 cells) and
 // the coefficients and descriptors of the live chunks only; at a high ratio
 // the launch itself.
@@ -27,7 +28,8 @@ namespace cvx {
 constexpr int EMIT_WARPS = 8;
 
 __global__ void __launch_bounds__(EMIT_WARPS * 32)
-block_emit_kernel(const float* __restrict__ coeffs, float mulfac,
+block_emit_kernel(const float* __restrict__ coeffs,
+                  const float* __restrict__ mulfacs,
                   const int32_t* __restrict__ desc,
                   const int32_t* __restrict__ chunk_bytes,
                   const int64_t* __restrict__ chunk_base, int64_t nchunks,
@@ -59,12 +61,13 @@ block_emit_kernel(const float* __restrict__ coeffs, float mulfac,
   const float4 a = *reinterpret_cast<const float4*>(coeffs + cell);
   const float4 b = *reinterpret_cast<const float4*>(coeffs + cell + 4);
   const float cv[8] = {a.x, a.y, a.z, a.w, b.x, b.y, b.z, b.w};
-  emit_group(out + chunk_base[chunk] + (inc - mine), cv, d, mulfac);
+  emit_group(out + chunk_base[chunk] + (inc - mine), cv, d,
+             mulfacs[chunk / (BB_CELLS / 128)]);
 }
 
 }  // namespace cvx
 
-extern "C" int cvx_block_emit(const float* coeffs, float mulfac,
+extern "C" int cvx_block_emit(const float* coeffs, const float* mulfacs,
                               const int32_t* desc, const int32_t* chunk_bytes,
                               const int64_t* chunk_base, int64_t nchunks,
                               uint8_t* out, void* stream) {
@@ -73,6 +76,6 @@ extern "C" int cvx_block_emit(const float* coeffs, float mulfac,
   const int64_t per_cta = 2 * EMIT_WARPS;
   block_emit_kernel<<<(unsigned)((nchunks + per_cta - 1) / per_cta),
                       EMIT_WARPS * 32, 0, (cudaStream_t)stream>>>(
-      coeffs, mulfac, desc, chunk_bytes, chunk_base, nchunks, out);
+      coeffs, mulfacs, desc, chunk_bytes, chunk_base, nchunks, out);
   return (int)cudaGetLastError();
 }

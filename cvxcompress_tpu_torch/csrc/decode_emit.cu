@@ -15,8 +15,11 @@
 // each token's cursor, min(c32[k] + exclusive sum, cells) (:749-752).  The
 // starting lane then writes its value(s): a plain byte and the VLESC2/3/4
 // escapes one, VLESC2_8x and VLESC3_8x eight at cursor + j, the runs none
-// (the buffer is zero).  Every value is __fmul_rn(v, scalefac): one f32
-// rounding and no FMA contraction, bit-exact with the host decoders.
+// (the buffer is zero).  Every value is __fmul_rn(v, scalefac[block of the
+// chain]): one f32 rounding and no FMA contraction, bit-exact with the host
+// decoders.  The host computes the (nnn,) table as 1.0f / mulfac (one value
+// repeated under the global RMS, 1 / blkmulfac[b] under the local RMS):
+// a reciprocal on the card could round differently.
 // Positions >= cells and blocks >= nnn (the padding subsegments) are
 // dropped, so a corrupt stream never writes outside the buffer, and all of
 // a chain's writes go to its own block at strictly increasing cursors:
@@ -40,7 +43,7 @@ decode_emit_kernel(const uint8_t* __restrict__ stream,
                    const int32_t* __restrict__ e32,
                    const int32_t* __restrict__ c32,
                    const int32_t* __restrict__ sub_block, int64_t nsub,
-                   float sf, int cells, int64_t nnn,
+                   const float* __restrict__ scalefac, int cells, int64_t nnn,
                    float* __restrict__ out) {
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int64_t k = (int64_t)blockIdx.x * DEC_WARPS + warp;
@@ -61,6 +64,7 @@ decode_emit_kernel(const uint8_t* __restrict__ stream,
   if (!start || cur >= cells || blk < 0 || blk >= nnn) return;
 
   float* o = out + blk * (int64_t)cells;
+  const float sf = scalefac[blk];
   if (sv > -125 && sv < 125) {
     put(o, cur, cells, (float)sv, sf);
   } else if (sv == -125) {  // VLESC2: i16
@@ -93,14 +97,16 @@ decode_emit_kernel(const uint8_t* __restrict__ stream,
 extern "C" int cvx_decode_emit(const uint8_t* stream, const int32_t* M,
                                const int32_t* e32, const int32_t* c32,
                                const int32_t* sub_block, int64_t nsub,
-                               float sf, int cells, int64_t nnn, float* out,
+                               const float* scalefac, int cells, int64_t nnn,
+                               float* out,
                                void* stream_) {
   using namespace cvx;
   if (nsub == 0) return 0;
   const int64_t grid = (nsub + DEC_WARPS - 1) / DEC_WARPS;
   decode_emit_kernel<<<(unsigned)grid, DEC_WARPS * 32, 0,
                        (cudaStream_t)stream_>>>(stream, M, e32, c32,
-                                                sub_block, nsub, sf, cells,
+                                                sub_block, nsub, scalefac,
+                                                cells,
                                                 nnn, out);
   return (int)cudaGetLastError();
 }

@@ -13,7 +13,10 @@
 // their token costs from the descriptors, a block-wide exclusive scan gives
 // its byte offset, and it writes each token's bytes at
 // base[block] + offset, re-deriving values, classes and group modes from
-// the unscaled coefficients and mulfac exactly as fused_encode did.
+// the unscaled coefficients and the block's mulfac exactly as fused_encode
+// did.  The mulfac comes from the (nnn,) table fused_encode wrote: one
+// value repeated under the global RMS, each block's own under the local
+// RMS, the same f32 value the tokenize used.
 // What bounds it on an H100: reading the 256 KiB of coefficients and
 // descriptors per block (the stream it writes is ~1/1000 of that at the
 // reference CI config); each thread reads 64 consecutive cells with 16-byte
@@ -24,7 +27,8 @@
 namespace cvx {
 
 __global__ void __launch_bounds__(THREADS)
-emit_payload_kernel(const float* __restrict__ coeffs, float mulfac,
+emit_payload_kernel(const float* __restrict__ coeffs,
+                    const float* __restrict__ mulfacs,
                     const int32_t* __restrict__ desc,
                     const int64_t* __restrict__ base,
                     const uint8_t* __restrict__ raw,
@@ -35,6 +39,7 @@ emit_payload_kernel(const float* __restrict__ coeffs, float mulfac,
   const int c0 = threadIdx.x * CELLS_PER_THREAD;
   const int32_t* dblk = desc + blk * CELLS + c0;
   const float* cblk = coeffs + blk * CELLS + c0;
+  const float mulfac = mulfacs[blk];
 
   int mine = 0;
   for (int i = 0; i < CELLS_PER_THREAD; i += 4) {
@@ -61,12 +66,12 @@ emit_payload_kernel(const float* __restrict__ coeffs, float mulfac,
 
 }  // namespace cvx
 
-extern "C" int cvx_emit_payload(const float* coeffs, float mulfac,
+extern "C" int cvx_emit_payload(const float* coeffs, const float* mulfacs,
                                 const int32_t* desc, const int64_t* base,
                                 const uint8_t* raw, int64_t nnn, uint8_t* out,
                                 void* stream) {
   using namespace cvx;
   emit_payload_kernel<<<(unsigned)nnn, THREADS, 0, (cudaStream_t)stream>>>(
-      coeffs, mulfac, desc, base, raw, out);
+      coeffs, mulfacs, desc, base, raw, out);
   return (int)cudaGetLastError();
 }

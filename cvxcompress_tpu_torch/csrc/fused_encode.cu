@@ -1,38 +1,51 @@
 // fused_encode: 32^3 forward wavelet + scale + quantize + tokenize.
 //
-// Replaces the TPU kernel tokenize_pallas.stripe_fused_tiles
+// Replaces the TPU kernels tokenize_pallas.stripe_fused_tiles
 // (cvxcompress_tpu/ops/tokenize_pallas.py:939, wrapped by
-// stripe_fused_encode :1056).  One CTA per 32^3 block:
+// stripe_fused_encode :1056): its global kernel _kernel_stripe_fused
+// (:896), launched as `fused_encode`, and its local-RMS kernel
+// _kernel_stripe_fused_local (:907), launched as `fused_encode_local`.
+// One template, one CTA per 32^3 block:
 //   1. read the block from the (nz, ny, nx) volume, zero-padding the edges,
 //      into shared memory (128 KiB + pad, dynamic shared memory);
 //   2. x, y, z cascades as 32x32 f32 operators (no TF32, no tensor cores);
 //   3. write the UNSCALED coefficients block-major (raw-fallback blocks
 //      store them, and the emit kernel re-derives each token from them);
-//   4. fv = coeff * mulfac (one f32 rounding, oracle/rle.py:63), cvttps
+//   4. the block's mulfac: the given global one, or (local RMS) 1/(rms *
+//      scale) of the block's own coefficients, their squares summed in f64
+//      in a fixed order (each thread its 64 cells, then block_sum_f64),
+//      between the cascades and the tokenize as CvxCompress.cpp:343-348
+//      does; it goes to the (nnn,) table in both modes;
+//   5. fv = coeff * mulfac (one f32 rounding, oracle/rle.py:63), cvttps
 //      quantize, classes, group-of-8 modes, and the zero runs as a
 //      block-wide max-scan of "last non-zero cell" (reset at block start);
-//   5. per cell the descriptor cost | run_end << 3 | run_len << 4, per block
+//   6. per cell the descriptor cost | run_end << 3 | run_len << 4, per block
 //      the payload size and the raw flag (size > 4*cells).
 // What bounds it on an H100: the 3 x 1024 32-tap dot products per block
 // (3.1 M FMA) issued from shared memory by one resident CTA per SM (the
 // 132 KiB block leaves room for one), then the 256 KiB of coefficients and
 // descriptors each block writes.  The design keeps the block in shared
 // memory from load to tokenize, so the volume is read once and nothing
-// between the transform and the tokenizer touches device memory.
+// between the transform and the tokenizer touches device memory; the local
+// RMS adds 64 f64 FMA per thread and one block reduction.
 
 #include "common.cuh"
 
 namespace cvx {
 
+// `factor`: the global mulfac, or with LOCAL the scale.
+template <bool LOCAL>
 __global__ void __launch_bounds__(THREADS, 1)
 fused_encode_kernel(const float* __restrict__ vol, int nx, int ny, int nz,
-                    const float* __restrict__ op_g, float mulfac,
+                    const float* __restrict__ op_g, float factor,
                     float* __restrict__ coeffs, int32_t* __restrict__ desc,
-                    int32_t* __restrict__ sizes, uint8_t* __restrict__ raw) {
+                    int32_t* __restrict__ sizes, uint8_t* __restrict__ raw,
+                    float* __restrict__ mulfacs) {
   extern __shared__ __align__(16) float smem[];
   float* op = smem;          // B*B forward operator
   float* s = smem + B * B;   // padded block
   __shared__ int scan_buf[32];
+  __shared__ double sum_buf[32];
 
   const int nbx = (nx + B - 1) / B, nby = (ny + B - 1) / B;
   const int64_t blk = blockIdx.x;
@@ -62,8 +75,20 @@ fused_encode_kernel(const float* __restrict__ vol, int nx, int ny, int nz,
   for (int c = threadIdx.x; c < CELLS; c += blockDim.x)
     cblk[c] = s[sidx_flat(c)];
 
-  // tokenize: thread t owns cells [64t, 64t + 64), eight whole groups
+  // thread t owns cells [64t, 64t + 64): eight whole groups
   const int c0 = threadIdx.x * CELLS_PER_THREAD;
+  float mulfac = factor;
+  if (LOCAL) {
+    double ss = 0.0;
+    for (int i = 0; i < CELLS_PER_THREAD; ++i) {
+      const double v = s[sidx_flat(c0 + i)];
+      ss += v * v;  // exact square: an FMA contraction changes nothing
+    }
+    mulfac = local_mulfac(block_sum_f64(ss, sum_buf), CELLS, factor);
+  }
+  if (threadIdx.x == 0) mulfacs[blk] = mulfac;
+
+  // tokenize
   uint64_t nonzero = 0;
   for (int i = 0; i < CELLS_PER_THREAD; ++i) {
     const int32_t v = cvtt(__fmul_rn(s[sidx_flat(c0 + i)], mulfac));
@@ -114,23 +139,40 @@ fused_encode_kernel(const float* __restrict__ vol, int nx, int ny, int nz,
   }
 }
 
+template <bool LOCAL>
+static int launch_fused_encode(const float* vol, int nx, int ny, int nz,
+                               const float* op, float factor, float* coeffs,
+                               int32_t* desc, int32_t* sizes, uint8_t* raw,
+                               float* mulfacs, void* stream) {
+  cudaError_t e = cudaFuncSetAttribute(
+      fused_encode_kernel<LOCAL>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)SMEM_BYTES);
+  if (e != cudaSuccess) return (int)e;
+  const int64_t nnn = (int64_t)((nx + B - 1) / B) * ((ny + B - 1) / B) *
+                      ((nz + B - 1) / B);
+  fused_encode_kernel<LOCAL><<<(unsigned)nnn, THREADS, SMEM_BYTES,
+                               (cudaStream_t)stream>>>(
+      vol, nx, ny, nz, op, factor, coeffs, desc, sizes, raw, mulfacs);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace cvx
 
 extern "C" int cvx_fused_encode(const float* vol, int nx, int ny, int nz,
                                 const float* op, float mulfac, float* coeffs,
                                 int32_t* desc, int32_t* sizes, uint8_t* raw,
-                                void* stream) {
-  using namespace cvx;
-  cudaError_t e = cudaFuncSetAttribute(
-      fused_encode_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)SMEM_BYTES);
-  if (e != cudaSuccess) return (int)e;
-  const int64_t nnn = (int64_t)((nx + B - 1) / B) * ((ny + B - 1) / B) *
-                      ((nz + B - 1) / B);
-  fused_encode_kernel<<<(unsigned)nnn, THREADS, SMEM_BYTES,
-                        (cudaStream_t)stream>>>(vol, nx, ny, nz, op, mulfac,
-                                                coeffs, desc, sizes, raw);
-  return (int)cudaGetLastError();
+                                float* mulfacs, void* stream) {
+  return cvx::launch_fused_encode<false>(vol, nx, ny, nz, op, mulfac, coeffs,
+                                         desc, sizes, raw, mulfacs, stream);
+}
+
+extern "C" int cvx_fused_encode_local(const float* vol, int nx, int ny,
+                                      int nz, const float* op, float scale,
+                                      float* coeffs, int32_t* desc,
+                                      int32_t* sizes, uint8_t* raw,
+                                      float* mulfacs, void* stream) {
+  return cvx::launch_fused_encode<true>(vol, nx, ny, nz, op, scale, coeffs,
+                                        desc, sizes, raw, mulfacs, stream);
 }
 
 extern "C" const char* cvx_cuda_error_string(int code) {

@@ -103,6 +103,44 @@ __device__ int block_exclusive_scan(int v, int identity, Op op, int* buf,
   return res;
 }
 
+// Sum of the CTA's threads' values in a fixed order, returned to every
+// thread: a halving tree over each warp's lanes (lane i + lane i+16, then
+// i + i+8, ...), then the same tree over the warps' sums.  No atomics, so
+// the result is the same on every run, and ops/quant.py `cta_sumsq`
+// repeats it.  `buf` holds 32 doubles of shared memory.  Every thread of
+// the block must call it.
+__device__ __forceinline__ double block_sum_f64(double v, double* buf) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int nwarps = blockDim.x >> 5;
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+  if (lane == 0) buf[warp] = v;
+  __syncthreads();
+  if (warp == 0) {
+    double w = lane < nwarps ? buf[lane] : 0.0;  // + 0.0 keeps the tree's sums
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1) w += __shfl_xor_sync(0xffffffffu, w, o);
+    if (lane == 0) buf[0] = w;
+  }
+  __syncthreads();
+  const double total = buf[0];
+  __syncthreads();  // buf may be reused
+  return total;
+}
+
+// A block's mulfac from the f64 sum of its coefficients' squares:
+// rms = f32(sqrt(ss / cells)), mulfac = 1/(rms * scale) in f32, 1.0 when
+// rms is 0 or the quotient is not finite (CvxCompress.cpp:291-295,
+// native/cvx_host.cpp:654-659).  Explicitly rounded intrinsics: the value
+// must equal the host's and the plain version's to the bit.
+__device__ __forceinline__ float local_mulfac(double ss, int64_t cells,
+                                              float scale) {
+  const float rms =
+      __double2float_rn(__dsqrt_rn(__ddiv_rn(ss, (double)cells)));
+  const float mf = rms != 0.0f ? __fdiv_rn(1.0f, __fmul_rn(rms, scale)) : 1.0f;
+  return isfinite(mf) ? mf : 1.0f;
+}
+
 // Writes the tokens of one group of 8 cells at p and returns the byte after
 // them.  `cv` holds the group's UNSCALED coefficients and `d` their
 // descriptors; values, classes and the group mode are re-derived with the

@@ -35,11 +35,13 @@ _VP = ctypes.c_void_p
 _SIGNATURES = {
     "cvx_fused_encode": [
         _VP, ctypes.c_int, ctypes.c_int, ctypes.c_int, _VP, ctypes.c_float,
-        _VP, _VP, _VP, _VP, _VP,
+        _VP, _VP, _VP, _VP, _VP, _VP,
     ],
-    "cvx_emit_payload": [
-        _VP, ctypes.c_float, _VP, _VP, _VP, ctypes.c_int64, _VP, _VP,
+    "cvx_fused_encode_local": [
+        _VP, ctypes.c_int, ctypes.c_int, ctypes.c_int, _VP, ctypes.c_float,
+        _VP, _VP, _VP, _VP, _VP, _VP,
     ],
+    "cvx_emit_payload": [_VP, _VP, _VP, _VP, _VP, ctypes.c_int64, _VP, _VP],
     "cvx_fused_inverse": [
         _VP, ctypes.c_int64, _VP, _VP, ctypes.c_int, ctypes.c_int,
         ctypes.c_int, _VP, _VP,
@@ -49,16 +51,19 @@ _SIGNATURES = {
         _VP, _VP, ctypes.c_int64, ctypes.c_int64, ctypes.c_int, _VP, _VP, _VP,
     ],
     "cvx_decode_emit": [
-        _VP, _VP, _VP, _VP, _VP, ctypes.c_int64, ctypes.c_float, ctypes.c_int,
+        _VP, _VP, _VP, _VP, _VP, ctypes.c_int64, _VP, ctypes.c_int,
         ctypes.c_int64, _VP, _VP,
     ],
     "cvx_block_fwd_z": [_VP, ctypes.c_int, ctypes.c_int, ctypes.c_int, _VP, _VP, _VP],
     "cvx_block_encode_xy": [
         _VP, _VP, ctypes.c_float, ctypes.c_int64, _VP, _VP, _VP, _VP, _VP, _VP,
+        _VP,
     ],
-    "cvx_block_emit": [
-        _VP, ctypes.c_float, _VP, _VP, _VP, ctypes.c_int64, _VP, _VP,
+    "cvx_block_casc_local": [_VP, _VP, ctypes.c_int64, _VP, _VP],
+    "cvx_block_scale_tok": [
+        _VP, _VP, ctypes.c_float, ctypes.c_int64, _VP, _VP, _VP, _VP, _VP, _VP,
     ],
+    "cvx_block_emit": [_VP, _VP, _VP, _VP, _VP, ctypes.c_int64, _VP, _VP],
     "cvx_block_inv_xy": [
         _VP, _VP, ctypes.c_int, ctypes.c_int, ctypes.c_int, _VP, _VP,
     ],
@@ -66,7 +71,8 @@ _SIGNATURES = {
 }
 
 # one counter per launched kernel (the 128^3 encode and inverse are two
-# launches each, so a run shows every pass)
+# launches each, so a run shows every pass; the local-RMS encodes have
+# counters of their own)
 launches = {name[len("cvx_"):]: 0 for name in _SIGNATURES}
 build_info = {}  # library path, build seconds, nvcc's -Xptxas -v report
 

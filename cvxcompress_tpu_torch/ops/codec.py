@@ -2,29 +2,36 @@
 
 Compress (CvxCompress::Compress semantics, CvxCompress.cpp:231-427), one
 straight path, its kernels chosen by the block geometry:
-  1. mulfac from the global RMS (ops/quant.py);
-  2. the encode kernel: transform, tokenize, per-block sizes
-     (32^3: ops/tokenize.py `fused_encode`; 128^3 over dims that are
-     multiples of 128: ops/fused_compress.py `block_encode`, which also
-     gives every 128-cell chunk's byte count);
-  3. one small read-back of the per-block sizes and raw flags;
+  1. the global RMS: mulfac from the volume (ops/quant.py); under the local
+     RMS (CvxCompress.cpp:343-348) the encode kernel computes each block's
+     mulfac from its own coefficients instead, and the header's is 1.0;
+  2. the encode kernel: transform, each block's mulfac into an (nnn,)
+     table, tokenize, per-block sizes (32^3: ops/tokenize.py
+     `fused_encode`; 128^3 over dims that are multiples of 128:
+     ops/fused_compress.py `block_encode`, which also gives every 128-cell
+     chunk's byte count);
+  3. one small read-back of the per-block sizes, raw flags and mulfacs;
   4. the exclusive cumsum of the non-raw blocks' sizes (32^3) or chunks'
      byte counts (128^3) gives every block's or chunk's base in the stream;
-  5. the emit kernel writes a stream of exactly that many bytes
+  5. the emit kernel writes a stream of exactly that many bytes, each
+     block's tokens from its coefficients and its entry of the table
      (ops/pack.py `emit_payload`, `emit_chunks`);
   6. one device-to-host copy of the stream (plus the raw blocks'
      coefficients, when there are any);
-  7. the host assembles the container (ops/rle_device.py, container.py).
+  7. the host assembles the container (ops/rle_device.py, container.py),
+     with the `blkmulfac` table under the local RMS.
 
 Decompress has two engines, as in the JAX package (`cvxcompress_tpu/ops/
 codec.py:1490-1523`):
 - "device" (`decompress_device`): the host plans (ops/entropy_decode.py
   `plan`: the payload copied into aligned rows, ∝ compressed bytes) and
-  uploads one blob; the device parses the stream (decode_maps,
-  decode_chase), emits the coefficients into a dense block-major buffer
-  (decode_emit), overlays the raw blocks and runs the inverse kernel on it
-  (32^3: `fused_inverse`; 128^3: `block_fused_inverse`);
-- "host": the native library decodes every block on the host, only the
+  uploads one blob (each block's scalefac in it); the device parses the
+  stream (decode_maps, decode_chase), emits the coefficients into a dense
+  block-major buffer (decode_emit), overlays the raw blocks and runs the
+  inverse kernel on it (32^3: `fused_inverse`; 128^3:
+  `block_fused_inverse`);
+- "host": the native library decodes every block on the host (with the
+  container's `blkmulfac` under the local RMS), only the
   non-zero 128-cell chunks go up to the device (`sparse_chunks`), and the
   inverse kernel runs there (at 128^3 after one `index_copy_` of the chunks
   into a zeroed dense buffer).
@@ -37,8 +44,8 @@ Everything runs on the CUDA card unless the caller asks for the CPU
 (`device="cpu"`, where the plain PyTorch versions of the kernels run); on
 a machine without a card the default raises.  This slice covers 32^3
 blocks, and 128^3 blocks over dims that are multiples of 128, with the
-global RMS; other geometries and the local RMS raise NotImplementedError
-(see ROADMAP.md).
+global or the local RMS; other geometries raise NotImplementedError (see
+ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -58,17 +65,14 @@ BLOCK = (32, 32, 32)
 CHUNK = 128
 
 
-def _check_slice(vol_shape, block, use_local_rms):
+def _check_slice(vol_shape, block):
     block = tuple(block)
-    if not use_local_rms and (
-        block == BLOCK or fused_compress.fused_path_ok(vol_shape, block)
-    ):
+    if block == BLOCK or fused_compress.fused_path_ok(vol_shape, block):
         return
     raise NotImplementedError(
-        f"block={block}, shape={tuple(vol_shape)}, use_local_rms="
-        f"{use_local_rms}: this port covers 32^3 blocks, and 128^3 blocks "
-        "over dims that are multiples of 128, with the global RMS only; the "
-        "rest is still to be ported (ROADMAP.md)"
+        f"block={block}, shape={tuple(vol_shape)}: this port covers 32^3 "
+        "blocks, and 128^3 blocks over dims that are multiples of 128 (global "
+        "or local RMS); the rest is still to be ported (ROADMAP.md)"
     )
 
 
@@ -106,39 +110,48 @@ def compress(vol, scale, block=BLOCK, use_local_rms=False, device=None):
     `vol` is a numpy array or a torch tensor; a tensor brings its own device,
     a numpy volume goes to `device` ("cuda" when None).  On "cuda" the
     kernels run, on "cpu" their plain PyTorch versions.  `block` is (32, 32,
-    32), or (128, 128, 128) over dims that are multiples of 128.
+    32), or (128, 128, 128) over dims that are multiples of 128.  With
+    `use_local_rms` each block is quantized with 1/(rms*scale) of its own
+    wavelet coefficients (the reference's Compress(..., use_local_RMS=true)),
+    and the container carries the per-block table.
     """
-    _check_slice(np.shape(vol), block, use_local_rms)
+    _check_slice(np.shape(vol), block)
     block = tuple(block)
     cells = block[0] * block[1] * block[2]
     with record_function("cvx.volume_h2d"):
         t = _device_volume(vol, device)
     nz, ny, nx = t.shape
-    with record_function("cvx.mulfac"):
-        mulfac = quant.global_mulfac(
-            t if isinstance(vol, torch.Tensor) else vol, scale
-        )
+    if use_local_rms:
+        # header mulfac 1.0; the kernels derive each block's from the scale
+        mulfac, args = np.float32(1.0), dict(scale=scale)
+    else:
+        with record_function("cvx.mulfac"):
+            mulfac = quant.global_mulfac(
+                t if isinstance(vol, torch.Tensor) else vol, scale
+            )
+        args = dict(mulfac=mulfac)
     if block == BLOCK:
         with record_function("cvx.fused_encode"):
-            coeffs, desc, sizes, raw = tokenize.fused_encode(t, mulfac)
+            coeffs, desc, sizes, raw, mulfacs = tokenize.fused_encode(t, **args)
     else:
         with record_function("cvx.block_encode"):
-            coeffs, desc, chunk_bytes, sizes, raw = fused_compress.block_encode(
-                t, mulfac)
+            coeffs, desc, chunk_bytes, sizes, raw, mulfacs = (
+                fused_compress.block_encode(t, **args))
     with record_function("cvx.sizes_readback"):
-        sr = torch.stack([sizes, raw.to(torch.int32)]).cpu().numpy()
+        sr = torch.stack([sizes, raw.to(torch.int32),
+                          mulfacs.view(torch.int32)]).cpu().numpy()
     sizes_h, raw_h = sr[0].astype(np.int64), sr[1].astype(bool)
     total = int(sizes_h[~raw_h].sum())
     if block == BLOCK:
         with record_function("cvx.emit_payload"):
             nr_sizes = torch.where(raw, 0, sizes).to(torch.int64)
             base = torch.cumsum(nr_sizes, 0) - nr_sizes
-            stream = pack.emit_payload(coeffs, mulfac, desc, base, raw, total)
+            stream = pack.emit_payload(coeffs, mulfacs, desc, base, raw, total)
     else:
         with record_function("cvx.emit_chunks"):
             cb = chunk_bytes.to(torch.int64)
             base = torch.cumsum(cb, 0) - cb
-            stream = pack.emit_chunks(coeffs, mulfac, desc, chunk_bytes, base,
+            stream = pack.emit_chunks(coeffs, mulfacs, desc, chunk_bytes, base,
                                       total)
     with record_function("cvx.stream_d2h"):
         stream_h = stream.cpu().numpy()
@@ -150,8 +163,9 @@ def compress(vol, scale, block=BLOCK, use_local_rms=False, device=None):
         payload, _ = rle_device.assemble_payload_blockorder(
             stream_h, sizes_h, raw_h, raw_bytes_h, cells
         )
-        hdr = ctn.Header(nx, ny, nz, *block, mulfac, False)
-        data = ctn.pack_stream(hdr, sizes_h, raw_h, payload)
+        hdr = ctn.Header(nx, ny, nz, *block, mulfac, use_local_rms)
+        data = ctn.pack_stream(hdr, sizes_h, raw_h, payload,
+                               sr[2].view(np.float32) if use_local_rms else None)
     return data, (nx * ny * nz * 4) / data.size
 
 
@@ -199,20 +213,20 @@ def decompress_device(data, device):
         e32, c32 = entropy_decode.chase(P, b["sub_reset"], b["starts"], cells)
     with record_function("cvx.decode_emit"):
         dense = entropy_decode.emit(b["stream"], M, e32, c32, b["sub_block"],
-                                    p["scalefac"][0], hdr.grid[3], cells)
+                                    b["scalefac"], hdr.grid[3], cells)
     with record_function("cvx.overlay_raw"):
         entropy_decode.overlay_raw(dense, b["raw_rows"], b["raw_ids"])
     return _inverse(dense, hdr)
 
 
-def _decode_host(data, hdr, blkoffs, payload_base, device):
+def _decode_host(data, hdr, blkoffs, blkmulfac, payload_base, device):
     """The host engine: native decode, chunk-sparse upload, inverse."""
     raw = np.frombuffer(memoryview(data), dtype=np.uint8)
     shape = (hdr.nz, hdr.ny, hdr.nx)
     with record_function("cvx.decode_host"):
         coeffs = rle_host.decode_payloads(
             raw[payload_base:], blkoffs, hdr.glob_mulfac,
-            hdr.bx * hdr.by * hdr.bz,
+            hdr.bx * hdr.by * hdr.bz, blkmulfac,
         )
     with record_function("cvx.sparse_chunks"):
         rows, invmap = sparse_chunks(coeffs)
@@ -249,14 +263,14 @@ def decompress(data, device="cuda", engine="auto"):
     Under "auto" a container the device engine rejects takes the host
     engine.  Accepts containers of this port, of the JAX package, of the
     oracle and of the native library; the container is validated
-    structurally first.
+    structurally first.  Global- and local-RMS containers take the same
+    path; a local one's blocks dequantize with their own `blkmulfac`.
     """
     if engine not in ENGINES:
         raise ValueError(f"engine must be one of {ENGINES}, got {engine!r}")
     io.validate(data)
-    hdr, blkoffs, _, payload_base = ctn.unpack(data)
-    _check_slice((hdr.nz, hdr.ny, hdr.nx), (hdr.bx, hdr.by, hdr.bz),
-                 hdr.use_local_rms)
+    hdr, blkoffs, blkmulfac, payload_base = ctn.unpack(data)
+    _check_slice((hdr.nz, hdr.ny, hdr.nx), (hdr.bx, hdr.by, hdr.bz))
     device = _target(device)
     if engine == "device" or (engine == "auto" and device.type == "cuda"):
         out = decompress_device(data, device)
@@ -265,4 +279,4 @@ def decompress(data, device="cuda", engine="auto"):
         if engine == "device":
             raise ValueError("container not decodable on the device engine "
                              "(degenerate payload spans)")
-    return _decode_host(data, hdr, blkoffs, payload_base, device)
+    return _decode_host(data, hdr, blkoffs, blkmulfac, payload_base, device)

@@ -27,12 +27,15 @@ version for a CPU tensor; nothing falls back.
 
 Byte-exactness: a value is float(int) * scalefac (or the escaped f32 *
 scalefac) with one f32 rounding, as the host decoders compute it; the
-dense buffer is bit-identical to theirs for any valid container.  On a
-corrupt stream a group-of-8 token may run past its block's payload; its
-values then go to the block whose chain started the token, where the JAX
-device decoder uses the block of the byte that carries the value.  Writes
-of one chain therefore never land in another block, every live target is
-unique, and the kernel needs no atomics.
+dense buffer is bit-identical to theirs for any valid container.  The plan
+carries one scalefac per block, np.float32(1) / mulfac computed on the host
+(the header's global mulfac repeated, or the local-RMS `blkmulfac` table),
+as the JAX `plan` does (:200-209).  On a corrupt stream a group-of-8 token
+may run past its block's payload; its values then go to the block whose
+chain started the token, with that block's scalefac, where the JAX device
+decoder uses the block (and the scalefac) of the byte that carries the
+value.  Writes of one chain therefore never land in another block, every
+live target is unique, and the kernel needs no atomics.
 """
 
 from __future__ import annotations
@@ -68,15 +71,16 @@ def plan(data):
     uint8 `blob`: `segs` (nseg, SEG) u8, the aligned payload stream (plus
     PAD zero bytes after it in the blob), `sub_block` (nsub,) i32 (nnn for
     padding), `sub_reset` (nsub,) bool, `starts` (nchains,) i32 (the
-    subsegments with sub_reset), `raw_ids` (nraw,) i64 and `raw_rows`
-    (nraw, cells) f32 (None when no block is raw); `scalefac` (1,) f32,
-    `hdr`, `cells` and `layout` (field -> (offset, dtype, shape)).
+    subsegments with sub_reset), `scalefac` (nnn,) f32 (each block's
+    1/mulfac), `raw_ids` (nraw,) i64 and `raw_rows` (nraw, cells) f32 (None
+    when no block is raw); `hdr`, `cells` and `layout` (field -> (offset,
+    dtype, shape)).
 
     Spans come from the argsorted offset table, so a payload in any block
     order decodes.  The cost is one native ragged memcpy of the payload
     into the blob plus O(nsub) span arithmetic: no per-block Python loop.
     """
-    hdr, blkoffs, _, payload_base = ctn.unpack(data)
+    hdr, blkoffs, blkmulfac, payload_base = ctn.unpack(data)
     nnn = hdr.grid[3]
     cells = hdr.bx * hdr.by * hdr.bz
     payload = np.frombuffer(memoryview(data), dtype=np.uint8)[payload_base:]
@@ -117,6 +121,7 @@ def plan(data):
         ("raw_rows", np.float32, (raw_ids.size, cells)),
         ("sub_block", np.int32, (nsub,)),
         ("starts", np.int32, (starts.size,)),
+        ("scalefac", np.float32, (nnn,)),
         ("raw_ids", np.int64, (raw_ids.size,)),
         ("sub_reset", np.bool_, (nsub,)),
     ]
@@ -145,6 +150,8 @@ def plan(data):
     )
     view("sub_block")[:] = sub_block
     view("starts")[:] = starts
+    mulfacs = blkmulfac if hdr.use_local_rms else np.float32(hdr.glob_mulfac)
+    view("scalefac")[:] = np.float32(1.0) / mulfacs  # on the host: see decode_emit.cu
     view("raw_ids")[:] = raw_ids
     view("sub_reset")[:] = sub_reset
     return {
@@ -152,8 +159,7 @@ def plan(data):
         "sub_block": view("sub_block"),
         "sub_reset": view("sub_reset"),
         "starts": view("starts"),
-        "scalefac": np.full(1, np.float32(1.0) / np.float32(hdr.glob_mulfac),
-                            np.float32),
+        "scalefac": view("scalefac"),
         "hdr": hdr,
         "cells": cells,
         "raw_ids": view("raw_ids"),
@@ -316,8 +322,9 @@ def emit_plain(stream, M, e32, c32, sub_block, scalefac, nnn, cells):
 
     `_emit_values` :513-597 with the block-major target of
     `decode_to_blocks` :884-898 (block*cells + pos; pos >= cells or
-    block >= nnn is dropped), into a zeroed buffer.  Group-of-8 values go
-    to the block of their token's first byte (module docstring).
+    block >= nnn is dropped), into a zeroed buffer; each value times its
+    block's entry of the (nnn,) `scalefac`.  Group-of-8 values go to the
+    block of their token's first byte (module docstring).
     """
     nsub = M.shape[0]
     n = nsub * W
@@ -329,7 +336,7 @@ def emit_plain(stream, M, e32, c32, sub_block, scalefac, nnn, cells):
     out_base = torch.clamp_max(c32[:, None].long() + p_excl, cells).reshape(n)
     start = is_start.reshape(n) == 1
     blk = sub_block.long()[:, None].expand(nsub, W).reshape(n)
-    sf = torch.tensor(float(scalefac), dtype=torch.float32, device=dev)
+    sf = scalefac[blk.clamp_max(nnn - 1)]  # blocks >= nnn are dropped below
 
     def plane(k):
         return B[k: k + n]
@@ -349,7 +356,7 @@ def emit_plain(stream, M, e32, c32, sub_block, scalefac, nnn, cells):
     single = start & (plain | (sv == -125) | (sv == -127) | (sv == -128))
 
     i1 = torch.nonzero(single)[:, 0]
-    blks, poss, valv = [blk[i1]], [out_base[i1]], [val1f[i1] * sf]
+    blks, poss, valv = [blk[i1]], [out_base[i1]], [val1f[i1] * sf[i1]]
     for code, width in ((-126, 2), (126, 3)):  # VLESC2_8x, VLESC3_8x
         s = torch.nonzero(start & (sv == code))[:, 0]
         for j in range(8):
@@ -362,7 +369,7 @@ def emit_plain(stream, M, e32, c32, sub_block, scalefac, nnn, cells):
                 v = v - ((v >> 23) << 24)
             blks.append(blk[s])
             poss.append(out_base[s] + j)
-            valv.append(v.to(torch.float32) * sf)
+            valv.append(v.to(torch.float32) * sf[s])
     b, pos, val = torch.cat(blks), torch.cat(poss), torch.cat(valv)
     live = (pos < cells) & (b < nnn)
     out = torch.zeros((nnn, cells), dtype=torch.float32, device=dev)
@@ -415,21 +422,25 @@ def chase(P, sub_reset, starts, cells):
 
 
 def emit(stream, M, e32, c32, sub_block, scalefac, nnn, cells):
-    """Dense (nnn, cells) f32 coefficients; see emit_plain."""
+    """Dense (nnn, cells) f32 coefficients; see emit_plain.  `scalefac` is
+    the plan's (nnn,) f32 table."""
     nsub = M.shape[0]
     _check_stream(stream, nsub)
     if M.shape != (nsub, W) or not (e32.shape == c32.shape == sub_block.shape
                                     == (nsub,)):
         raise ValueError(f"M must be (nsub, {W}); e32, c32 and sub_block need "
                          "one entry per subsegment")
+    if scalefac.shape != (nnn,):
+        raise ValueError(f"scalefac must be ({nnn},), got {tuple(scalefac.shape)}")
     if stream.device.type == "cpu":
         return emit_plain(stream, M, e32, c32, sub_block, scalefac, nnn, cells)
-    _kernels.check_cuda(stream, M, e32, c32, sub_block,
-                        dtypes=(torch.uint8,) + (torch.int32,) * 4)
+    _kernels.check_cuda(stream, M, e32, c32, sub_block, scalefac,
+                        dtypes=(torch.uint8,) + (torch.int32,) * 4
+                        + (torch.float32,))
     out = torch.zeros((nnn, cells), dtype=torch.float32, device=stream.device)
     _kernels.launch("decode_emit", stream.data_ptr(), M.data_ptr(),
                     e32.data_ptr(), c32.data_ptr(), sub_block.data_ptr(), nsub,
-                    float(scalefac), cells, nnn, out.data_ptr())
+                    scalefac.data_ptr(), cells, nnn, out.data_ptr())
     return out
 
 

@@ -1,9 +1,9 @@
-"""The 128^3 compress kernel: whole-block forward wavelet + scale + tokenize
-(K6 port).
+"""The 128^3 compress kernels: whole-block forward wavelet + scale +
+tokenize (K6 port; the local RMS, K10a, K10b and K11).
 
-`block_encode` launches csrc/block_encode.cu on a CUDA volume and runs
-`block_encode_plain` on a CPU volume.  Both return, for the (nnn) 128^3
-blocks in raster order:
+`block_encode` launches csrc/block_encode.cu (and under the local RMS
+csrc/block_encode_local.cu) on a CUDA volume and runs `block_encode_plain`
+on a CPU volume.  Both return, for the (nnn) 128^3 blocks in raster order:
 
     coeffs      (nnn, 2^21) f32    UNSCALED wavelet coefficients, block-major
                                    (z, y, x inside a block)
@@ -12,26 +12,37 @@ blocks in raster order:
                                    raw-fallback block)
     sizes       (nnn,) int32       payload bytes per block (4*cells when raw)
     raw         (nnn,) bool        raw-fallback flag
+    mulfacs     (nnn,) f32         the mulfac each block was quantized with
 
 the contract of ops/tokenize.py `fused_encode` plus `chunk_bytes`, as the
 JAX `tokenize_desc_block` returns it, except that the coefficients are
 unscaled (raw blocks store them; the emit kernel rescales).
 
+Global RMS: `fwd_z` (kernel `block_fwd_z`, the z cascade) and `encode_xy`
+(`block_encode_xy`, the x and y cascades and the tokenize).  Local RMS: a
+block's mulfac needs all its coefficients before any slice is tokenized, so
+after `fwd_z` come `casc_local` (`block_casc_local`: the x and y cascades
+and one f64 sum of squares per z-slice) and `scale_tok` (`block_scale_tok`:
+the block's mulfac from its 128 slice sums, then the tokenize).
+
 TPU counterpart: `cvxcompress_tpu/ops/fused_compress.py`
-`tokenize_block_fused` (:422), global branch, kernel `_kernel_block` (:291).
+`tokenize_block_fused` (:422): the global branch, kernel `_kernel_block`
+(:291); the local branch, `_kernel_block_casc_local` (:312) and
+`_kernel_scale_tok` (:395), or `_kernel_block_local1` (:361) in one kernel.
 """
 
 from __future__ import annotations
 
 import torch
 
-from . import _kernels, blocks, rle_device, wavelet
+from . import _kernels, blocks, quant, rle_device, wavelet
 from .tokenize import scaled
 
 B = 128
 BLOCK = (B, B, B)
 CELLS = B ** 3
 CHUNK = 128
+SLICES, THREADS = quant.SUMSQ_ORDER[CELLS]  # one CTA of 256 threads per z-slice
 
 
 def fused_path_ok(vol_shape, block):
@@ -65,18 +76,43 @@ def fwd_z_plain(vol):
     return t.reshape(-1, CELLS).contiguous()
 
 
-def encode_xy_plain(tmp, mulfac):
-    """Plain version of pass 2: the x, then y cascade and the tokenize."""
+def _xy_plain(tmp):
     op = wavelet.operator(B, inverse=False, device=tmp.device)
     t = torch.einsum("nzyx,Xx->nzyX", tmp.view(-1, B, B, B), op)
-    coeffs = torch.einsum("nzyx,Yy->nzYx", t, op).reshape(-1, CELLS).contiguous()
-    return (coeffs, *tokenize_plain(scaled(coeffs, mulfac)))
+    return torch.einsum("nzyx,Yy->nzYx", t, op).reshape(-1, CELLS).contiguous()
 
 
-def block_encode_plain(vol, mulfac):
-    """Plain PyTorch version of the kernel (same outputs; the kernel's axis
+def encode_xy_plain(tmp, mulfac):
+    """Plain version of pass 2: the x, then y cascade and the tokenize."""
+    coeffs = _xy_plain(tmp)
+    return (coeffs, *tokenize_plain(scaled(coeffs, mulfac)),
+            torch.full((coeffs.shape[0],), mulfac, dtype=torch.float32,
+                       device=coeffs.device))
+
+
+def casc_local_plain(tmp):
+    """Plain version of `casc_local`: (coeffs, partials (nnn, 128) f64)."""
+    coeffs = _xy_plain(tmp)
+    partials = quant.cta_sumsq(coeffs.view(-1, CELLS // SLICES), THREADS)
+    return coeffs, partials.view(-1, SLICES)
+
+
+def scale_tok_plain(coeffs, partials, scale):
+    """Plain version of `scale_tok`: (desc, chunk_bytes, sizes, raw,
+    mulfacs)."""
+    mulfacs = quant.mulfac_from_rms(quant.rms_of_partials(partials, CELLS), scale)
+    return (*tokenize_plain(scaled(coeffs, mulfacs)), mulfacs)
+
+
+def block_encode_plain(vol, mulfac=None, *, scale=None):
+    """Plain PyTorch version of the kernels (same outputs; the kernels' axis
     order z, x, y, as the JAX `_kernel_block`)."""
-    return encode_xy_plain(fwd_z_plain(vol), mulfac)
+    local = quant.is_local(mulfac, scale)
+    tmp = fwd_z_plain(vol)
+    if local:
+        coeffs, partials = casc_local_plain(tmp)
+        return (coeffs, *scale_tok_plain(coeffs, partials, scale))
+    return encode_xy_plain(tmp, mulfac)
 
 
 def fwd_z(vol):
@@ -97,37 +133,92 @@ def fwd_z(vol):
     return tmp
 
 
+def _check_slices(tmp, out):
+    _kernels.check_cuda(tmp, out, dtypes=(torch.float32, torch.float32))
+    if tmp.dim() != 2 or tmp.shape[1] != CELLS or out.shape != tmp.shape:
+        raise ValueError(f"the 128^3 passes take (nnn, {CELLS}) buffers, got "
+                         f"{tuple(tmp.shape)} and {tuple(out.shape)}")
+
+
 def encode_xy(tmp, mulfac, out=None):
     """Pass 2 (kernel `block_encode_xy`): the x and y cascades and the
-    tokenize of every z-slice -> (coeffs, desc, chunk_bytes, sizes, raw).
+    tokenize of every z-slice -> (coeffs, desc, chunk_bytes, sizes, raw,
+    mulfacs).
 
     The kernel writes the coefficients into `out`, by default in place over
     `tmp` (each CTA holds its slice in shared memory before it writes).
     """
     if tmp.device.type == "cpu":
         return encode_xy_plain(tmp, mulfac)
-    _kernels.check_cuda(tmp, dtypes=(torch.float32,))
-    nnn = tmp.shape[0]
-    dev = tmp.device
     coeffs = tmp if out is None else out
-    _kernels.check_cuda(coeffs, dtypes=(torch.float32,))
-    if tmp.shape != (nnn, CELLS) or coeffs.shape != tmp.shape:
-        raise ValueError(f"encode_xy takes (nnn, {CELLS}) buffers, got "
-                         f"{tuple(tmp.shape)} and {tuple(coeffs.shape)}")
-    op = wavelet.operator(B, inverse=False, device=dev)
-    scratch = torch.empty(1 + nnn * B, dtype=torch.int32, device=dev)
-    desc = torch.empty((nnn, CELLS), dtype=torch.int32, device=dev)
-    chunk_bytes = torch.empty(nnn * (CELLS // CHUNK), dtype=torch.int32, device=dev)
-    sizes = torch.empty(nnn, dtype=torch.int32, device=dev)
+    _check_slices(tmp, coeffs)
+    nnn = tmp.shape[0]
+    op = wavelet.operator(B, inverse=False, device=tmp.device)
+    scratch, desc, chunk_bytes, sizes, mulfacs = _tokenize_outputs(nnn, tmp.device)
     _kernels.launch(
         "block_encode_xy", tmp.data_ptr(), op.data_ptr(), float(mulfac), nnn,
         scratch.data_ptr(), coeffs.data_ptr(), desc.data_ptr(),
-        chunk_bytes.data_ptr(), sizes.data_ptr(),
+        chunk_bytes.data_ptr(), sizes.data_ptr(), mulfacs.data_ptr(),
     )
-    return (coeffs, *_finish(desc, chunk_bytes, sizes))
+    return (coeffs, *_finish(desc, chunk_bytes, sizes), mulfacs)
 
 
-def block_encode(vol, mulfac):
-    """(nz, ny, nx) f32 volume -> (coeffs, desc, chunk_bytes, sizes, raw);
-    see the module doc.  Dims must be multiples of 128 (`fused_path_ok`)."""
-    return encode_xy(fwd_z(vol), mulfac)
+def _tokenize_outputs(nnn, dev):
+    """The look-back scratch (ticket + status words) and the tokenize's
+    outputs of nnn blocks; the launchers zero what needs it."""
+    return (torch.empty(1 + nnn * B, dtype=torch.int32, device=dev),
+            torch.empty((nnn, CELLS), dtype=torch.int32, device=dev),
+            torch.empty(nnn * (CELLS // CHUNK), dtype=torch.int32, device=dev),
+            torch.empty(nnn, dtype=torch.int32, device=dev),
+            torch.empty(nnn, dtype=torch.float32, device=dev))
+
+
+def casc_local(tmp):
+    """Local-RMS pass 2 (kernel `block_casc_local`): the x and y cascades of
+    every z-slice -> (coeffs, partials).  On the card the coefficients
+    replace `tmp` in place; partials (nnn, 128) f64 holds the sum of
+    squares of each (block, z) slice."""
+    if tmp.device.type == "cpu":
+        return casc_local_plain(tmp)
+    _check_slices(tmp, tmp)
+    nnn = tmp.shape[0]
+    op = wavelet.operator(B, inverse=False, device=tmp.device)
+    partials = torch.empty((nnn, SLICES), dtype=torch.float64, device=tmp.device)
+    _kernels.launch("block_casc_local", tmp.data_ptr(), op.data_ptr(), nnn,
+                    partials.data_ptr())
+    return tmp, partials
+
+
+def scale_tok(coeffs, partials, scale):
+    """Local-RMS pass 3 (kernel `block_scale_tok`): each block's mulfac from
+    its slice sums, then the tokenize of every z-slice -> (desc,
+    chunk_bytes, sizes, raw, mulfacs)."""
+    if coeffs.device.type == "cpu":
+        return scale_tok_plain(coeffs, partials, scale)
+    _check_slices(coeffs, coeffs)
+    nnn = coeffs.shape[0]
+    _kernels.check_cuda(partials, dtypes=(torch.float64,))
+    if partials.shape != (nnn, SLICES):
+        raise ValueError(f"partials must be ({nnn}, {SLICES}), got "
+                         f"{tuple(partials.shape)}")
+    scratch, desc, chunk_bytes, sizes, mulfacs = _tokenize_outputs(nnn, coeffs.device)
+    _kernels.launch(
+        "block_scale_tok", coeffs.data_ptr(), partials.data_ptr(), float(scale),
+        nnn, scratch.data_ptr(), desc.data_ptr(), chunk_bytes.data_ptr(),
+        sizes.data_ptr(), mulfacs.data_ptr(),
+    )
+    return (*_finish(desc, chunk_bytes, sizes), mulfacs)
+
+
+def block_encode(vol, mulfac=None, *, scale=None):
+    """(nz, ny, nx) f32 volume -> (coeffs, desc, chunk_bytes, sizes, raw,
+    mulfacs); see the module doc.  Global RMS: every block at `mulfac`.
+    Local RMS: give `scale` instead (each block's mulfac is 1/(rms*scale)
+    of its own coefficients).  Dims must be multiples of 128
+    (`fused_path_ok`)."""
+    local = quant.is_local(mulfac, scale)
+    tmp = fwd_z(vol)
+    if local:
+        coeffs, partials = casc_local(tmp)
+        return (coeffs, *scale_tok(coeffs, partials, scale))
+    return encode_xy(tmp, mulfac)

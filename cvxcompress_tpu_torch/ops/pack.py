@@ -2,7 +2,8 @@
 
 `emit_payload` launches csrc/emit_payload.cu on CUDA tensors and runs
 `emit_payload_plain` on CPU tensors.  Inputs are fused_encode's outputs for
-the (nnn) blocks plus the byte base of each block in the stream (the
+the (nnn) blocks, its (nnn,) mulfac table among them (one value repeated
+under the global RMS), plus the byte base of each block in the stream (the
 exclusive cumsum of the non-raw blocks' sizes); the output is the dense
 (total,) uint8 payload of the non-raw blocks in container block order —
 what `cvxcompress_tpu/ops/rle_device.py:547-575` `pack_active_stripe_seg`
@@ -33,14 +34,15 @@ def _byte(v, k):
     return (v >> (8 * k)) & 0xFF
 
 
-def token_bytes(coeffs, mulfac, desc):
-    """The five byte planes of every cell's (<= 5-byte) token, and its cost.
+def token_bytes(coeffs, mulfacs, desc):
+    """The five byte planes of every cell's (<= 5-byte) token, and its cost;
+    `mulfacs` holds one mulfac per row of `coeffs`.
 
     Byte values follow the grammar of oracle/rle.py; a packed group splits
     per lane (VLESC2_8x = lane 0 [code, i16] + lanes 1..7 [i16]).  Mirrors
     `cvxcompress_tpu/ops/rle_device.py:_planes`.
     """
-    fv = scaled(coeffs, mulfac)
+    fv = scaled(coeffs, mulfacs)
     iv = quant.quantize(fv)
     izero, is_byte, is_short, is_i3 = rle_device.classify(iv)
     mode = rle_device.group_modes(izero, is_byte, is_short, is_i3)
@@ -90,9 +92,9 @@ def token_bytes(coeffs, mulfac, desc):
     return (plane0, plane1, plane2, plane3, plane4), cost
 
 
-def emit_payload_plain(coeffs, mulfac, desc, base, raw, total):
+def emit_payload_plain(coeffs, mulfacs, desc, base, raw, total):
     """Plain PyTorch version of the kernel (same stream)."""
-    planes, cost = token_bytes(coeffs, mulfac, desc)
+    planes, cost = token_bytes(coeffs, mulfacs, desc)
     cost = torch.where(raw[:, None], 0, cost)
     pos = base[:, None] + (torch.cumsum(cost, dim=1) - cost)
     out = torch.zeros(total, dtype=torch.uint8, device=coeffs.device)
@@ -102,31 +104,41 @@ def emit_payload_plain(coeffs, mulfac, desc, base, raw, total):
     return out
 
 
-def emit_payload(coeffs, mulfac, desc, base, raw, total):
+def _check_table(mulfacs, nnn):
+    if mulfacs.shape != (nnn,):
+        raise ValueError(f"the mulfac table must be ({nnn},), got "
+                         f"{tuple(mulfacs.shape)}")
+
+
+def emit_payload(coeffs, mulfacs, desc, base, raw, total):
     """Block-ordered payload stream (total,) uint8 of the non-raw blocks.
 
-    coeffs (nnn, 32768) f32, desc (nnn, 32768) int32, base (nnn,) int64,
-    raw (nnn,) bool; `total` is the sum of the non-raw blocks' sizes.
+    coeffs (nnn, 32768) f32, mulfacs (nnn,) f32, desc (nnn, 32768) int32,
+    base (nnn,) int64, raw (nnn,) bool; `total` is the sum of the non-raw
+    blocks' sizes.
     """
+    _check_table(mulfacs, coeffs.shape[0])
     if coeffs.device.type == "cpu":
-        return emit_payload_plain(coeffs, mulfac, desc, base, raw, total)
+        return emit_payload_plain(coeffs, mulfacs, desc, base, raw, total)
     _kernels.check_cuda(
-        coeffs, desc, base, raw,
-        dtypes=(torch.float32, torch.int32, torch.int64, torch.bool),
+        coeffs, mulfacs, desc, base, raw,
+        dtypes=(torch.float32, torch.float32, torch.int32, torch.int64,
+                torch.bool),
     )
     nnn = coeffs.shape[0]
     out = torch.empty(total, dtype=torch.uint8, device=coeffs.device)
     _kernels.launch(
-        "emit_payload", coeffs.data_ptr(), float(mulfac), desc.data_ptr(),
+        "emit_payload", coeffs.data_ptr(), mulfacs.data_ptr(), desc.data_ptr(),
         base.data_ptr(), raw.data_ptr(), nnn, out.data_ptr(),
     )
     return out
 
 
-def emit_chunks_plain(coeffs, mulfac, desc, chunk_bytes, chunk_base, total):
+def emit_chunks_plain(coeffs, mulfacs, desc, chunk_bytes, chunk_base, total):
     """Plain PyTorch version of the chunk kernel (same stream)."""
     rows = coeffs.reshape(-1, CHUNK)
-    planes, cost = token_bytes(rows, mulfac, desc.reshape(-1, CHUNK))
+    per_chunk = mulfacs.repeat_interleave(rows.shape[0] // mulfacs.numel())
+    planes, cost = token_bytes(rows, per_chunk, desc.reshape(-1, CHUNK))
     cost = torch.where((chunk_bytes == 0)[:, None], 0, cost)
     pos = chunk_base[:, None] + (torch.cumsum(cost, dim=1) - cost)
     out = torch.zeros(total, dtype=torch.uint8, device=coeffs.device)
@@ -136,20 +148,22 @@ def emit_chunks_plain(coeffs, mulfac, desc, chunk_bytes, chunk_base, total):
     return out
 
 
-def emit_chunks(coeffs, mulfac, desc, chunk_bytes, chunk_base, total):
+def emit_chunks(coeffs, mulfacs, desc, chunk_bytes, chunk_base, total):
     """Block-ordered payload stream (total,) uint8 of the non-raw blocks.
 
-    coeffs (nnn, cells) f32 unscaled, desc (nnn, cells) int32, chunk_bytes
-    (nchunks,) int32 (0 for every chunk of a raw block), chunk_base
-    (nchunks,) int64 the exclusive cumsum of chunk_bytes; `total` is their
-    sum.
+    coeffs (nnn, cells) f32 unscaled, mulfacs (nnn,) f32, desc (nnn, cells)
+    int32, chunk_bytes (nchunks,) int32 (0 for every chunk of a raw block),
+    chunk_base (nchunks,) int64 the exclusive cumsum of chunk_bytes; `total`
+    is their sum.
     """
+    _check_table(mulfacs, coeffs.shape[0])
     if coeffs.device.type == "cpu":
-        return emit_chunks_plain(coeffs, mulfac, desc, chunk_bytes, chunk_base,
+        return emit_chunks_plain(coeffs, mulfacs, desc, chunk_bytes, chunk_base,
                                  total)
     _kernels.check_cuda(
-        coeffs, desc, chunk_bytes, chunk_base,
-        dtypes=(torch.float32, torch.int32, torch.int32, torch.int64),
+        coeffs, mulfacs, desc, chunk_bytes, chunk_base,
+        dtypes=(torch.float32, torch.float32, torch.int32, torch.int32,
+                torch.int64),
     )
     nchunks = chunk_bytes.numel()
     if (coeffs.numel() != nchunks * CHUNK or desc.numel() != coeffs.numel()
@@ -159,7 +173,7 @@ def emit_chunks(coeffs, mulfac, desc, chunk_bytes, chunk_base, total):
                          f"{coeffs.numel()}, {desc.numel()}, {chunk_base.numel()}")
     out = torch.empty(total, dtype=torch.uint8, device=coeffs.device)
     _kernels.launch(
-        "block_emit", coeffs.data_ptr(), float(mulfac), desc.data_ptr(),
+        "block_emit", coeffs.data_ptr(), mulfacs.data_ptr(), desc.data_ptr(),
         chunk_bytes.data_ptr(), chunk_base.data_ptr(), nchunks, out.data_ptr(),
     )
     return out

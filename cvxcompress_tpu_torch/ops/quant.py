@@ -1,7 +1,23 @@
-"""Global RMS and the quantization contract (`cvxcompress_tpu/ops/quant.py`).
+"""Global and local RMS and the quantization contract
+(`cvxcompress_tpu/ops/quant.py`).
 
 Global RMS (CvxCompress.cpp:73-117): float64 accumulation of the sum of
 squares, sqrt, cast to float32, then `container.compute_glob_mulfac`.
+
+Local RMS (CvxCompress.cpp:119-142, 343-348): each block's mulfac comes
+from the RMS of its own wavelet coefficients.  The encode kernels sum the
+squares in float64, as the native host codec does
+(native/cvx_host.cpp:654-656), so the table almost always equals the native
+library's bit for bit; f64 adds cost the card nothing beside the
+transforms, and a float32 sum over 2^21 cells would drift from native's by
+many ulps.  The order of the sum is fixed, with no atomics, and `local_rms`
+repeats it exactly, so a kernel's table and its plain version's agree bit
+for bit: a CTA's thread t adds the squares of its 64 consecutive cells in
+turn; the threads' sums meet in a halving tree over each warp's 32 lanes
+(lane i + lane i+16, then i + i+8, ...) and the warps' sums in the same
+tree; at 128^3 one CTA reduces each z-slice and the 128 slice sums add in
+slice order.  The JAX package sums in float32 trees; the tables agree to
+its own contract between paths, rtol 1e-5.
 
 Quantization (Run_Length_Encode_Slow.cpp:203-207): i = trunc(mulfac * c)
 toward zero with x86 cvttps semantics — NaN and values outside the int32
@@ -45,6 +61,67 @@ def global_mulfac(vol, scale):
         host = vol.numpy() if isinstance(vol, torch.Tensor) else vol
         rms = global_rms_host(host)
     return ctn.compute_glob_mulfac(rms, scale)
+
+
+# cells per block -> (z-slices reduced by one CTA each, threads of a CTA)
+SUMSQ_ORDER = {32 ** 3: (1, 512), 128 ** 3: (128, 256)}
+
+
+def _halve(x):
+    """Pairwise halving tree over the last dim (a power of two)."""
+    while x.shape[-1] > 1:
+        h = x.shape[-1] // 2
+        x = x[..., :h] + x[..., h:]
+    return x[..., 0]
+
+
+def cta_sumsq(rows, threads):
+    """f64 sum of squares of each row of (n, m) f32, in one CTA's order
+    (module doc): `threads` threads of m / threads consecutive cells."""
+    n, m = rows.shape
+    sq = rows.to(torch.float64).square().view(n, threads, m // threads)
+    acc = torch.zeros((n, threads), dtype=torch.float64, device=rows.device)
+    for i in range(sq.shape[2]):
+        acc = acc + sq[:, :, i]
+    return _halve(_halve(acc.view(n, threads // 32, 32)))
+
+
+def rms_of_partials(partials, cells):
+    """(n, slices) f64 slice sums -> (n,) f32 RMS: the slices add in order,
+    then sqrt(sum / cells) in f64, rounded to f32 (as native)."""
+    acc = torch.zeros(partials.shape[0], dtype=torch.float64, device=partials.device)
+    for k in range(partials.shape[1]):
+        acc = acc + partials[:, k]
+    return torch.sqrt(acc / cells).to(torch.float32)
+
+
+def local_rms(coeffs):
+    """Per-block RMS of block-major (n, cells) f32 coefficients, in the
+    encode kernels' order of summation (module doc): (n,) f32."""
+    n, cells = coeffs.shape
+    slices, threads = SUMSQ_ORDER[cells]
+    partials = cta_sumsq(coeffs.reshape(n * slices, -1), threads)
+    return rms_of_partials(partials.view(n, slices), cells)
+
+
+def is_local(mulfac, scale):
+    """An encode's mode from its arguments: the global RMS takes the one
+    `mulfac`, the local RMS the `scale` its blocks' mulfacs derive from;
+    exactly one of the two is given."""
+    if (mulfac is None) == (scale is None):
+        raise ValueError("give the global mulfac, or the scale for the local RMS "
+                         "(exactly one)")
+    return scale is not None
+
+
+def mulfac_from_rms(rms, scale):
+    """mulfac = 1/(rms*scale) in f32, elementwise, with the guards of
+    CvxCompress.cpp:291-295: 1.0 where rms == 0 or the result is not finite
+    (a NaN block, an RMS so small the quotient overflows)."""
+    one = torch.ones_like(rms)
+    mf = one / (rms * torch.tensor(scale, dtype=torch.float32, device=rms.device))
+    mf = torch.where(rms == 0.0, one, mf)
+    return torch.where(torch.isfinite(mf), mf, one)
 
 
 def quantize(fv):

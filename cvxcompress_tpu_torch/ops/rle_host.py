@@ -93,6 +93,12 @@ def lib():
                 ctypes.c_int, ctypes.c_int, ctypes.c_int, _VP,
                 ctypes.POINTER(ctypes.c_long),
             ]
+            h.cvx_compress_th.restype = ctypes.c_float
+            h.cvx_compress_th.argtypes = [
+                ctypes.c_float, _VP, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_bool, _VP,
+                ctypes.c_int, ctypes.POINTER(ctypes.c_long),
+            ]
             h.cvx_decompress_outofplace.restype = ctypes.POINTER(ctypes.c_float)
             h.cvx_decompress_outofplace.argtypes = [
                 ctypes.POINTER(ctypes.c_int), ctypes.POINTER(ctypes.c_int),
@@ -106,8 +112,10 @@ def _p(a):
     return a.ctypes.data
 
 
-def decode_payloads(payload, blkoffs, glob_mulfac, cells):
-    """Decode every block payload (global RMS) -> (nnn, cells) f32.
+def decode_payloads(payload, blkoffs, glob_mulfac, cells, blkmulfac=None):
+    """Decode every block payload -> (nnn, cells) f32, each block at
+    `blkmulfac[b]` (a local-RMS container's table) or, when None, at
+    `glob_mulfac`.
 
     Raw-flagged blocks copy their coefficients.  Raises ValueError when any
     block's stream is truncated or overruns the payload area.
@@ -115,9 +123,14 @@ def decode_payloads(payload, blkoffs, glob_mulfac, cells):
     payload = np.ascontiguousarray(payload, dtype=np.uint8)
     blkoffs = np.ascontiguousarray(blkoffs, dtype=np.int64)
     nnn = blkoffs.size
+    if blkmulfac is not None:
+        blkmulfac = np.ascontiguousarray(blkmulfac, dtype=F32)
+        if blkmulfac.shape != (nnn,):
+            raise ValueError(f"blkmulfac must be ({nnn},), got {blkmulfac.shape}")
     out = np.empty((nnn, int(cells)), dtype=F32)
     rc = lib().cvx_decode_payloads(
-        _p(payload), payload.size, _p(blkoffs), None, float(glob_mulfac),
+        _p(payload), payload.size, _p(blkoffs),
+        None if blkmulfac is None else _p(blkmulfac), float(glob_mulfac),
         nnn, int(cells), _p(out),
     )
     if rc != 0:
@@ -126,14 +139,16 @@ def decode_payloads(payload, blkoffs, glob_mulfac, cells):
 
 
 def encode_payloads(coeffs, mulfac):
-    """Encode (nnn, cells) unscaled coefficients at one mulfac.
+    """Encode (nnn, cells) unscaled coefficients at one mulfac, or at one
+    per block (a (nnn,) array).
 
     Returns (streams, sizes, raw): streams[i] holds block i's payload bytes
     (its coefficient bytes when raw).
     """
     coeffs = np.ascontiguousarray(coeffs, dtype=F32)
     nnn, cells = coeffs.shape
-    mulfacs = np.full(nnn, mulfac, dtype=F32)
+    mulfacs = np.ascontiguousarray(
+        np.broadcast_to(np.asarray(mulfac, dtype=F32), (nnn,)))
     stride = 5 * cells + 8
     buf = np.empty((nnn, stride), dtype=np.uint8)
     sizes = np.empty(nnn, dtype=np.int64)
@@ -176,8 +191,9 @@ def chunk_flags(coeffs, chunk):
     return flags.astype(bool)
 
 
-def host_compress(vol, scale, block=(32, 32, 32)):
-    """Compress through the reference C ABI `cvx_compress` (global RMS)."""
+def host_compress(vol, scale, block=(32, 32, 32), use_local_rms=False):
+    """Compress through the reference C ABI: `cvx_compress` (global RMS), or
+    `cvx_compress_th(use_local_RMS=true)`."""
     vol = np.ascontiguousarray(vol, dtype=F32)
     nz, ny, nx = vol.shape
     bx, by, bz = block
@@ -185,9 +201,13 @@ def host_compress(vol, scale, block=(32, 32, 32)):
     # worst case: every block raw (4*cells) + tables + header + slack
     out = np.zeros(32 + 12 * nnn + nnn * 4 * bx * by * bz + 64, dtype=np.uint8)
     length = ctypes.c_long(0)
-    ratio = lib().cvx_compress(
-        float(scale), _p(vol), nx, ny, nz, bx, by, bz, _p(out), ctypes.byref(length)
-    )
+    if use_local_rms:
+        ratio = lib().cvx_compress_th(
+            float(scale), _p(vol), nx, ny, nz, bx, by, bz, True, _p(out),
+            os.cpu_count() or 1, ctypes.byref(length))
+    else:
+        ratio = lib().cvx_compress(float(scale), _p(vol), nx, ny, nz, bx, by, bz,
+                                   _p(out), ctypes.byref(length))
     return out[: length.value].copy(), float(ratio)
 
 

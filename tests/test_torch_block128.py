@@ -113,7 +113,7 @@ def test_emit_chunks_matches_pack_staging_and_native(jax_k6):
     base = np.cumsum(cb.astype(np.int64)) - cb
     total = int(cb.sum())
     stream = pack.emit_chunks_plain(
-        torch.from_numpy(j["fv"]), 1.0, torch.from_numpy(j["desc"]),
+        torch.from_numpy(j["fv"]), torch.ones(2), torch.from_numpy(j["desc"]),
         torch.from_numpy(cb), torch.from_numpy(base), total).numpy()
 
     active = np.flatnonzero(cb)
@@ -140,10 +140,11 @@ def test_emit_chunks_of_port_coefficients_equals_native(sinusoid):
     mulfac equals the native encoder's, block by block."""
     vol, _, _ = sinusoid
     mulfac = quant.global_mulfac(vol, 1e-2)
-    coeffs, desc, cb, sizes, raw = fused_compress.block_encode(
+    coeffs, desc, cb, sizes, raw, mulfacs = fused_compress.block_encode(
         torch.from_numpy(vol), mulfac)
+    assert (mulfacs == mulfac).all()
     base = torch.cumsum(cb.long(), 0) - cb.long()
-    stream = pack.emit_chunks(coeffs, mulfac, desc, cb, base, int(cb.sum()))
+    stream = pack.emit_chunks(coeffs, mulfacs, desc, cb, base, int(cb.sum()))
     streams, nsizes, nraw = rle_host.encode_payloads(coeffs.numpy(), mulfac)
     np.testing.assert_array_equal(nsizes, sizes.numpy())
     np.testing.assert_array_equal(nraw, raw.numpy())
@@ -267,7 +268,7 @@ def test_decoder_at_two_million_cells():
     assert int(P.max()) < 2 ** 31 - 1
     e32, c32 = ted.chase(P, b["sub_reset"], b["starts"], CELLS)
     assert int(c32.max()) < CELLS
-    dense = ted.emit(b["stream"], M, e32, c32, b["sub_block"], p["scalefac"][0],
+    dense = ted.emit(b["stream"], M, e32, c32, b["sub_block"], b["scalefac"],
                      1, CELLS)
     hdr, blkoffs, _, pbase = ctn.unpack(data)
     nat = rle_host.decode_payloads(data[pbase:], blkoffs, hdr.glob_mulfac, CELLS)
@@ -275,18 +276,16 @@ def test_decoder_at_two_million_cells():
 
 
 def test_gates():
-    """128^3 on dims that are not multiples of 128, 64^3 and the local RMS
-    stay outside the slice (NotImplementedError naming ROADMAP.md), in
-    compress and in decompress."""
+    """128^3 on dims that are not multiples of 128 and 64^3 stay outside
+    the slice (NotImplementedError naming ROADMAP.md), in compress and in
+    decompress."""
     assert fused_compress.fused_path_ok((128, 128, 256), BLOCK)
     assert not fused_compress.fused_path_ok((128, 128, 200), BLOCK)
     assert not fused_compress.fused_path_ok((128, 128, 256), (128, 128, 64))
     vol = make_sinusoid_volume(128, 128, 200, periods=3)
-    for kw in (dict(block=BLOCK), dict(block=(64, 64, 64)),
-               dict(block=BLOCK, use_local_rms=True)):
+    for block in (BLOCK, (64, 64, 64)):
         with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-            cvt.compress(vol[:, :, :128] if kw.get("use_local_rms") else vol,
-                         1e-2, device="cpu", **kw)
+            cvt.compress(vol, 1e-2, block=block, device="cpu")
     for block in (BLOCK, (64, 64, 64)):
         data, _ = rle_host.host_compress(vol, 1e-2, block=block)
         with pytest.raises(NotImplementedError, match="ROADMAP.md"):

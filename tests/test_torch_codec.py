@@ -42,7 +42,8 @@ def radial():
 
 def test_import_leaves_jax_out():
     """The port imports neither jax nor the JAX package, even after full
-    roundtrips through every module, at 32^3 and at 128^3."""
+    roundtrips through every module, at 32^3 and at 128^3, with the global
+    and the local RMS."""
     code = (
         "import sys, numpy as np\n"
         "import cvxcompress_tpu_torch as cvt\n"
@@ -58,6 +59,11 @@ def test_import_leaves_jax_out():
         "w[60:70, 60:70, 60:70] = 1.0\n"
         "d = cvt.compress(w, 1e-2, block=(128, 128, 128), device='cpu')[0]\n"
         "assert cvt.decompress(d, device='cpu').shape == (128, 128, 128)\n"
+        "d = cvt.compress(w, 1e-2, block=(128, 128, 128), use_local_rms=True,"
+        " device='cpu')[0]\n"
+        "assert cvt.decompress(d, device='cpu', engine='device').shape == (128, 128, 128)\n"
+        "cvt.decompress(cvt.compress(v, 1e-2, use_local_rms=True, device='cpu')[0],"
+        " device='cpu')\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
         " or m.startswith('cvxcompress_tpu.') or m == 'cvxcompress_tpu']\n"
         "assert not bad, bad\n"
@@ -168,10 +174,8 @@ def test_validate_rejects_damage(radial):
 
 
 def test_outside_the_slice_raises(radial):
-    """Local RMS and block shapes other than 32^3 are not ported yet."""
+    """Block shapes other than 32^3 (and aligned 128^3) are not ported yet."""
     vol, _ = radial
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        cvt.compress(vol, 1e-2, use_local_rms=True, device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         cvt.compress(vol, 1e-2, block=(16, 16, 16), device="cpu")
     data16, _ = ocodec.compress(vol, 1e-2, block=(16, 16, 16))

@@ -57,13 +57,14 @@ def test_fused_encode_matches_plain(dev, rng, shape, scale):
     vol = volume(rng, shape)
     vt = torch.from_numpy(vol).to(dev)
     mulfac = quant.global_mulfac(vol, scale)
-    ck, dk, sk, rk = tokenize.fused_encode(vt, mulfac)
-    cp, _, _, _ = tokenize.fused_encode_plain(vt, mulfac)
+    ck, dk, sk, rk, mk = tokenize.fused_encode(vt, mulfac)
+    cp, _, _, _, _ = tokenize.fused_encode_plain(vt, mulfac)
     torch.cuda.synchronize()
     assert rel_rms(ck, cp) < TRANSFORM_TOL
     d2, s2, r2 = rle_device.tokenize(tokenize.scaled(ck, mulfac))
     assert torch.equal(dk, d2) and torch.equal(sk, s2) and torch.equal(rk, r2)
     assert bool(rk.any()) == (scale < 1e-6)
+    assert bool((mk == mulfac).all())
 
 
 def test_fused_encode_nonfinite_volume(dev, rng):
@@ -74,13 +75,13 @@ def test_fused_encode_nonfinite_volume(dev, rng):
     vol[3, 3, 3] = np.nan
     vol[35, 45, 65] = np.inf
     mulfac = quant.global_mulfac(np.where(np.isfinite(vol), vol, 0), 1e-2)
-    ck, dk, sk, rk = tokenize.fused_encode(torch.from_numpy(vol).to(dev), mulfac)
+    ck, dk, sk, rk, mk = tokenize.fused_encode(torch.from_numpy(vol).to(dev), mulfac)
     d2, s2, r2 = rle_device.tokenize(tokenize.scaled(ck, mulfac))
     assert torch.equal(dk, d2) and torch.equal(sk, s2) and torch.equal(rk, r2)
     assert bool(rk[0]) and bool(rk[-1])
     nr = torch.where(rk, 0, sk).to(torch.int64)
     base = torch.cumsum(nr, 0) - nr
-    got = pack.emit_payload(ck, mulfac, dk, base, rk, int(nr.sum()))
+    got = pack.emit_payload(ck, mk, dk, base, rk, int(nr.sum()))
     streams, _, nraw = rle_host.encode_payloads(ck.cpu().numpy(), mulfac)
     np.testing.assert_array_equal(nraw, rk.cpu().numpy())
     native = np.concatenate([s for s, r in zip(streams, nraw) if not r])
@@ -91,12 +92,12 @@ def test_fused_encode_nonfinite_volume(dev, rng):
 def test_emit_payload_matches_plain_and_native(dev, rng, scale):
     vol = volume(rng, (40, 50, 70))
     mulfac = quant.global_mulfac(vol, scale)
-    ck, dk, sk, rk = tokenize.fused_encode(torch.from_numpy(vol).to(dev), mulfac)
+    ck, dk, sk, rk, mk = tokenize.fused_encode(torch.from_numpy(vol).to(dev), mulfac)
     nr = torch.where(rk, 0, sk).to(torch.int64)
     base = torch.cumsum(nr, 0) - nr
     total = int(nr.sum())
-    got = pack.emit_payload(ck, mulfac, dk, base, rk, total)
-    ref = pack.emit_payload_plain(ck, mulfac, dk, base, rk, total)
+    got = pack.emit_payload(ck, mk, dk, base, rk, total)
+    ref = pack.emit_payload_plain(ck, mk, dk, base, rk, total)
     assert torch.equal(got, ref)
     streams, _, nraw = rle_host.encode_payloads(ck.cpu().numpy(), mulfac)
     parts = [s for s, r in zip(streams, nraw) if not r]
@@ -139,7 +140,7 @@ def decode_kernels_vs_plain(data, dev):
     p = entropy_decode.plan(data)
     b = entropy_decode.upload(p, dev)
     nsub, cells, nnn = b["sub_block"].numel(), p["cells"], p["hdr"].grid[3]
-    sf = p["scalefac"][0]
+    sf = b["scalefac"]
     M, P = entropy_decode.parse_maps(b["stream"], nsub, cells)
     Mp, Pp = entropy_decode.parse_maps_plain(b["stream"], nsub, cells)
     assert torch.equal(M, Mp) and torch.equal(P, Pp)
@@ -234,14 +235,15 @@ def volume128(kind, shape):
 
 def encode128_vs_plain(vt, mulfac):
     """block_encode against its plain version; returns the kernel's outputs."""
-    ck, dk, cbk, sk, rk = fused_compress.block_encode(vt, mulfac)
+    ck, dk, cbk, sk, rk, mk = fused_compress.block_encode(vt, mulfac)
     cp = fused_compress.block_encode_plain(vt, mulfac)[0]
     torch.cuda.synchronize()
     assert rel_rms(ck, cp) < TRANSFORM_TOL
     d2, cb2, s2, r2 = fused_compress.tokenize_plain(tokenize.scaled(ck, mulfac))
     assert torch.equal(dk, d2) and torch.equal(cbk, cb2)
     assert torch.equal(sk, s2) and torch.equal(rk, r2)
-    return ck, dk, cbk, sk, rk
+    assert bool((mk == mulfac).all())
+    return ck, dk, cbk, sk, rk, mk
 
 
 @pytest.mark.parametrize("kind,shape", [
@@ -251,11 +253,11 @@ def encode128_vs_plain(vt, mulfac):
 def test_block128_kernels_match_plain(dev, kind, shape):
     vol, mulfac = volume128(kind, shape)
     vt = torch.from_numpy(vol).to(dev)
-    ck, dk, cbk, sk, rk = encode128_vs_plain(vt, mulfac)
+    ck, dk, cbk, sk, rk, mk = encode128_vs_plain(vt, mulfac)
     base = torch.cumsum(cbk.long(), 0) - cbk.long()
     total = int(cbk.sum())
-    got = pack.emit_chunks(ck, mulfac, dk, cbk, base, total)
-    assert torch.equal(got, pack.emit_chunks_plain(ck, mulfac, dk, cbk, base, total))
+    got = pack.emit_chunks(ck, mk, dk, cbk, base, total)
+    assert torch.equal(got, pack.emit_chunks_plain(ck, mk, dk, cbk, base, total))
     streams, nsizes, nraw = rle_host.encode_payloads(ck.cpu().numpy(), mulfac)
     np.testing.assert_array_equal(nsizes, sk.cpu().numpy())
     parts = [st for st, r in zip(streams, nraw) if not r]
@@ -276,7 +278,7 @@ def test_block128_raw_fallback_on_the_card(dev):
            * 1000).astype(np.float32)
     vol[:, :, 128:] *= 1e-6
     mulfac = quant.global_mulfac(vol, 1e-8)
-    ck, dk, cbk, sk, rk = encode128_vs_plain(torch.from_numpy(vol).to(dev), mulfac)
+    ck, dk, cbk, sk, rk, _ = encode128_vs_plain(torch.from_numpy(vol).to(dev), mulfac)
     assert rk.tolist() == [True, False]
     assert int(cbk[:16384].sum()) == 0 and int(sk[0]) == 4 * 128 ** 3
     data, _ = cvt.compress(vol, 1e-8, block=BLOCK128)
@@ -325,3 +327,135 @@ def test_block128_wrappers_reject_bad_inputs(dev):
     with pytest.raises(ValueError):
         fused_inverse.block_fused_inverse(torch.zeros((10, 128), device=dev),
                                           BLOCK128)
+
+
+# -- the local RMS ------------------------------------------------------------
+
+
+def ramp(shape, b):
+    """`volume` with its b^3 blocks scaled by 1 and 1e-4 in turn (block RMS
+    10^4 apart) and, at 32^3, the guard blocks: all-zero, ~1e-38 and NaN
+    (each gets mulfac 1.0; the NaN block falls back to raw)."""
+    v = volume(np.random.default_rng(4), shape)
+    nb = tuple(n // b for n in shape)
+    f = np.where(np.arange(np.prod(nb)) % 2 == 1, 1e-4, 1.0).astype(np.float32)
+    v *= np.kron(f.reshape(nb), np.ones((b, b, b), np.float32))
+    if b == 32:
+        v[:32, :32, 32:64] = 0.0
+        v[:32, 32:64, :32] = np.float32(1e-38)
+        v[32:64, 64:96, 64:96] = 0.5
+        v[40, 70, 70] = np.nan
+    return v
+
+
+def test_fused_encode_local_matches_plain(dev):
+    """fused_encode_local: coefficients within 1e-5 of the plain version;
+    the table, descriptors, sizes and raw flags bit-equal to the plain
+    local RMS and tokenize of the kernel's coefficients; emit_payload at the
+    table bit-equal to its plain version and to the native encoder."""
+    vol = ramp((64, 96, 96), 32)
+    vt = torch.from_numpy(vol).to(dev)
+    _kernels.reset_counts()
+    ck, dk, sk, rk, mk = tokenize.fused_encode(vt, scale=1e-2)
+    assert _kernels.launches["fused_encode_local"] == 1
+    assert _kernels.launches["fused_encode"] == 0
+    cp = tokenize.fused_encode_plain(vt, scale=1e-2)[0]
+    torch.cuda.synchronize()
+    fin = torch.isfinite(cp).all(1)
+    assert rel_rms(ck[fin], cp[fin]) < TRANSFORM_TOL
+    assert torch.equal(mk, quant.mulfac_from_rms(quant.local_rms(ck), 1e-2))
+    assert float(mk.max() / mk[fin & (mk != 1.0)].min()) > 5e3
+    assert mk[1] == mk[3] == mk[17] == 1.0 and rk.tolist() == [b == 17 for b in range(18)]
+    d2, s2, r2 = rle_device.tokenize(tokenize.scaled(ck, mk))
+    assert torch.equal(dk, d2) and torch.equal(sk, s2) and torch.equal(rk, r2)
+    nr = torch.where(rk, 0, sk).to(torch.int64)
+    base = torch.cumsum(nr, 0) - nr
+    total = int(nr.sum())
+    got = pack.emit_payload(ck, mk, dk, base, rk, total)
+    assert torch.equal(got, pack.emit_payload_plain(ck, mk, dk, base, rk, total))
+    streams, nsizes, nraw = rle_host.encode_payloads(ck.cpu().numpy(), mk.cpu().numpy())
+    np.testing.assert_array_equal(nraw, rk.cpu().numpy())
+    np.testing.assert_array_equal(nsizes, sk.cpu().numpy())
+    native = np.concatenate([st for st, r in zip(streams, nraw) if not r])
+    np.testing.assert_array_equal(got.cpu().numpy(), native)
+
+
+@pytest.mark.parametrize("kind", ["sparse", "cube", "ramp"])
+def test_block128_local_kernels_match_plain(dev, kind):
+    """block_casc_local: coefficients within 1e-5 of the plain version and
+    slice partials bit-equal to the plain sums of its coefficients;
+    block_scale_tok: table, descriptors, chunk bytes, sizes and raw flags
+    bit-equal to the plain version on the same inputs; emit_chunks at the
+    table bit-equal to its plain version and to the native encoder."""
+    shape = (128, 128, 256)
+    vol = ramp(shape, 128) if kind == "ramp" else volume128(kind, shape)[0]
+    vt = torch.from_numpy(vol).to(dev)
+    tk = fused_compress.fwd_z(vt)
+    cp, _ = fused_compress.casc_local_plain(tk)
+    ck, pk = fused_compress.casc_local(tk)
+    torch.cuda.synchronize()
+    assert rel_rms(ck, cp) < TRANSFORM_TOL
+    del cp
+    assert torch.equal(pk, quant.cta_sumsq(ck.view(-1, 128 * 128), 256).view(-1, 128))
+    dk, cbk, sk, rk, mk = fused_compress.scale_tok(ck, pk, 1e-2)
+    dp, cbp, sp, rp, mp = fused_compress.scale_tok_plain(ck, pk, 1e-2)
+    assert torch.equal(mk, mp) and torch.equal(dk, dp) and torch.equal(cbk, cbp)
+    assert torch.equal(sk, sp) and torch.equal(rk, rp)
+    if kind == "ramp":
+        assert float(mk[1] / mk[0]) > 5e3
+    base = torch.cumsum(cbk.long(), 0) - cbk.long()
+    total = int(cbk.sum())
+    got = pack.emit_chunks(ck, mk, dk, cbk, base, total)
+    assert torch.equal(got, pack.emit_chunks_plain(ck, mk, dk, cbk, base, total))
+    streams, nsizes, nraw = rle_host.encode_payloads(ck.cpu().numpy(), mk.cpu().numpy())
+    np.testing.assert_array_equal(nsizes, sk.cpu().numpy())
+    parts = [st for st, r in zip(streams, nraw) if not r]
+    native = np.concatenate(parts) if parts else np.zeros(0, np.uint8)
+    np.testing.assert_array_equal(got.cpu().numpy(), native)
+
+
+@pytest.mark.parametrize("block", [(32, 32, 32), (128, 128, 128)], ids=["32", "128"])
+def test_local_roundtrip_on_the_card(dev, block):
+    """compress(use_local_rms=True) -> decompress on the default device:
+    the local encode kernels launch (the global ones do not), the table
+    equals the plain CPU path's within rtol 1e-5, the device engine equals
+    the host engine within 1e-5, and native decodes the container."""
+    b = block[0]
+    shape = (64, 96, 96) if b == 32 else (128, 128, 256)
+    vol = ramp(shape, b)
+    if b == 32:
+        vol[40, 70, 70] = 0.5  # finite: the CPU path's transform differs on NaN
+    _kernels.reset_counts()
+    data, _ = cvt.compress(vol, 1e-2, block=block, use_local_rms=True)
+    out = cvt.decompress(data)
+    torch.cuda.synchronize()
+    local = ("fused_encode_local",) if b == 32 else ("block_fwd_z", "block_casc_local",
+                                                      "block_scale_tok")
+    emit = "emit_payload" if b == 32 else "block_emit"
+    for k in local + (emit, "decode_maps", "decode_chase", "decode_emit"):
+        assert _kernels.launches[k] == 1, k
+    assert _kernels.launches["fused_encode"] == _kernels.launches["block_encode_xy"] == 0
+    hdr, _, blkmf, _ = ctn.unpack(data)
+    ref, _ = cvt.compress(vol, 1e-2, block=block, use_local_rms=True, device="cpu")
+    np.testing.assert_allclose(blkmf, ctn.unpack(ref)[2], rtol=1e-5)
+    assert abs(int(data.size) - int(ref.size)) <= max(64, 0.01 * ref.size)
+    assert rel_rms(out, cvt.decompress(data, engine="host")) < TRANSFORM_TOL
+    nat = torch.from_numpy(rle_host.host_decompress(data))
+    assert rel_rms(out.cpu(), nat) < TRANSFORM_TOL
+
+
+def test_decode_kernels_on_local_containers(dev):
+    """The decode kernels with a per-block scalefac table (a native local
+    container whose block RMS span 10^4) match their plain versions, and
+    the dense coefficients are uint32-equal to native decode_payloads at
+    the container's table."""
+    vol = ramp((64, 96, 96), 32)
+    vol[40, 70, 70] = 0.5
+    data, _ = rle_host.host_compress(vol, 1e-2, use_local_rms=True)
+    dense = decode_kernels_vs_plain(data, dev)
+    hdr, blkoffs, blkmf, pbase = ctn.unpack(data)
+    assert hdr.use_local_rms and blkmf.max() / blkmf[blkmf != 1.0].min() > 5e3
+    nat = rle_host.decode_payloads(data[pbase:], blkoffs, hdr.glob_mulfac,
+                                   dense.shape[1], blkmf)
+    np.testing.assert_array_equal(dense.cpu().numpy().view(np.uint32),
+                                  nat.view(np.uint32))

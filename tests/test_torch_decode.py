@@ -87,7 +87,7 @@ def decode_dense(data):
     nsub, cells = b["sub_block"].numel(), p["cells"]
     M, P = ted.parse_maps(b["stream"], nsub, cells)
     e32, c32 = ted.chase(P, b["sub_reset"], b["starts"], cells)
-    dense = ted.emit(b["stream"], M, e32, c32, b["sub_block"], p["scalefac"][0],
+    dense = ted.emit(b["stream"], M, e32, c32, b["sub_block"], b["scalefac"],
                      p["hdr"].grid[3], cells)
     return ted.overlay_raw(dense, b["raw_rows"], b["raw_ids"]).numpy()
 
@@ -125,8 +125,13 @@ def assert_dense_bit_exact(data):
 def test_plan_matches_jax(kind):
     data = _container(kind)
     mine, ref = ted.plan(data), ed.plan(data)
-    for k in ("segs", "sub_block", "sub_reset", "scalefac", "raw_ids"):
+    for k in ("segs", "sub_block", "sub_reset", "raw_ids"):
         np.testing.assert_array_equal(mine[k], ref[k], err_msg=k)
+    # one scalefac per block here, one per subsegment (or one in all) there
+    live = mine["sub_block"] < mine["hdr"].grid[3]
+    np.testing.assert_array_equal(
+        mine["scalefac"][mine["sub_block"][live]],
+        np.broadcast_to(ref["scalefac"], live.shape)[live])
     assert mine["segs"].dtype == ref["segs"].dtype == np.uint8
     assert (mine["raw_rows"] is None) == (ref["raw_rows"] is None)
     if ref["raw_rows"] is not None:

@@ -34,7 +34,8 @@ def _emit(coeffs, mulfac):
     nr = torch.where(raw, 0, sizes).to(torch.int64)
     base = torch.cumsum(nr, 0) - nr
     stream = pack.emit_payload(
-        torch.from_numpy(coeffs), mulfac, desc, base, raw, int(nr.sum())
+        torch.from_numpy(coeffs), torch.full((coeffs.shape[0],), mulfac), desc,
+        base, raw, int(nr.sum())
     )
     return stream.numpy(), sizes.numpy(), raw.numpy()
 
