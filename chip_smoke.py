@@ -14,6 +14,15 @@ Builds the CUDA kernels (csrc/, nvcc for sm_90a) and the native host library
   kernels also on a "ramp" volume whose block RMS span 10^4, with an
   all-zero, a ~1e-38 and a NaN block; the ratio and the mulfac table held
   against the native library's local codec run in the same script);
+- every other block geometry (phases 2d and 3e): the tokenize kernels of
+  the block-major and stripe routes and `block_emit` at A with 8^3, 64^3
+  and 256^3 blocks (sinusoid and ramp) and on a (512, 256, 256) volume
+  whose upper half is zero; then A at those blocks and the bench's 256^3
+  volume S at 8^3, 16^3, 64^3, 256^3, (128, 8, 8), (16, 16, 1) and
+  (8, 8, 1), global and local, through the public API, each held against
+  the native library's codec on the same input (size within max(64 B,
+  1 %), err at most 2 % above and SNR at most 0.2 dB below native's,
+  containers decoding both ways);
 
 it compares every kernel of the path with its plain PyTorch version at the
 path's shapes (also on an N(0,1) noise volume of the same shape, the
@@ -31,8 +40,8 @@ time beside its plain version's and its bound (the least time the card
 could take for the same work), and on the last line
 {"ok": true, "device": {...}}.  Any failed check raises (exit code != 0)
 and prints no result; so does a machine without a CUDA card.  Profiler
-traces of one compress + decompress per config go to
-build/chip_smoke_trace_{A,B,3c,3d}.json.
+traces of one compress + decompress per timed global-RMS config (and the
+local 3c, 3d) go to build/chip_smoke_trace_<config>.json.
 """
 
 from __future__ import annotations
@@ -43,6 +52,7 @@ import statistics
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 
@@ -71,6 +81,14 @@ KERNELS_B = ("block_fwd_z", "block_encode_xy", "block_emit", "block_inv_xy",
 KERNELS_C = ("fused_encode_local", "emit_payload", "fused_inverse")
 KERNELS_D = ("block_fwd_z", "block_casc_local", "block_scale_tok", "block_emit",
              "block_inv_xy", "block_inv_z")
+# the other geometries (phases 2d and 3e): the half-zero volume (its upper
+# half along z all zero: one 256^3 block is a single run of 2^24 zeros), and
+# the bench's volume S at the sweep's blocks (bench.py:422-445)
+SHAPE_HALF = (512, 256, 256)
+SHAPE_S = (256, 256, 256)
+BLOCKS_A = ((8, 8, 8), (64, 64, 64), (256, 256, 256))
+BLOCKS_S = ((8, 8, 8), (16, 16, 16), (64, 64, 64), (256, 256, 256), (128, 8, 8),
+            (16, 16, 1), (8, 8, 1))
 
 
 def check(cond, msg):
@@ -144,6 +162,19 @@ def cascade_flops(n, inverse=False):
     return total / n
 
 
+def emit_chunks_bytes(desc, chunk_bytes, total):
+    """The least bytes `block_emit` moves: every chunk count; the
+    descriptors and base of the live chunks (a raw block's count 0); the
+    coefficients of their groups of 8 that hold a token; the table; the
+    stream out."""
+    nnn, cells = desc.shape
+    live = chunk_bytes > 0
+    groups = ((desc.view(-1, 8) & 7).sum(1) > 0).view(live.numel(), -1) & live[:, None]
+    chunk = cells * nnn // live.numel()
+    return (4 * live.numel() + (4 * chunk + 8) * int(live.sum())
+            + 32 * int(groups.sum()) + 4 * nnn + total)
+
+
 C32, C128 = cascade_flops(32), cascade_flops(128)
 C32_INV, C128_INV = cascade_flops(32, inverse=True), cascade_flops(128, inverse=True)
 
@@ -192,7 +223,7 @@ def profiled(run_compress, run_decompress, tag, card, tries=4):
 
     trace_dir = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build")
     os.makedirs(trace_dir, exist_ok=True)
-    path = os.path.join(trace_dir, f"chip_smoke_trace_{tag}.json")
+    path = os.path.join(trace_dir, f"chip_smoke_trace_{tag.replace(' ', '_')}.json")
     issue = ("cudaLaunch", "cuLaunch", "cudaMemcpy", "cuMemcpy", "cudaMemset", "cuMemset")
     for attempt in range(1, tries + 1):
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -260,8 +291,8 @@ def main():
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     import cvxcompress_tpu_torch as cvt
     from cvxcompress_tpu_torch.ops import (
-        _kernels, codec, entropy_decode, fused_compress, fused_inverse, pack,
-        quant, rle_device, rle_host, tokenize,
+        _kernels, blocks, codec, entropy_decode, fused_compress, fused_inverse,
+        pack, quant, rle_device, rle_host, tokenize,
     )
 
     check("jax" not in sys.modules, "the port imported no jax")
@@ -270,6 +301,7 @@ def main():
     print(f"torch {torch.__version__} cuda {torch.version.cuda} device {name}")
 
     # -- phase 1: build ---------------------------------------------------
+    print(f"  at {time.perf_counter() - t_start:.1f} s", flush=True)
     print("phase 1: build", flush=True)
     t = time.perf_counter()
     _kernels.lib()
@@ -281,8 +313,14 @@ def main():
     rle_host.lib()
     print(f"  native library: {rle_host.SO_PATH} {rle_host.build_info or '(prebuilt)'}")
     print(f"  build phase {time.perf_counter() - t:.1f} s (native library included)")
+    # the transforms of the other geometries are torch einsums: at TF32 they
+    # would keep ~3 digits and break the 1e-5 transform contract
+    check(not torch.backends.cuda.matmul.allow_tf32
+          and torch.get_float32_matmul_precision() == "highest",
+          "f32 matmuls run in full f32 (allow_tf32 False, precision 'highest')")
 
     # -- phase 2: each kernel against its plain version, CI shape ---------
+    print(f"  at {time.perf_counter() - t_start:.1f} s", flush=True)
     print("phase 2: kernels vs plain versions at", SHAPE, flush=True)
     vol = sinusoid(*SHAPE, PERIODS)
     vt = torch.from_numpy(vol).to(dev)
@@ -451,6 +489,7 @@ def main():
     torch.cuda.empty_cache()
 
     # -- phase 2b: the 128^3 kernels against their plain versions, config B
+    print(f"  at {time.perf_counter() - t_start:.1f} s", flush=True)
     print("phase 2b: 128^3 kernels vs plain versions at", SHAPE_B, flush=True)
 
     def block_kernels(label, volb, scale, iters, plain_iters, native):
@@ -481,7 +520,7 @@ def main():
               f"{e:.3e} < 1e-5")
         err_xy = float((ck - cp).abs().max())
         del cp
-        d2, cb2, s2, r2 = fused_compress.tokenize_plain(tokenize.scaled(ck, mf))
+        d2, cb2, s2, r2 = tokenize.tokenize_scaled_plain(tokenize.scaled(ck, mf))
         check(torch.equal(dk, d2) and torch.equal(cbk, cb2) and torch.equal(sk, s2)
               and torch.equal(rk, r2), f"{label}: block_encode_xy desc, chunk_bytes, "
               "sizes and raw bit-equal to the plain tokenize of its coefficients")
@@ -510,16 +549,13 @@ def main():
                   and np.array_equal(nat, stk.cpu().numpy()),
                   f"{label}: stream bit-equal to native cvx_encode_payloads on the "
                   "kernel's coefficients")
-        live = int((cbk > 0).sum())
         out["block_emit"] = dict(
             max_abs_err=float((stk.int() - stp.int()).abs().max()) if total else 0.0,
             ms=cuda_ms(lambda: pack.emit_chunks(ck, mk, dk, cbk, cbase, total), iters),
             plain_ms=cuda_ms(
                 lambda: pack.emit_chunks_plain(ck, mk, dk, cbk, cbase, total),
                 plain_iters),
-            # every chunk count, the live chunks' coefficients, descriptors
-            # and base, the table, the stream out
-            **bound(4 * nchunks + 1032 * live + 4 * sk.numel() + total, 0))
+            **bound(emit_chunks_bytes(dk, cbk, total), 0))
         del ck, dk, cbk, mk, stk, stp, cbase
         bdata, bratio = codec.compress(vtb, scale, block=BLOCK_B)
         del vtb
@@ -574,6 +610,7 @@ def main():
           f" ms (one chain per block at cells = 2^21) on {card}")
 
     # -- phase 2c: the local-RMS kernels against their plain versions ------
+    print(f"  at {time.perf_counter() - t_start:.1f} s", flush=True)
     print("phase 2c: local-RMS kernels vs plain versions at", SHAPE, "and", SHAPE_B,
           flush=True)
 
@@ -699,7 +736,114 @@ def main():
               f"{r['bound_ms']:.4f} ms ({r['bound_by']}) on {card}")
     report.update(lrep)
 
+    # -- phase 2d: the other geometries' kernels against their plain versions
+    print(f"  at {time.perf_counter() - t_start:.1f} s", flush=True)
+    print("phase 2d: tokenize_chunks, tokenize_stripe and block_emit vs plain "
+          "versions at", SHAPE, "and", SHAPE_HALF, flush=True)
+
+    def generic_kernels(label, v, block, local, iters, plain_iters, half=False):
+        """The route's tokenize kernel and block_emit against their plain
+        versions on `v` at `block` (the encode's own coefficients and table),
+        the stream against the native encoder, then the decode kernels on
+        the container; returns the two kernels' reports."""
+        vt = torch.from_numpy(v).to(dev)
+        args = dict(scale=SCALE) if local else dict(mulfac=quant.global_mulfac(v, SCALE))
+        stripe = codec.route(v.shape, block) == "stripe"
+        kname = "tokenize_stripe" if stripe else "tokenize_chunks"
+        c, dk, cbk, sk, rk, mk = tokenize.encode(vt, block, **args)
+        del vt
+        if stripe:
+            def tok():
+                return tokenize.tokenize_stripe(c, mk, block)
+
+            def tok_plain():
+                return tokenize.tokenize_stripe_plain(c, mk, block)
+        else:
+            def tok():
+                return tokenize.tokenize_chunks(c, mk)
+
+            def tok_plain():
+                return tokenize.tokenize_chunks_plain(c, mk)
+        nnn, nchunks, ncell = mk.numel(), cbk.numel(), c.numel()
+        check(all(torch.equal(a, b) for a, b in zip((dk, cbk, sk, rk), tok_plain())),
+              f"{label}: {kname} descriptors, chunk bytes, sizes and raw flags "
+              f"({int(rk.sum())} raw of {nnn} blocks; mulfacs {float(mk.min()):.4g} to "
+              f"{float(mk.max()):.4g}) bit-equal to the plain version")
+        if half:
+            check(not bool(rk.any()) and int(sk[-1]) == 5
+                  and int(dk[-1, -1]) == 5 | 8 | (rle_device.MAX_RUN24 << 4),
+                  f"{label}: the all-zero 256^3 block is one run of 2^24 zeros, 5 bytes "
+                  "(an RLESC3 of 2^24 - 1 and a trailing [0])")
+        sb = block if stripe else None
+        cb64 = cbk.to(torch.int64)
+        cbase = torch.cumsum(cb64, 0) - cb64
+        total = int(cb64.sum())
+        stk = pack.emit_chunks(c, mk, dk, cbk, cbase, total, sb)
+        stp = pack.emit_chunks_plain(c, mk, dk, cbk, cbase, total, sb)
+        check(torch.equal(stk, stp), f"{label}: block_emit stream ({total} B) "
+              "bit-equal to the plain version")
+        cbm = blocks.to_blocks(c, block).view(nnn, -1) if stripe else c
+        streams, nsizes, nraw = rle_host.encode_payloads(cbm.cpu().numpy(),
+                                                         mk.cpu().numpy())
+        del cbm
+        parts = [st for st, r in zip(streams, nraw) if not r]
+        nat = np.concatenate(parts) if parts else np.zeros(0, np.uint8)
+        check(np.array_equal(nsizes, sk.cpu().numpy()) and np.array_equal(
+              nraw, rk.cpu().numpy()) and np.array_equal(nat, stk.cpu().numpy()),
+              f"{label}: sizes, raw flags and stream bit-equal to native "
+              "cvx_encode_payloads on the encode's coefficients and table")
+        del streams, parts, nat
+        out = {
+            kname: dict(
+                max_abs_err=0.0, ms=cuda_ms(tok, iters),
+                plain_ms=cuda_ms(tok_plain, plain_iters),
+                # coefficients and the table in; descriptors, chunk counts,
+                # sizes and raw flags out
+                **bound(8 * ncell + 4 * nchunks + 9 * nnn, 0)),
+            "block_emit": dict(
+                max_abs_err=float((stk.int() - stp.int()).abs().max()) if total else 0.0,
+                ms=cuda_ms(lambda: pack.emit_chunks(c, mk, dk, cbk, cbase, total, sb),
+                           iters),
+                plain_ms=cuda_ms(lambda: pack.emit_chunks_plain(c, mk, dk, cbk, cbase,
+                                                                total, sb), plain_iters),
+                **bound(emit_chunks_bytes(dk, cbk, total), 0)),
+        }
+        del c, dk, cbk, sk, rk, mk, stk, stp, cbase
+        torch.cuda.empty_cache()
+        d, r = cvt.compress(v, SCALE, block=block, use_local_rms=local)
+        print(f"  {label}: container {d.size} B, ratio {r:.1f}")
+        decode_stages(f"{label} container", d, 3, 1)
+        torch.cuda.empty_cache()
+        for k, rep in out.items():
+            print(f"  {label}: {k} kernel {rep['ms']:.4f} ms, plain {rep['plain_ms']:.3f}"
+                  f" ms, bound {rep['bound_ms']:.4f} ms ({rep['bound_by']}) on {card}")
+        return out
+
+    vol_half = sinusoid(*SHAPE_HALF, PERIODS)
+    vol_half[SHAPE_HALF[0] // 2:] = 0.0
+    generic = {}
+    for label, v, block, local, half in (
+            ("A 8^3", vol, (8, 8, 8), False, False),
+            ("A 8^3 local ramp", ramp(vol, 8), (8, 8, 8), True, False),
+            ("A 256^3", vol, (256, 256, 256), False, False),
+            ("A 256^3 local ramp", ramp(vol, 256), (256, 256, 256), True, False),
+            ("half-zero 256^3", vol_half, (256, 256, 256), False, True),
+            ("A 64^3", vol, (64, 64, 64), False, False),
+            ("A 64^3 local ramp", ramp(vol, 64), (64, 64, 64), True, False)):
+        generic[label] = generic_kernels(label, v, block, local, 10, 1, half)
+        print(f"  {label} done at {time.perf_counter() - t_start:.1f} s", flush=True)
+    del vol_half
+    report["tokenize_chunks"] = dict(generic["A 8^3"]["tokenize_chunks"])
+    report["tokenize_stripe"] = dict(generic["A 64^3"]["tokenize_stripe"])
+    # every input's numbers beside the row's own (A 8^3, A 64^3; B for
+    # block_emit)
+    for k in ("tokenize_chunks", "tokenize_stripe", "block_emit"):
+        report[k]["inputs"] = {
+            label: {f: r[k][f] for f in ("ms", "plain_ms", "bound_ms")}
+            for label, r in generic.items() if k in r}
+
     # -- phase 3: the main path through the public API, config A ---------
+    print(f"  at {time.perf_counter() - t_start:.1f} s", flush=True)
     print("phase 3: main path A, compress -> decompress (default device, engine "
           "auto = device) on", name, flush=True)
     _kernels.reset_counts()
@@ -731,10 +875,10 @@ def main():
           f"decodes on the device engine within rel RMS {e:.3e} of native")
     del out, out_host, outn
 
-    def timed_path(tag, v, block, d, local=False, runs=5):
+    def timed_path(tag, v, block, d, local=False, runs=5, profile=True):
         """Medians of `runs`: compress (numpy in), compress (volume on the
-        card), decompress on both engines; then one profiled compress +
-        decompress."""
+        card), decompress on both engines; then, with `profile`, one
+        profiled compress + decompress."""
         vdev = torch.from_numpy(v).to(dev)
 
         def run_compress():
@@ -761,6 +905,8 @@ def main():
             print(f"  config {tag}: {key} median {med:.2f} ms "
                   f"({mcells / med * 1e3:.0f} MC/s) runs {[round(x, 2) for x in times]}"
                   f" on {card}")
+        if not profile:
+            return res
         spans, idle = profiled(run_compress, run_decompress, tag, card)
         check(all(sp in spans for sp in DECODE_SPANS),
               f"config {tag}: the profiled decompress ran the device engine's "
@@ -775,6 +921,7 @@ def main():
     check("cvx.fused_inverse" in res_a["spans_ms"], "config A: inverse span ran")
 
     # -- phase 3b: the main path through the public API, config B --------
+    print(f"  at {time.perf_counter() - t_start:.1f} s", flush=True)
     print("phase 3b: main path B (128^3 blocks), compress -> decompress (default "
           "device, engine auto = device) on", name, flush=True)
     _kernels.reset_counts()
@@ -808,6 +955,7 @@ def main():
     def local_path(tag, v, block, kernels, ref_ratio):
         """compress(use_local_rms=True) -> decompress on the default device,
         held against the native library's local codec run here."""
+        print(f"  at {time.perf_counter() - t_start:.1f} s", flush=True)
         print(f"phase {tag}: local-RMS path, block {block}, compress -> decompress "
               "(default device, engine auto = device) on", name, flush=True)
         _kernels.reset_counts()
@@ -857,6 +1005,104 @@ def main():
     counts_c, res_c = local_path("3c", vol, (32, 32, 32), KERNELS_C, 1104.6)
     counts_d, res_d = local_path("3d", vol_b, BLOCK_B, KERNELS_D, 21266.9)
 
+    # -- phase 3e: every other geometry through the public API -------------
+    print(f"  at {time.perf_counter() - t_start:.1f} s", flush=True)
+    print("phase 3e: the other geometries, compress -> decompress (default device, "
+          "engine auto = device), held against native run here, on", name, flush=True)
+
+    # The native codec is serial here (no OpenMP runtime), so its
+    # references run in worker threads (ctypes releases the GIL), none of
+    # them while a timed path runs.
+    pool = ThreadPoolExecutor(max_workers=6)
+
+    def native_ref(v, block, local):
+        """native's container of `v` at `block`, its decode, err and SNR."""
+        dn, rn = rle_host.host_compress(v, SCALE, block=block, use_local_rms=local)
+        on = rle_host.host_decompress(dn)
+        return dn, rn, on, *err_snr(v, on)
+
+    def generic_path(tag, v, block, local, timed, ref):
+        """compress -> decompress of `v` at `block` on the default device:
+        the route's launches, quality and ratio against native's codec on
+        the same input (`ref`, the future of `native_ref`), interop both
+        ways; with `timed`, the medians of 3 (and, under the global RMS,
+        one profiled window)."""
+        kname = ("tokenize_stripe" if codec.route(v.shape, block) == "stripe"
+                 else "tokenize_chunks")
+        _kernels.reset_counts()
+        d, r = cvt.compress(v, SCALE, block=block, use_local_rms=local)
+        o = cvt.decompress(d)
+        torch.cuda.synchronize()
+        counts = dict(_kernels.launches)
+        under_native = pool.submit(rle_host.host_decompress, d)
+        want = {kname: 1, "block_emit": 1, **{k: 1 for k in DECODE_KERNELS}}
+        check(counts == {k: want.get(k, 0) for k in counts},
+              f"{tag}: one launch each of {kname}, block_emit and the decode kernels, "
+              "none else")
+        oh = o.cpu().numpy()
+        del o
+        check(oh.shape == v.shape and bool(np.isfinite(oh).all()),
+              f"{tag}: decompressed volume finite, shape {v.shape}")
+        err_g, snr_g = err_snr(v, oh)
+        dn, rn, on, err_n, snr_n = ref.result()
+        # The transforms differ from native's in the last bits, so a
+        # coefficient that sits on a quantization step may truncate to the
+        # other integer.  The sinusoid has many such: at (16, 16, 1) blocks
+        # whole z-slices of DC coefficients are -1600 to f32 rounding, and
+        # where the port truncates to -1600 and native to -1599 the port's
+        # err is ~2 % lower.  So the size is held within 1 %, or 64 B for a
+        # container under 6.4 KB (at a ratio ~50,000 three such
+        # coefficients move a 1.3 KB container by 1.1 %), and the quality
+        # to no more than 2 % above native's err and 0.2 dB below its SNR.
+        check(abs(d.size - dn.size) <= max(64, 0.01 * dn.size)
+              and err_g <= 1.02 * err_n and snr_g >= snr_n - 0.2,
+              f"{tag}: ratio {r:.1f} ({d.size} B), err {err_g:.4e}, SNR {snr_g:.2f} dB "
+              f"against native's {rn:.1f} ({dn.size} B), {err_n:.4e}, {snr_n:.2f} dB "
+              f"(size within max(64 B, 1 %): {(d.size - dn.size) / dn.size:+.4%}; err "
+              f"at most 2 % above: {err_g / err_n - 1:+.4%}; SNR at most 0.2 dB below: "
+              f"{snr_g - snr_n:+.3f} dB)")
+        e1 = rel_rms(torch.from_numpy(under_native.result()), torch.from_numpy(oh))
+        e2 = rel_rms(cvt.decompress(dn, engine="device").cpu(), torch.from_numpy(on))
+        check(e1 < TRANSFORM_TOL and e2 < TRANSFORM_TOL,
+              f"{tag}: the port's container decodes under native (rel RMS {e1:.3e}), "
+              f"native's on the device engine ({e2:.3e})")
+        res = dict(ratio=r, err=err_g, snr_db=snr_g, native_ratio=rn, native_err=err_n,
+                   native_snr_db=snr_n)
+        if local:
+            mf, mfn = cvt.container.unpack(d)[2], cvt.container.unpack(dn)[2]
+            rt = float(np.max(np.abs(mf.astype(np.float64) / mfn - 1.0)))
+            check(rt < 1e-5, f"{tag}: table within rtol {rt:.2e} of native's "
+                  f"({int((mf == mfn).sum())} of {mf.size} bit-equal)")
+            res["table_rtol"] = rt
+        del dn, on
+        if timed:
+            e = rel_rms(torch.from_numpy(oh), cvt.decompress(d, engine="host").cpu())
+            check(e < TRANSFORM_TOL, f"{tag}: engine device within rel RMS {e:.3e} "
+                  "of engine host")
+            res.update(timed_path(tag, v, block, d, local=local, runs=3,
+                                  profile=not local))
+        torch.cuda.empty_cache()
+        return counts, res
+
+    counts_e, res_e = {}, {}
+    vol_s = sinusoid(*SHAPE_S, PERIODS)
+    for v, blks, prefix, timed in ((vol, BLOCKS_A, "A", True),
+                                   (vol_s, BLOCKS_S, "S", False)):
+        cases = [(f"{prefix} {'x'.join(map(str, b))}{' local' if lo else ''}", b, lo)
+                 for b in blks for lo in (False, True)]
+        refs = {tag: pool.submit(native_ref, v, b, lo) for tag, b, lo in cases}
+        if timed:  # every reference made before the first timed path
+            for f in refs.values():
+                f.result()
+        print(f"  {prefix}: native references submitted, at "
+              f"{time.perf_counter() - t_start:.1f} s", flush=True)
+        for tag, b, lo in cases:
+            counts_e[tag], res_e[tag] = generic_path(tag, v, b, lo, timed,
+                                                     refs.pop(tag))
+            print(f"  {tag} done at {time.perf_counter() - t_start:.1f} s", flush=True)
+    pool.shutdown()
+    del vol_s
+
     for k, r in report.items():
         print(f"  {k}: kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.3f} ms, bound "
               f"{r['bound_ms']:.4f} ms ({r['bound_by']}) on {card}")
@@ -894,13 +1140,21 @@ def main():
         "block_scale_tok": ("csrc/block_encode_local.cu",
                             "cvxcompress_tpu/ops/fused_compress.py:395",
                             "cvxcompress_tpu/ops/fused_compress.py:361"),
+        "tokenize_chunks": ("csrc/tokenize_chunks.cu",
+                            "cvxcompress_tpu/ops/tokenize_pallas.py:437",
+                            "cvxcompress_tpu/ops/tokenize_pallas.py:391"),
+        "tokenize_stripe": ("csrc/tokenize_chunks.cu",
+                            "cvxcompress_tpu/ops/tokenize_pallas.py:744", None),
     }
     kernels = []
     for k, r in report.items():
         src, rep, also = meta[k]
         # launches on the path's own drive: the local paths for their
-        # kernels, config B for the other 128^3 kernels, A for the rest
-        launches = (counts_c[k] if k == "fused_encode_local" else
+        # kernels, config B for the other 128^3 kernels, A at 8^3 and at 64^3
+        # for the two tokenizes of the other geometries, A for the rest
+        launches = (counts_e["A 8x8x8"][k] if k == "tokenize_chunks" else
+                    counts_e["A 64x64x64"][k] if k == "tokenize_stripe" else
+                    counts_c[k] if k == "fused_encode_local" else
                     counts_d[k] if k in KERNELS_D and k not in KERNELS_B else
                     counts_b[k] if k in KERNELS_B else counts_a[k])
         # no single PyTorch call computes any of these functions (PERF.md)
@@ -909,7 +1163,7 @@ def main():
                "launches": launches, "max_abs_err": r["max_abs_err"],
                "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                "bound_by": r["bound_by"], "library_ms": None}
-        for extra in ("noise_ms", "noise_plain_ms", "ramp_ms", "ramp_plain_ms"):
+        for extra in ("noise_ms", "noise_plain_ms", "ramp_ms", "ramp_plain_ms", "inputs"):
             if extra in r:
                 row[extra] = r[extra]
         if also:
@@ -921,7 +1175,8 @@ def main():
                       "config_a": dict(ratio=ratio, err=err, snr_db=snr, **res_a),
                       "config_b": dict(ratio=ratio_b, err=err_b, snr_db=snr_b,
                                        **res_b),
-                      "config_a_local": res_c, "config_b_local": res_d}))
+                      "config_a_local": res_c, "config_b_local": res_d,
+                      "other_geometries": res_e}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))
     return 0

@@ -1,9 +1,11 @@
 """Public API, shaped by the reference's class CvxCompress (CvxCompress.hxx:19-135).
 
-The PyTorch counterpart of `cvxcompress_tpu/api.py` for the ported slice:
-32^3 blocks, and 128^3 blocks over dims that are multiples of 128, with the
-global RMS or the local RMS (`use_local_rms=True`: each block quantized
-with 1/(rms*scale) of its own coefficients, the table in the container).  Everything runs on the CUDA card unless the caller asks for
+The PyTorch counterpart of `cvxcompress_tpu/api.py`: every block the
+reference accepts (Is_Valid_Block_Size: bx and by powers of two in
+[8, 256], bz one too or 1; any other raises ValueError), any volume shape,
+with the global RMS or the local RMS (`use_local_rms=True`: each block
+quantized with 1/(rms*scale) of its own coefficients, the table in the
+container).  Everything runs on the CUDA card unless the caller asks for
 the CPU: a torch volume brings its own device, a numpy volume and every
 decompress go to `device`, "cuda" by default ("cpu" runs the plain PyTorch
 versions of the kernels; "cuda" without a card raises, nothing falls back).
@@ -23,7 +25,9 @@ from .ops import codec
 def compress(vol, scale, block=(32, 32, 32), use_local_rms=False, device=None):
     """Compress a (nz, ny, nx) float32 volume -> (container uint8 ndarray, ratio).
 
-    `device` None: the tensor's own device, or "cuda" for a numpy volume.
+    `block` (bx, by, bz) is any block Is_Valid_Block_Size accepts, else
+    ValueError.  `device` None: the tensor's own device, or "cuda" for a
+    numpy volume.
     `use_local_rms` picks the reference's local-RMS mode: one mulfac per
     block, from the RMS of the block's own wavelet coefficients.
     """
@@ -41,8 +45,9 @@ class CvxCompress:
 
     The thread-count parameters of the reference overloads have no device
     equivalent and are accepted and ignored.  `device` ("cuda" by default)
-    is where numpy volumes go and where Decompress returns its tensor;
-    `Compress(scale, vol, 128, 128, 128)` takes the 128^3 path.
+    is where numpy volumes go and where Decompress returns its tensor.
+    `Compress(scale, vol, bx, by, bz)` takes any block Is_Valid_Block_Size
+    accepts (each geometry on its route, ops/codec.py `route`).
     """
 
     @staticmethod

@@ -1,4 +1,5 @@
-// block_emit: the block-ordered payload stream of 128-cell chunks.
+// block_emit: the block-ordered payload stream of min(128, cells)-cell
+// chunks, for every geometry but 32^3.
 //
 // Replaces the TPU kernel pack_pallas.pack_staging
 // (cvxcompress_tpu/ops/pack_pallas.py:515, call :528, kernel _kernel :142),
@@ -9,38 +10,47 @@
 // with one-hot matmuls and front-packs them with 10 log-shift rounds.  A GPU
 // can, so the whole stage is one kernel writing the final stream.
 //
-// One warp per two chunks, a half-warp per chunk, a lane per group of 8
-// cells.  A chunk whose byte count is 0 (all of a raw block's chunks are)
-// costs one 4-byte read.  Otherwise each lane sums its cells' costs from the
-// descriptors, a half-warp exclusive scan gives its offset in the chunk, and
-// it writes its tokens at chunk_base[chunk] + offset, re-deriving values,
-// classes and group modes from the unscaled coefficients and the block's
-// entry of the (nnn,) mulfac table (emit_group in tokens.cuh, shared with
-// emit_payload; one value repeated under the global RMS).
-// What bounds it on an H100: the chunk byte counts (4 B per 128 cells) and
-// the coefficients and descriptors of the live chunks only; at a high ratio
-// the launch itself.
+// A lane per group of 8 cells, LPC = chunk / 8 lanes per chunk (16 for
+// 128-cell chunks, 8 for the 64-cell chunks of an (8, 8, 1) block), so a
+// warp takes 32 / LPC chunks.  A chunk whose byte count is 0 (all of a raw
+// block's chunks are) costs one 4-byte read.  Otherwise each lane sums its
+// cells' costs from the descriptors, an LPC-lane exclusive scan gives its
+// offset in the chunk, and it writes its tokens at chunk_base[chunk] +
+// offset, re-deriving values, classes and group modes from the unscaled
+// coefficients and the block's entry of the (nnn,) mulfac table (emit_group
+// in tokens.cuh, shared with emit_payload; one value repeated under the
+// global RMS).  The descriptors are block-major; the coefficients are
+// block-major too, or (template STRIPE) the stripe route's volume-order
+// plane, read through the stripe map (stripe_map.cuh): a group of 8 cells
+// is 8 consecutive, aligned floats of one plane row either way.
+// What bounds it on an H100: the chunk byte counts (4 B per chunk) and the
+// coefficients and descriptors of the live chunks only; at a high ratio the
+// launch itself.
 
-#include "block_common.cuh"
+#include "stripe_map.cuh"
+#include "tokens.cuh"
 
 namespace cvx {
 
 constexpr int EMIT_WARPS = 8;
 
+template <int LPC, bool STRIPE>
 __global__ void __launch_bounds__(EMIT_WARPS * 32)
 block_emit_kernel(const float* __restrict__ coeffs,
                   const float* __restrict__ mulfacs,
                   const int32_t* __restrict__ desc,
                   const int32_t* __restrict__ chunk_bytes,
                   const int64_t* __restrict__ chunk_base, int64_t nchunks,
-                  uint8_t* __restrict__ out) {
+                  int lcpb, StripeMap map, uint8_t* __restrict__ out) {
+  constexpr int CW = 8 * LPC;  // cells per chunk
   const int lane = threadIdx.x & 31;
   const int64_t chunk =
-      ((int64_t)blockIdx.x * EMIT_WARPS + (threadIdx.x >> 5)) * 2 + (lane >> 4);
+      ((int64_t)blockIdx.x * EMIT_WARPS + (threadIdx.x >> 5)) * (32 / LPC) +
+      lane / LPC;
   const bool live = chunk < nchunks && chunk_bytes[chunk] != 0;
   if (!__any_sync(0xffffffffu, live)) return;  // uniform over the warp
 
-  const int64_t cell = chunk * 128 + (lane & 15) * 8;
+  const int64_t cell = chunk * CW + (lane % LPC) * 8;
   int32_t d[8] = {0, 0, 0, 0, 0, 0, 0, 0};
   int mine = 0;
   if (live) {
@@ -53,29 +63,63 @@ block_emit_kernel(const float* __restrict__ coeffs,
   }
   int inc = mine;
 #pragma unroll
-  for (int o = 1; o < 16; o <<= 1) {
-    const int n = __shfl_up_sync(0xffffffffu, inc, o, 16);
-    if ((lane & 15) >= o) inc += n;
+  for (int o = 1; o < LPC; o <<= 1) {
+    const int n = __shfl_up_sync(0xffffffffu, inc, o, LPC);
+    if ((lane % LPC) >= o) inc += n;
   }
   if (mine == 0) return;
-  const float4 a = *reinterpret_cast<const float4*>(coeffs + cell);
-  const float4 b = *reinterpret_cast<const float4*>(coeffs + cell + 4);
+  const int64_t blk = chunk >> lcpb;
+  const int l = (int)(cell - (blk << (lcpb + (CW == 128 ? 7 : 6))));
+  const float* src =
+      coeffs + map_origin<STRIPE>(map, blk) + map_cell<STRIPE>(map, l);
+  const float4 a = *reinterpret_cast<const float4*>(src);
+  const float4 b = *reinterpret_cast<const float4*>(src + 4);
   const float cv[8] = {a.x, a.y, a.z, a.w, b.x, b.y, b.z, b.w};
-  emit_group(out + chunk_base[chunk] + (inc - mine), cv, d,
-             mulfacs[chunk / (BB_CELLS / 128)]);
+  emit_group(out + chunk_base[chunk] + (inc - mine), cv, d, mulfacs[blk]);
+}
+
+// One CTA of EMIT_WARPS warps per EMIT_WARPS * 32 / LPC chunks.
+template <int LPC, bool STRIPE>
+static int launch_emit(const float* coeffs, const float* mulfacs,
+                       const int32_t* desc, const int32_t* chunk_bytes,
+                       const int64_t* chunk_base, int64_t nchunks, int lcpb,
+                       StripeMap map, uint8_t* out, cudaStream_t st) {
+  const int64_t per_cta = EMIT_WARPS * (32 / LPC);
+  block_emit_kernel<LPC, STRIPE>
+      <<<(unsigned)((nchunks + per_cta - 1) / per_cta), EMIT_WARPS * 32, 0, st>>>(
+          coeffs, mulfacs, desc, chunk_bytes, chunk_base, nchunks, lcpb, map, out);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace cvx
 
+// `lchunk` is log2 of the cells per chunk (7, or 6 for 64-cell blocks),
+// `lcpb` log2 of the chunks per block; `stripe` 0 reads block-major
+// coefficients, 1 the volume-order plane through the map of the other
+// arguments (stripe_map.cuh; they are ignored when `stripe` is 0).
 extern "C" int cvx_block_emit(const float* coeffs, const float* mulfacs,
                               const int32_t* desc, const int32_t* chunk_bytes,
                               const int64_t* chunk_base, int64_t nchunks,
-                              uint8_t* out, void* stream) {
+                              int lchunk, int lcpb, int stripe, int lbx,
+                              int lby, int lbz, int64_t nbx, int64_t nby,
+                              int64_t nxp, int64_t nyp, uint8_t* out,
+                              void* stream) {
   using namespace cvx;
   if (nchunks == 0) return 0;
-  const int64_t per_cta = 2 * EMIT_WARPS;
-  block_emit_kernel<<<(unsigned)((nchunks + per_cta - 1) / per_cta),
-                      EMIT_WARPS * 32, 0, (cudaStream_t)stream>>>(
-      coeffs, mulfacs, desc, chunk_bytes, chunk_base, nchunks, out);
-  return (int)cudaGetLastError();
+  cudaStream_t st = (cudaStream_t)stream;
+  if (stripe) {
+    const StripeMap map = make_map(lbx, lby, lbz, nbx, nby, nxp, nyp);
+    if (lchunk == 7)
+      return launch_emit<16, true>(coeffs, mulfacs, desc, chunk_bytes,
+                                   chunk_base, nchunks, lcpb, map, out, st);
+  } else {
+    const StripeMap map = make_map(lchunk + lcpb, 0, 0, 1, 1, 0, 0);
+    if (lchunk == 7)
+      return launch_emit<16, false>(coeffs, mulfacs, desc, chunk_bytes,
+                                    chunk_base, nchunks, lcpb, map, out, st);
+    if (lchunk == 6)
+      return launch_emit<8, false>(coeffs, mulfacs, desc, chunk_bytes,
+                                   chunk_base, nchunks, lcpb, map, out, st);
+  }
+  return (int)cudaErrorInvalidValue;
 }

@@ -63,7 +63,19 @@ _SIGNATURES = {
     "cvx_block_scale_tok": [
         _VP, _VP, ctypes.c_float, ctypes.c_int64, _VP, _VP, _VP, _VP, _VP, _VP,
     ],
-    "cvx_block_emit": [_VP, _VP, _VP, _VP, _VP, ctypes.c_int64, _VP, _VP],
+    "cvx_block_emit": [
+        _VP, _VP, _VP, _VP, _VP, ctypes.c_int64, ctypes.c_int, ctypes.c_int,
+        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int64,
+        ctypes.c_int64, ctypes.c_int64, ctypes.c_int64, _VP, _VP,
+    ],
+    "cvx_tokenize_chunks": [
+        _VP, _VP, ctypes.c_int64, ctypes.c_int, _VP, _VP, _VP, _VP, _VP,
+    ],
+    "cvx_tokenize_stripe": [
+        _VP, _VP, ctypes.c_int64, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+        ctypes.c_int64, ctypes.c_int64, ctypes.c_int64, ctypes.c_int64, _VP, _VP,
+        _VP, _VP, _VP,
+    ],
     "cvx_block_inv_xy": [
         _VP, _VP, ctypes.c_int, ctypes.c_int, ctypes.c_int, _VP, _VP,
     ],

@@ -36,7 +36,7 @@ from __future__ import annotations
 import torch
 
 from . import _kernels, blocks, quant, rle_device, wavelet
-from .tokenize import scaled
+from .tokenize import raw_fallback, scaled, tokenize_scaled_plain
 
 B = 128
 BLOCK = (B, B, B)
@@ -49,24 +49,6 @@ def fused_path_ok(vol_shape, block):
     """(128, 128, 128) blocks over block-aligned volume dims (the JAX gate,
     `fused_compress.py:49-56`)."""
     return tuple(block) == BLOCK and all(n % B == 0 for n in vol_shape)
-
-
-def _finish(desc, chunk_bytes, sizes):
-    """The raw-fallback decision on the block sums (XLA in the JAX package,
-    `fused_compress.py:613-617`)."""
-    raw = sizes > rle_device.RAW_BYTES_PER_CELL * CELLS
-    sizes = torch.where(raw, rle_device.RAW_BYTES_PER_CELL * CELLS, sizes)
-    chunk_bytes.view(raw.shape[0], -1).masked_fill_(raw[:, None], 0)
-    return desc, chunk_bytes, sizes, raw
-
-
-def tokenize_plain(fv):
-    """The kernel's tokenize stage, plain: PRE-SCALED block-major (nnn, 2^21)
-    coefficients -> (desc, chunk_bytes, sizes, raw)."""
-    desc, _, _ = rle_device.tokenize(fv)
-    chunk_bytes = (desc & 7).view(-1, CHUNK).sum(1, dtype=torch.int32)
-    sizes = chunk_bytes.view(fv.shape[0], -1).sum(1, dtype=torch.int32)
-    return _finish(desc, chunk_bytes, sizes)
 
 
 def fwd_z_plain(vol):
@@ -85,7 +67,7 @@ def _xy_plain(tmp):
 def encode_xy_plain(tmp, mulfac):
     """Plain version of pass 2: the x, then y cascade and the tokenize."""
     coeffs = _xy_plain(tmp)
-    return (coeffs, *tokenize_plain(scaled(coeffs, mulfac)),
+    return (coeffs, *tokenize_scaled_plain(scaled(coeffs, mulfac)),
             torch.full((coeffs.shape[0],), mulfac, dtype=torch.float32,
                        device=coeffs.device))
 
@@ -101,7 +83,7 @@ def scale_tok_plain(coeffs, partials, scale):
     """Plain version of `scale_tok`: (desc, chunk_bytes, sizes, raw,
     mulfacs)."""
     mulfacs = quant.mulfac_from_rms(quant.rms_of_partials(partials, CELLS), scale)
-    return (*tokenize_plain(scaled(coeffs, mulfacs)), mulfacs)
+    return (*tokenize_scaled_plain(scaled(coeffs, mulfacs)), mulfacs)
 
 
 def block_encode_plain(vol, mulfac=None, *, scale=None):
@@ -160,7 +142,7 @@ def encode_xy(tmp, mulfac, out=None):
         scratch.data_ptr(), coeffs.data_ptr(), desc.data_ptr(),
         chunk_bytes.data_ptr(), sizes.data_ptr(), mulfacs.data_ptr(),
     )
-    return (coeffs, *_finish(desc, chunk_bytes, sizes), mulfacs)
+    return (coeffs, *raw_fallback(desc, chunk_bytes, sizes), mulfacs)
 
 
 def _tokenize_outputs(nnn, dev):
@@ -207,7 +189,7 @@ def scale_tok(coeffs, partials, scale):
         nnn, scratch.data_ptr(), desc.data_ptr(), chunk_bytes.data_ptr(),
         sizes.data_ptr(), mulfacs.data_ptr(),
     )
-    return (*_finish(desc, chunk_bytes, sizes), mulfacs)
+    return (*raw_fallback(desc, chunk_bytes, sizes), mulfacs)
 
 
 def block_encode(vol, mulfac=None, *, scale=None):

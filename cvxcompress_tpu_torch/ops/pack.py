@@ -14,20 +14,20 @@ TPU counterparts: `pack_pallas.pack_staging_seg` (:479) and
 `pack_pallas.tile_compact` (:605).
 
 `emit_chunks` (csrc/block_emit.cu, plain version `emit_chunks_plain`) is
-the same stream for the 128^3 blocks of ops/fused_compress.py, laid out by
-128-cell chunk: each chunk's tokens land at its own base, the exclusive
-cumsum of the chunk byte counts (0 in raw blocks).  TPU counterpart:
-`pack_pallas.pack_staging` (:515) inside `rle_device.pack_active` (:401).
+the same stream for every other geometry (the 128^3 blocks of
+ops/fused_compress.py, the block-major and stripe routes of
+ops/tokenize.py `encode`), laid out by min(128, cells)-cell chunk: each
+chunk's tokens land at its own base, the exclusive cumsum of the chunk
+byte counts (0 in raw blocks).  TPU counterpart: `pack_pallas.pack_staging`
+(:515) inside `rle_device.pack_active` (:401).
 """
 
 from __future__ import annotations
 
 import torch
 
-from . import _kernels, quant, rle_device
+from . import _kernels, blocks, geometry, quant, rle_device
 from .tokenize import scaled
-
-CHUNK = 128
 
 
 def _byte(v, k):
@@ -134,11 +134,15 @@ def emit_payload(coeffs, mulfacs, desc, base, raw, total):
     return out
 
 
-def emit_chunks_plain(coeffs, mulfacs, desc, chunk_bytes, chunk_base, total):
+def emit_chunks_plain(coeffs, mulfacs, desc, chunk_bytes, chunk_base, total,
+                      block=None):
     """Plain PyTorch version of the chunk kernel (same stream)."""
-    rows = coeffs.reshape(-1, CHUNK)
+    if block is not None:
+        coeffs = blocks.to_blocks(coeffs, block)
+    chunk = rle_device.chunk_cells(desc.shape[1])
+    rows = coeffs.reshape(-1, chunk)
     per_chunk = mulfacs.repeat_interleave(rows.shape[0] // mulfacs.numel())
-    planes, cost = token_bytes(rows, per_chunk, desc.reshape(-1, CHUNK))
+    planes, cost = token_bytes(rows, per_chunk, desc.reshape(-1, chunk))
     cost = torch.where((chunk_bytes == 0)[:, None], 0, cost)
     pos = chunk_base[:, None] + (torch.cumsum(cost, dim=1) - cost)
     out = torch.zeros(total, dtype=torch.uint8, device=coeffs.device)
@@ -148,32 +152,42 @@ def emit_chunks_plain(coeffs, mulfacs, desc, chunk_bytes, chunk_base, total):
     return out
 
 
-def emit_chunks(coeffs, mulfacs, desc, chunk_bytes, chunk_base, total):
+def emit_chunks(coeffs, mulfacs, desc, chunk_bytes, chunk_base, total,
+                block=None):
     """Block-ordered payload stream (total,) uint8 of the non-raw blocks.
 
-    coeffs (nnn, cells) f32 unscaled, mulfacs (nnn,) f32, desc (nnn, cells)
-    int32, chunk_bytes (nchunks,) int32 (0 for every chunk of a raw block),
-    chunk_base (nchunks,) int64 the exclusive cumsum of chunk_bytes; `total`
-    is their sum.
+    coeffs f32 unscaled: block-major (nnn, cells), or, with `block` given,
+    the stripe route's volume-order (nzp, nyp, nxp) plane, which the kernel
+    reads through the stripe map (ops/geometry.py); mulfacs (nnn,) f32, desc
+    (nnn, cells) int32 block-major, chunk_bytes (nchunks,) int32 per
+    min(128, cells)-cell chunk (0 for every chunk of a raw block), chunk_base
+    (nchunks,) int64 the exclusive cumsum of chunk_bytes; `total` is their
+    sum.
     """
-    _check_table(mulfacs, coeffs.shape[0])
+    nnn, cells = desc.shape
+    _check_table(mulfacs, nnn)
     if coeffs.device.type == "cpu":
         return emit_chunks_plain(coeffs, mulfacs, desc, chunk_bytes, chunk_base,
-                                 total)
+                                 total, block)
     _kernels.check_cuda(
         coeffs, mulfacs, desc, chunk_bytes, chunk_base,
         dtypes=(torch.float32, torch.float32, torch.int32, torch.int32,
                 torch.int64),
     )
+    chunk = rle_device.chunk_cells(cells)
     nchunks = chunk_bytes.numel()
-    if (coeffs.numel() != nchunks * CHUNK or desc.numel() != coeffs.numel()
-            or chunk_base.numel() != nchunks):
-        raise ValueError(f"{nchunks} chunks need {nchunks * CHUNK} coefficients "
-                         f"and descriptors and {nchunks} bases, got "
-                         f"{coeffs.numel()}, {desc.numel()}, {chunk_base.numel()}")
+    if (coeffs.numel() != nchunks * chunk or desc.numel() != coeffs.numel()
+            or chunk_base.numel() != nchunks or cells & (cells - 1)):
+        raise ValueError(f"{nchunks} chunks of {chunk} cells need "
+                         f"{nchunks * chunk} coefficients and descriptors and "
+                         f"{nchunks} bases, got {coeffs.numel()}, {desc.numel()}, "
+                         f"{chunk_base.numel()}")
+    stripe = (1, *geometry.map_args(coeffs.shape, block)) if block else (0,) * 8
     out = torch.empty(total, dtype=torch.uint8, device=coeffs.device)
     _kernels.launch(
         "block_emit", coeffs.data_ptr(), mulfacs.data_ptr(), desc.data_ptr(),
-        chunk_bytes.data_ptr(), chunk_base.data_ptr(), nchunks, out.data_ptr(),
+        chunk_bytes.data_ptr(), chunk_base.data_ptr(), nchunks,
+        chunk.bit_length() - 1, (cells // chunk).bit_length() - 1, *stripe,
+        out.data_ptr(),
     )
     return out

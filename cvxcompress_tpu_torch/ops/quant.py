@@ -104,6 +104,29 @@ def local_rms(coeffs):
     return rms_of_partials(partials.view(n, slices), cells)
 
 
+def block_table(coeffs, block, mulfac=None, *, scale=None):
+    """The (nnn,) f32 mulfac table of the block-major and stripe routes
+    (ops/geometry.py) from their coefficients: block-major (nnn, cells) or
+    the volume-order plane (nzp, nyp, nxp).  Global RMS: `mulfac` for every
+    block.  Local RMS (`scale`): `mulfac_from_rms` of each block's RMS, the
+    square root of its f64 sum of squares over its cells, rounded to f32 as
+    native's.  The JAX package sums in f32 (`cvxcompress_tpu/ops/quant.py:
+    36-46`), so no kernel is owed; the tables agree to rtol 1e-5."""
+    bx, by, bz = block
+    cells = bx * by * bz
+    if coeffs.dim() == 3:
+        nzp, nyp, nxp = coeffs.shape
+        view = coeffs.view(nzp // bz, bz, nyp // by, by, nxp // bx, bx)
+        nnn, dims = view.shape[0] * view.shape[2] * view.shape[4], (1, 3, 5)
+    else:
+        view, nnn, dims = coeffs, coeffs.shape[0], (1,)
+    if not is_local(mulfac, scale):
+        return torch.full((nnn,), float(mulfac), dtype=torch.float32,
+                          device=coeffs.device)
+    ss = view.to(torch.float64).square().sum(dims).reshape(nnn)
+    return mulfac_from_rms(torch.sqrt(ss / cells).to(torch.float32), scale)
+
+
 def is_local(mulfac, scale):
     """An encode's mode from its arguments: the global RMS takes the one
     `mulfac`, the local RMS the `scale` its blocks' mulfacs derive from;

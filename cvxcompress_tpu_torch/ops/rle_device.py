@@ -30,6 +30,12 @@ MAX_RUN24 = (1 << 24) - 1
 RAW_BYTES_PER_CELL = 4
 
 
+def chunk_cells(cells):
+    """Cells per chunk: 128, or the whole block when it is smaller (an
+    (8, 8, 1) block has 64); `cvxcompress_tpu/ops/rle_device.py:66`."""
+    return min(128, int(cells))
+
+
 def classify(iv):
     """(izero, is_byte, is_short, is_i3); byte is the exclusive (-125, 125)."""
     izero = iv == 0

@@ -18,13 +18,19 @@ and the kernel launches as `fused_encode_local`.
 TPU counterpart: `cvxcompress_tpu/ops/tokenize_pallas.py`
 `stripe_fused_encode` (:1056), whose kernel is `stripe_fused_tiles` (:939;
 the local branch `_kernel_stripe_fused_local` :907).
+
+Every other geometry (ops/geometry.py) runs `encode`: the transform and
+the mulfac table as library products, then the tokenize kernel of given
+coefficients, `tokenize_chunks` (block-major input, K12 and K12' port) or
+`tokenize_stripe` (the volume-order plane read through the stripe map, K13
+port), both csrc/tokenize_chunks.cu.
 """
 
 from __future__ import annotations
 
 import torch
 
-from . import _kernels, blocks, quant, rle_device, wavelet
+from . import _kernels, blocks, geometry, quant, rle_device, wavelet
 
 BLOCK = (32, 32, 32)
 CELLS = 32 * 32 * 32
@@ -77,3 +83,119 @@ def fused_encode(vol, mulfac=None, *, scale=None):
         mulfacs.data_ptr(),
     )
     return coeffs, desc, sizes, raw, mulfacs
+
+
+# -- every other geometry: the tokenize of given coefficients (K12, K13) ------
+
+TILE = 1 << 14  # cells per CTA of csrc/tokenize_chunks.cu
+
+
+def raw_fallback(desc, chunk_bytes, sizes):
+    """The raw-fallback decision on the block sums of an (n, cells) tokenize
+    (the XLA epilogues of `tokenize_desc_fast2`, `cvxcompress_tpu/ops/
+    tokenize_pallas.py:487-491`, and of the 128^3 path, `fused_compress.py:
+    613-617`): a block over 4*cells bytes is stored raw, its chunks count 0
+    bytes.  Returns (desc, chunk_bytes, sizes, raw)."""
+    n, cells = desc.shape
+    raw = sizes > rle_device.RAW_BYTES_PER_CELL * cells
+    sizes = torch.where(raw, rle_device.RAW_BYTES_PER_CELL * cells, sizes)
+    chunk_bytes.view(n, -1).masked_fill_(raw[:, None], 0)
+    return desc, chunk_bytes, sizes, raw
+
+
+def tokenize_scaled_plain(fv):
+    """The tokenize of PRE-SCALED block-major (n, cells) coefficients, plain:
+    (desc, chunk_bytes per min(128, cells)-cell chunk, sizes, raw)."""
+    n, cells = fv.shape
+    desc, _, _ = rle_device.tokenize(fv)
+    chunk_bytes = (desc & 7).view(-1, rle_device.chunk_cells(cells)).sum(
+        1, dtype=torch.int32)
+    sizes = chunk_bytes.view(n, -1).sum(1, dtype=torch.int32)
+    return raw_fallback(desc, chunk_bytes, sizes)
+
+
+def tokenize_chunks_plain(coeffs, mulfacs):
+    """Plain PyTorch version of `tokenize_chunks` (same outputs)."""
+    return tokenize_scaled_plain(scaled(coeffs, mulfacs))
+
+
+def tokenize_stripe_plain(plane, mulfacs, block):
+    """Plain PyTorch version of `tokenize_stripe`: the plane gathered to
+    block-major, then `tokenize_chunks_plain`."""
+    coeffs = blocks.to_blocks(plane, block).view(mulfacs.shape[0], -1)
+    return tokenize_chunks_plain(coeffs, mulfacs)
+
+
+def _tokenize_launch(name, src, mulfacs, nnn, cells, *geom):
+    _kernels.check_cuda(src, mulfacs, dtypes=(torch.float32, torch.float32))
+    if mulfacs.shape != (nnn,):
+        raise ValueError(f"the mulfac table must be ({nnn},), got "
+                         f"{tuple(mulfacs.shape)}")
+    if cells < 64 or cells & (cells - 1):
+        raise ValueError(f"cells per block must be a power of two >= 64, got {cells}")
+    dev = src.device
+    ntiles = -(-nnn * cells // TILE)
+    scratch = torch.empty(1 + ntiles, dtype=torch.int32, device=dev)
+    desc = torch.empty((nnn, cells), dtype=torch.int32, device=dev)
+    chunk_bytes = torch.empty(nnn * cells // rle_device.chunk_cells(cells),
+                              dtype=torch.int32, device=dev)
+    sizes = torch.empty(nnn, dtype=torch.int32, device=dev)
+    _kernels.launch(name, src.data_ptr(), mulfacs.data_ptr(), nnn, *geom,
+                    scratch.data_ptr(), desc.data_ptr(), chunk_bytes.data_ptr(),
+                    sizes.data_ptr())
+    return raw_fallback(desc, chunk_bytes, sizes)
+
+
+def tokenize_chunks(coeffs, mulfacs):
+    """Tokenize block-major UNSCALED coefficients (nnn, cells) f32, each
+    block at its entry of the (nnn,) f32 mulfac table (K12 and K12' port,
+    kernel `tokenize_chunks` in csrc/tokenize_chunks.cu).
+
+    Returns desc (nnn, cells) int32, chunk_bytes (nnn * cells / chunk,)
+    int32 per min(128, cells)-cell chunk (0 in a raw block), sizes (nnn,)
+    int32 (4*cells when raw) and raw (nnn,) bool.  The plain version runs
+    for a CPU tensor.  TPU counterpart: `tokenize_pallas.tokenize_desc_fast2`
+    (:478) on `codec._stage_w_pallas`'s pre-scaled chunks.
+    """
+    if coeffs.device.type == "cpu":
+        return tokenize_chunks_plain(coeffs, mulfacs)
+    nnn, cells = coeffs.shape
+    return _tokenize_launch("tokenize_chunks", coeffs, mulfacs, nnn, cells,
+                            cells.bit_length() - 1)
+
+
+def encode(vol, block, mulfac=None, *, scale=None):
+    """The forward transform, the mulfac table and the tokenize of a
+    (nz, ny, nx) volume at a block of the "stripe" or "chunks" route
+    (ops/geometry.py): (coeffs, desc, chunk_bytes, sizes, raw, mulfacs),
+    `coeffs` the volume-order plane on the stripe route, block-major (nnn,
+    cells) on the other.  The transform and the local RMS are library
+    products (ops/wavelet.py, ops/quant.py `block_table`); the tokenize is
+    the kernel (the plain version on the CPU)."""
+    if geometry.stripe_path_ok(vol.shape, block):
+        coeffs = wavelet.forward_3d_volume(vol, block)
+        mulfacs = quant.block_table(coeffs, block, mulfac, scale=scale)
+        return (coeffs, *tokenize_stripe(coeffs, mulfacs, block), mulfacs)
+    coeffs = wavelet.forward_3d_blocked(vol, block)
+    coeffs = coeffs.view(coeffs.shape[0], -1)
+    mulfacs = quant.block_table(coeffs, block, mulfac, scale=scale)
+    return (coeffs, *tokenize_chunks(coeffs, mulfacs), mulfacs)
+
+
+def tokenize_stripe(plane, mulfacs, block):
+    """`tokenize_chunks` of the coefficients of a volume-order (nzp, nyp,
+    nxp) plane (ops/wavelet.py `forward_3d_volume`), read in place through
+    the stripe map (K13 port, kernel `tokenize_stripe`); the outputs are
+    block-major.  TPU counterpart: `tokenize_pallas.tokenize_desc_stripe_fast`
+    (:1228), whose volume-order descriptors and per-(row, block column)
+    counts are TPU layouts (held against these through `stripe_rowmap` in
+    tests/test_torch_stripe.py)."""
+    if plane.dim() != 3 or any(n % b for n, b in zip(plane.shape, block[::-1])):
+        raise ValueError(f"the plane must be (nzp, nyp, nxp) in whole {block} "
+                         f"blocks, got {tuple(plane.shape)}")
+    if plane.device.type == "cpu":
+        return tokenize_stripe_plain(plane, mulfacs, block)
+    cells = block[0] * block[1] * block[2]
+    return _tokenize_launch("tokenize_stripe", plane, mulfacs,
+                            plane.numel() // cells, cells,
+                            *geometry.map_args(plane.shape, block))

@@ -11,7 +11,10 @@ tests/test_torch_wavelet.py holds the operators bit-equal to those.
 `forward_blocks` / `inverse_blocks` are the plain PyTorch transforms of a
 (n, bz, by, bx) block batch, three f32 contractions in the reference's axis
 order x -> y -> z.  They are the specification the CUDA kernels in
-ops/tokenize.py and ops/fused_inverse.py are compared with.  The matmuls
+ops/tokenize.py and ops/fused_inverse.py are compared with, and the
+transforms themselves at every other block geometry (with
+`forward_3d_volume` / `forward_3d_blocked`), where the JAX package runs
+them as XLA products too.  The matmuls
 must run in full f32: a TF32 contraction keeps ~3 decimal digits and breaks
 the 1e-5 transform contract (CvxCompress.cpp:597), so this module pins
 `torch.backends.cuda.matmul.allow_tf32 = False` (PyTorch's own default).
@@ -23,6 +26,9 @@ import functools
 
 import numpy as np
 import torch
+import torch.nn.functional as F
+
+from . import blocks
 
 F32 = np.float32
 
@@ -210,3 +216,33 @@ def forward_blocks(blocks):
 def inverse_blocks(coeffs):
     """Inverse transform of a (n, bz, by, bx) f32 coefficient batch (plain)."""
     return _apply_3d(coeffs, inverse=True)
+
+
+def forward_3d_volume(vol, block):
+    """Forward transform of a (nz, ny, nx) volume in VOLUME order: the
+    zero-padded (nzp, nyp, nxp) coefficient plane, each block's
+    coefficients at its own place (`cvxcompress_tpu/ops/wavelet.py:249`
+    without the TPU's x-pad to 128 lanes).  The x, then y, then z
+    contractions as torch einsums (library products, as the JAX package
+    leaves them to XLA); an axis of length 1 is skipped."""
+    bx, by, bz = block
+    nbz, nby, nbx = blocks.grid_shape(vol.shape, block)
+    nzp, nyp, nxp = nbz * bz, nby * by, nbx * bx
+    nz, ny, nx = vol.shape
+    a = F.pad(vol, (0, nxp - nx, 0, nyp - ny, 0, nzp - nz))
+    dev = vol.device
+    a = torch.einsum("zybx,Xx->zybX", a.reshape(nzp, nyp, nbx, bx),
+                     operator(bx, False, dev))
+    a = torch.einsum("zgyx,Yy->zgYx", a.reshape(nzp, nby, by, nxp),
+                     operator(by, False, dev))
+    if bz > 1:
+        a = torch.einsum("hzr,Zz->hZr", a.reshape(nbz, bz, nyp * nxp),
+                         operator(bz, False, dev))
+    return a.reshape(nzp, nyp, nxp).contiguous()
+
+
+def forward_3d_blocked(vol, block):
+    """Forward transform into block-major (nnn, bz, by, bx) coefficients
+    (`cvxcompress_tpu/ops/wavelet.py:175`): the volume-order transform, then
+    one relayout."""
+    return blocks.to_blocks(forward_3d_volume(vol, block), block)

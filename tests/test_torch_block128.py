@@ -20,7 +20,8 @@ from cvxcompress_tpu.oracle import codec as ocodec
 from cvxcompress_tpu.oracle import wavelet as owav
 from cvxcompress_tpu_torch import container as ctn
 from cvxcompress_tpu_torch.ops import (
-    blocks, fused_compress, fused_inverse, pack, quant, rle_host,
+    blocks, codec, fused_compress, fused_inverse, pack, quant, rle_host,
+    tokenize,
 )
 from cvxcompress_tpu_torch.ops import entropy_decode as ted
 
@@ -80,7 +81,7 @@ def test_tokenize_stage_exact_against_jax_k6(jax_k6):
     and the block boundary included."""
     _, out = jax_k6
     j = out[MULFAC]
-    desc, cb, sizes, raw = fused_compress.tokenize_plain(torch.from_numpy(j["fv"]))
+    desc, cb, sizes, raw = tokenize.tokenize_scaled_plain(torch.from_numpy(j["fv"]))
     np.testing.assert_array_equal(desc.numpy(), j["desc"])
     np.testing.assert_array_equal(cb.numpy(), j["cb"])
     np.testing.assert_array_equal(sizes.numpy(), j["sizes"])
@@ -276,19 +277,22 @@ def test_decoder_at_two_million_cells():
 
 
 def test_gates():
-    """128^3 on dims that are not multiples of 128 and 64^3 stay outside
-    the slice (NotImplementedError naming ROADMAP.md), in compress and in
-    decompress."""
+    """The 128^3 kernels take 128^3 blocks over dims that are multiples of
+    128 only; 128^3 over other dims and 64^3 take the block-major and
+    stripe routes instead and round-trip, in compress and in decompress of
+    native's containers."""
     assert fused_compress.fused_path_ok((128, 128, 256), BLOCK)
     assert not fused_compress.fused_path_ok((128, 128, 200), BLOCK)
     assert not fused_compress.fused_path_ok((128, 128, 256), (128, 128, 64))
     vol = make_sinusoid_volume(128, 128, 200, periods=3)
+    assert codec.route(vol.shape, BLOCK) == "chunks"
+    assert codec.route(vol.shape, (64, 64, 64)) == "stripe"
     for block in (BLOCK, (64, 64, 64)):
-        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-            cvt.compress(vol, 1e-2, block=block, device="cpu")
-    for block in (BLOCK, (64, 64, 64)):
-        data, _ = rle_host.host_compress(vol, 1e-2, block=block)
-        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-            cvt.decompress(data, device="cpu")
+        data, _ = cvt.compress(vol, 1e-2, block=block, device="cpu")
+        out = cvt.decompress(data, device="cpu").numpy()
+        assert rel_rms(out, rle_host.host_decompress(data)) < TRANSFORM_TOL
+        ndata, _ = rle_host.host_compress(vol, 1e-2, block=block)
+        out = cvt.decompress(ndata, device="cpu").numpy()
+        assert rel_rms(out, rle_host.host_decompress(ndata)) < TRANSFORM_TOL
     with pytest.raises(ValueError, match="multiples of 128"):
         fused_compress.block_encode(torch.from_numpy(vol), 1.0)

@@ -174,13 +174,21 @@ def test_validate_rejects_damage(radial):
 
 
 def test_outside_the_slice_raises(radial):
-    """Block shapes other than 32^3 (and aligned 128^3) are not ported yet."""
+    """Only a block Is_Valid_Block_Size refuses raises (ValueError naming
+    it), in compress and in CvxCompress; a geometry the port once refused
+    (16^3) now round-trips, and the oracle's 16^3 container decodes."""
     vol, _ = radial
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        cvt.compress(vol, 1e-2, block=(16, 16, 16), device="cpu")
+    for block in ((16, 16, 2), (4, 8, 8), (512, 8, 8), (24, 16, 16), (16, 16)):
+        with pytest.raises(ValueError, match="Is_Valid_Block_Size"):
+            cvt.compress(vol, 1e-2, block=block, device="cpu")
+    with pytest.raises(ValueError, match="Is_Valid_Block_Size"):
+        cvt.CvxCompress(device="cpu").Compress(1e-2, vol, 16, 16, 3)
+    data, _ = cvt.compress(vol, 1e-2, block=(16, 16, 16), device="cpu")
+    out = cvt.decompress(data, device="cpu").numpy()
+    assert rel_rms(out, ocodec.decompress(data)) < TRANSFORM_TOL
     data16, _ = ocodec.compress(vol, 1e-2, block=(16, 16, 16))
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        cvt.decompress(data16, device="cpu")
+    assert rel_rms(cvt.decompress(data16, device="cpu").numpy(),
+                   ocodec.decompress(data16)) < TRANSFORM_TOL
 
 
 def test_cuda_without_card_raises(radial):

@@ -15,8 +15,8 @@ torch = pytest.importorskip("torch")  # the port's tests need PyTorch
 import cvxcompress_tpu_torch as cvt
 from cvxcompress_tpu_torch import container as ctn
 from cvxcompress_tpu_torch.ops import (
-    _kernels, codec, entropy_decode, fused_compress, fused_inverse, pack, quant,
-    rle_device, rle_host, tokenize,
+    _kernels, blocks, codec, entropy_decode, fused_compress, fused_inverse, pack,
+    quant, rle_device, rle_host, tokenize,
 )
 
 pytestmark = pytest.mark.cuda
@@ -239,7 +239,7 @@ def encode128_vs_plain(vt, mulfac):
     cp = fused_compress.block_encode_plain(vt, mulfac)[0]
     torch.cuda.synchronize()
     assert rel_rms(ck, cp) < TRANSFORM_TOL
-    d2, cb2, s2, r2 = fused_compress.tokenize_plain(tokenize.scaled(ck, mulfac))
+    d2, cb2, s2, r2 = tokenize.tokenize_scaled_plain(tokenize.scaled(ck, mulfac))
     assert torch.equal(dk, d2) and torch.equal(cbk, cb2)
     assert torch.equal(sk, s2) and torch.equal(rk, r2)
     assert bool((mk == mulfac).all())
@@ -459,3 +459,132 @@ def test_decode_kernels_on_local_containers(dev):
                                    dense.shape[1], blkmf)
     np.testing.assert_array_equal(dense.cpu().numpy().view(np.uint32),
                                   nat.view(np.uint32))
+
+
+# -- every other geometry: tokenize_chunks, tokenize_stripe, block_emit ------
+
+
+def generic_volume(kind, shape, block):
+    """Inputs of the other geometries: "sine" (`volume`: every token class),
+    "half" (the upper half along z zero: whole zero blocks), "nan" (one NaN:
+    its block's coefficients go NaN, raw fallback)."""
+    v = volume(np.random.default_rng(sum(block)), shape)
+    if kind == "half":
+        v[shape[0] // 2:] = 0.0
+    if kind == "nan":
+        v[shape[0] - 1, shape[1] - 1, shape[2] - 1] = np.nan
+    return v
+
+
+def generic_vs_plain(vt, block, mulfac=None, scale=None):
+    """`tokenize.encode` on the card: its tokenize kernel and `emit_chunks`
+    bit-equal to their plain versions on the kernel's own coefficients and
+    table, and the stream equal to the native encoder's; returns the
+    encode's outputs and the route's kernel name."""
+    stripe = codec.route(tuple(vt.shape), block) == "stripe"
+    name = "tokenize_stripe" if stripe else "tokenize_chunks"
+    _kernels.reset_counts()
+    c, dk, cbk, sk, rk, mk = tokenize.encode(vt, block, mulfac, scale=scale)
+    torch.cuda.synchronize()
+    assert _kernels.launches[name] == 1
+    if stripe:
+        plain = tokenize.tokenize_stripe_plain(c, mk, block)
+        cbm = blocks.to_blocks(c, block).view(mk.shape[0], -1)
+    else:
+        plain = tokenize.tokenize_chunks_plain(c, mk)
+        cbm = c
+    for got, ref in zip((dk, cbk, sk, rk), plain):
+        assert torch.equal(got, ref)
+    base = torch.cumsum(cbk.long(), 0) - cbk.long()
+    total = int(cbk.sum())
+    sb = block if stripe else None
+    got = pack.emit_chunks(c, mk, dk, cbk, base, total, sb)
+    assert torch.equal(got, pack.emit_chunks_plain(c, mk, dk, cbk, base, total, sb))
+    streams, nsizes, nraw = rle_host.encode_payloads(cbm.cpu().numpy(), mk.cpu().numpy())
+    np.testing.assert_array_equal(nsizes, sk.cpu().numpy())
+    np.testing.assert_array_equal(nraw, rk.cpu().numpy())
+    parts = [st for st, r in zip(streams, nraw) if not r]
+    native = np.concatenate(parts) if parts else np.zeros(0, np.uint8)
+    np.testing.assert_array_equal(got.cpu().numpy(), native)
+    return (c, dk, cbk, sk, rk, mk), name
+
+
+@pytest.mark.parametrize("block,shape", [
+    ((8, 8, 8), (40, 50, 70)), ((8, 8, 1), (5, 50, 70)),
+    ((128, 8, 8), (40, 50, 300)), ((256, 8, 16), (20, 30, 260)),
+    ((128, 128, 128), (130, 128, 140)),
+    ((16, 16, 16), (40, 50, 70)), ((64, 64, 64), (70, 90, 100)),
+    ((16, 16, 1), (3, 50, 70)), ((8, 16, 8), (20, 40, 60)),
+    ((32, 32, 16), (40, 70, 70)), ((64, 32, 32), (70, 40, 140)),
+], ids=lambda v: "x".join(map(str, v)))
+@pytest.mark.parametrize("local", [False, True], ids=["global", "local"])
+def test_generic_kernels_match_plain(dev, block, shape, local):
+    vol = generic_volume("sine", shape, block)
+    vt = torch.from_numpy(vol).to(dev)
+    args = dict(scale=1e-2) if local else dict(mulfac=quant.global_mulfac(vol, 1e-2))
+    generic_vs_plain(vt, block, **args)
+
+
+@pytest.mark.parametrize("kind", ["half", "nan"])
+def test_generic_kernels_zero_and_nan_blocks(dev, kind):
+    """Whole zero blocks (one run of 2^24 zeros in a 256^3 block: an RLESC3
+    of 2^24 - 1 and a trailing [0], cost 5) and a NaN block (raw)."""
+    block = (256, 256, 256)
+    vol = generic_volume(kind, (512, 256, 256), block)
+    vt = torch.from_numpy(vol).to(dev)
+    mulfac = quant.global_mulfac(np.nan_to_num(vol), 1e-2)
+    (c, dk, cbk, sk, rk, mk), _ = generic_vs_plain(vt, block, mulfac)
+    if kind == "half":
+        assert rk.tolist() == [False, False] and int(sk[1]) == 5
+        assert int(dk[1, -1]) == 5 | 8 | (((1 << 24) - 1) << 4)
+    else:
+        assert rk.tolist() == [False, True]
+
+
+@pytest.mark.parametrize("block,shape", [
+    ((8, 8, 8), (40, 50, 70)), ((8, 8, 1), (5, 50, 70)), ((64, 64, 64), (70, 90, 100)),
+    ((128, 128, 128), (130, 128, 140)), ((16, 16, 1), (3, 50, 70)),
+], ids=lambda v: "x".join(map(str, v)))
+def test_generic_roundtrip_on_the_card(dev, block, shape):
+    """The public API at the other geometries on the default device: the
+    route's tokenize kernel and block_emit launch once, the decode kernels
+    once; the volume agrees with the host engine and the native decoder,
+    the size with the plain CPU path; a raw block and a local container
+    too."""
+    vol = generic_volume("sine", shape, block)
+    name = ("tokenize_stripe" if codec.route(shape, block) == "stripe"
+            else "tokenize_chunks")
+    for scale, local in ((1e-2, False), (1e-2, True), (1e-12, False)):
+        _kernels.reset_counts()
+        data, _ = cvt.compress(vol, scale, block=block, use_local_rms=local)
+        out = cvt.decompress(data)
+        torch.cuda.synchronize()
+        for k in (name, "block_emit", "decode_maps", "decode_chase", "decode_emit"):
+            assert _kernels.launches[k] == 1, k
+        assert sum(_kernels.launches.values()) == 5
+        ref, _ = cvt.compress(vol, scale, block=block, use_local_rms=local,
+                              device="cpu")
+        assert abs(int(data.size) - int(ref.size)) <= max(64, 0.01 * ref.size)
+        assert rel_rms(out, cvt.decompress(data, engine="host")) < TRANSFORM_TOL
+        nat = torch.from_numpy(rle_host.host_decompress(data))
+        assert rel_rms(out.cpu(), nat) < TRANSFORM_TOL
+        dense = decode_kernels_vs_plain(data, dev)
+        hdr, blkoffs, blkmf, pbase = ctn.unpack(data)
+        nd = rle_host.decode_payloads(data[pbase:], blkoffs, hdr.glob_mulfac,
+                                      dense.shape[1], blkmf)
+        np.testing.assert_array_equal(dense.cpu().numpy().view(np.uint32),
+                                      nd.view(np.uint32))
+
+
+def test_generic_wrappers_reject_bad_inputs(dev):
+    with pytest.raises(ValueError):
+        tokenize.tokenize_chunks(torch.zeros((2, 512), device=dev),
+                                 torch.ones(3, device=dev))
+    with pytest.raises(ValueError):
+        tokenize.tokenize_chunks(torch.zeros((2, 96), device=dev),
+                                 torch.ones(2, device=dev))
+    with pytest.raises(ValueError):
+        tokenize.tokenize_stripe(torch.zeros((16, 16, 24), device=dev),
+                                 torch.ones(2, device=dev), (16, 16, 16))
+    with pytest.raises(ValueError):
+        cvt.compress(np.zeros((8, 8, 8), np.float32), 1e-2, block=(8, 8, 2))
