@@ -14,15 +14,20 @@ Builds the CUDA kernels (csrc/, nvcc for sm_90a) and the native host library
   kernels also on a "ramp" volume whose block RMS span 10^4, with an
   all-zero, a ~1e-38 and a NaN block; the ratio and the mulfac table held
   against the native library's local codec run in the same script);
-- every other block geometry (phases 2d and 3e): the tokenize kernels of
-  the block-major and stripe routes and `block_emit` at A with 8^3, 64^3
-  and 256^3 blocks (sinusoid and ramp) and on a (512, 256, 256) volume
-  whose upper half is zero; then A at those blocks and the bench's 256^3
-  volume S at 8^3, 16^3, 64^3, 256^3, (128, 8, 8), (16, 16, 1) and
-  (8, 8, 1), global and local, through the public API, each held against
-  the native library's codec on the same input (size within max(64 B,
-  1 %), err at most 2 % above and SNR at most 0.2 dB below native's,
-  containers decoding both ways);
+- every other block geometry (phases 2d and 3e): the kernels of the
+  stripe route (`tokenize_stripe`) and of the fused stripe route
+  (`stripe_fused_encode`, `_local`, `stripe_fused_inverse`) and
+  `block_emit` at A with 8^3, 64^3, 256^3 and (64, 32, 32) blocks, on a
+  (512, 256, 256) volume whose upper half is zero, and at the bench's
+  256^3 volume S with 16^3, (16, 16, 1), (8, 8, 1) and (128, 8, 8) blocks
+  (sinusoid and ramp); then A at 8^3, 64^3 and 256^3 and S at the sweep's
+  blocks, global and local, through the public API: the size within 1 %
+  of native's codec run here (A) or of the JAX package's codec on the same
+  input (S, `tools/jax_quality_s.py`), every quantized coefficient equal
+  to native's or one step from it where the port's scaled value sits on
+  the step, err within 2 % and SNR within 0.2 dB of the reference where no
+  coefficient steps (else within what the steps can move them),
+  containers decoding both ways;
 
 it compares every kernel of the path with its plain PyTorch version at the
 path's shapes (also on an N(0,1) noise volume of the same shape, the
@@ -87,8 +92,29 @@ KERNELS_D = ("block_fwd_z", "block_casc_local", "block_scale_tok", "block_emit",
 SHAPE_HALF = (512, 256, 256)
 SHAPE_S = (256, 256, 256)
 BLOCKS_A = ((8, 8, 8), (64, 64, 64), (256, 256, 256))
-BLOCKS_S = ((8, 8, 8), (16, 16, 16), (64, 64, 64), (256, 256, 256), (128, 8, 8),
-            (16, 16, 1), (8, 8, 1))
+# S at the sweep's blocks: both RMS modes at the blocks A does not take;
+# at 8^3, 64^3, 256^3 (A's routes) the local RMS only
+CASES_S = tuple((b, lo) for b in ((16, 16, 16), (128, 8, 8), (16, 16, 1), (8, 8, 1))
+                for lo in (False, True)) + tuple(
+    (b, True) for b in ((8, 8, 8), (64, 64, 64), (256, 256, 256)))
+# the JAX package's codec on S (bytes, err, SNR dB): `JAX_PLATFORMS=cpu
+# python tools/jax_quality_s.py` on a CPU (XLA)
+REF_S = {
+    "16x16x16 global": (216103, 0.0003270732853401842, 69.70709853377342),
+    "16x16x16 local": (234535, 0.000351934777868908, 69.07075628931146),
+    "128x8x8 global": (103207, 0.00018228027870118967, 74.78520632131162),
+    "128x8x8 local": (112039, 0.0001933118133898046, 74.27483210378094),
+    "16x16x1 global": (847399, 0.00038376255445204336, 68.31874807446135),
+    "16x16x1 local": (1113895, 9.200214287967732e-05, 80.72404114222344),
+    "8x8x1 global": (3368999, 0.0007773148925392432, 62.188060231747535),
+    "8x8x1 local": (4453415, 0.000248869315914388, 72.08057291961866),
+    "8x8x8 global": (1105959, 0.0008049647860530091, 61.88446235680083),
+    "8x8x8 local": (1249319, 0.0007801947779379127, 62.1559392173812),
+    "64x64x64 global": (13639, 8.601733880332726e-05, 81.30827995475228),
+    "64x64x64 local": (13895, 9.332846156004555e-05, 80.59971786172257),
+    "256x256x256 global": (1353, 2.1824866929534375e-05, 93.22096791184774),
+    "256x256x256 local": (1342, 2.3583944809376807e-05, 92.54767100292284),
+}
 
 
 def check(cond, msg):
@@ -292,7 +318,7 @@ def main():
     import cvxcompress_tpu_torch as cvt
     from cvxcompress_tpu_torch.ops import (
         _kernels, blocks, codec, entropy_decode, fused_compress, fused_inverse,
-        pack, quant, rle_device, rle_host, tokenize,
+        pack, quant, rle_device, rle_host, tokenize, wavelet,
     )
 
     check("jax" not in sys.modules, "the port imported no jax")
@@ -520,7 +546,7 @@ def main():
               f"{e:.3e} < 1e-5")
         err_xy = float((ck - cp).abs().max())
         del cp
-        d2, cb2, s2, r2 = tokenize.tokenize_scaled_plain(tokenize.scaled(ck, mf))
+        d2, cb2, s2, r2 = tokenize.tokenize_blocks_plain(ck, mf)
         check(torch.equal(dk, d2) and torch.equal(cbk, cb2) and torch.equal(sk, s2)
               and torch.equal(rk, r2), f"{label}: block_encode_xy desc, chunk_bytes, "
               "sizes and raw bit-equal to the plain tokenize of its coefficients")
@@ -738,43 +764,69 @@ def main():
 
     # -- phase 2d: the other geometries' kernels against their plain versions
     print(f"  at {time.perf_counter() - t_start:.1f} s", flush=True)
-    print("phase 2d: tokenize_chunks, tokenize_stripe and block_emit vs plain "
-          "versions at", SHAPE, "and", SHAPE_HALF, flush=True)
+    print("phase 2d: stripe_fused_encode(_local), stripe_fused_inverse, tokenize_stripe "
+          "and block_emit vs plain versions at", SHAPE, SHAPE_HALF, "and", SHAPE_S,
+          flush=True)
 
     def generic_kernels(label, v, block, local, iters, plain_iters, half=False):
-        """The route's tokenize kernel and block_emit against their plain
-        versions on `v` at `block` (the encode's own coefficients and table),
-        the stream against the native encoder, then the decode kernels on
-        the container; returns the two kernels' reports."""
+        """The route's encode kernel (`stripe_fused_encode(_local)` or
+        `tokenize_stripe`) and block_emit against their plain versions on
+        `v` at `block` (the tokenize and the emit on the encode's own
+        coefficients and table), the stream against the native encoder, the
+        decode kernels on the container and, on the fused stripe route,
+        `stripe_fused_inverse` on its decoded coefficients; returns the
+        kernels' reports."""
         vt = torch.from_numpy(v).to(dev)
         args = dict(scale=SCALE) if local else dict(mulfac=quant.global_mulfac(v, SCALE))
-        stripe = codec.route(v.shape, block) == "stripe"
-        kname = "tokenize_stripe" if stripe else "tokenize_chunks"
-        c, dk, cbk, sk, rk, mk = tokenize.encode(vt, block, **args)
-        del vt
-        if stripe:
-            def tok():
+        fused = codec.route(v.shape, block) == "stripe_fused"
+        bx, by, bz = block
+        casc = sum(cascade_flops(n) for n in block if n > 1)
+        if fused:
+            kname = "stripe_fused_encode_local" if local else "stripe_fused_encode"
+            c, dk, cbk, sk, rk, mk = tokenize.stripe_fused_encode(vt, block, **args)
+            cp = tokenize.stripe_fused_encode_plain(vt, block, **args)[0]
+            torch.cuda.synchronize()
+            fin = torch.isfinite(cp).all(1)
+            e = rel_rms(c[fin], cp[fin])
+            check(e < TRANSFORM_TOL, f"{label}: {kname} coefficients rel RMS {e:.3e} < "
+                  f"1e-5 ({int((~fin).sum())} non-finite blocks left out)")
+            err_c = float((c[fin] - cp[fin]).abs().max())
+            del cp
+            want = (quant.mulfac_from_rms(quant.run_rms(c), SCALE) if local
+                    else torch.full_like(mk, float(args["mulfac"])))
+            check(torch.equal(mk, want), f"{label}: {kname} table (mulfacs "
+                  f"{float(mk.min()):.4g} to {float(mk.max()):.4g}) bit-equal to the "
+                  "plain table of its coefficients")
+            plain = tokenize.tokenize_blocks_plain(c, mk)
+            cbm, sb = c, None
+
+            def enc():
+                return tokenize.stripe_fused_encode(vt, block, **args)
+
+            def enc_plain():
+                return tokenize.stripe_fused_encode_plain(vt, block, **args)
+        else:
+            kname, err_c = "tokenize_stripe", 0.0
+            c, dk, cbk, sk, rk, mk = tokenize.encode(vt, block, **args)
+            plain = tokenize.tokenize_stripe_plain(c, mk, block)
+            cbm, sb = blocks.to_blocks(c, block).view(mk.numel(), -1), block
+
+            def enc():
                 return tokenize.tokenize_stripe(c, mk, block)
 
-            def tok_plain():
+            def enc_plain():
                 return tokenize.tokenize_stripe_plain(c, mk, block)
-        else:
-            def tok():
-                return tokenize.tokenize_chunks(c, mk)
-
-            def tok_plain():
-                return tokenize.tokenize_chunks_plain(c, mk)
         nnn, nchunks, ncell = mk.numel(), cbk.numel(), c.numel()
-        check(all(torch.equal(a, b) for a, b in zip((dk, cbk, sk, rk), tok_plain())),
+        check(all(torch.equal(a, b) for a, b in zip((dk, cbk, sk, rk), plain)),
               f"{label}: {kname} descriptors, chunk bytes, sizes and raw flags "
-              f"({int(rk.sum())} raw of {nnn} blocks; mulfacs {float(mk.min()):.4g} to "
-              f"{float(mk.max()):.4g}) bit-equal to the plain version")
+              f"({int(rk.sum())} raw of {nnn} blocks) bit-equal to the plain tokenize "
+              "of its coefficients and table")
+        del plain
         if half:
             check(not bool(rk.any()) and int(sk[-1]) == 5
                   and int(dk[-1, -1]) == 5 | 8 | (rle_device.MAX_RUN24 << 4),
                   f"{label}: the all-zero 256^3 block is one run of 2^24 zeros, 5 bytes "
                   "(an RLESC3 of 2^24 - 1 and a trailing [0])")
-        sb = block if stripe else None
         cb64 = cbk.to(torch.int64)
         cbase = torch.cumsum(cb64, 0) - cb64
         total = int(cb64.sum())
@@ -782,7 +834,6 @@ def main():
         stp = pack.emit_chunks_plain(c, mk, dk, cbk, cbase, total, sb)
         check(torch.equal(stk, stp), f"{label}: block_emit stream ({total} B) "
               "bit-equal to the plain version")
-        cbm = blocks.to_blocks(c, block).view(nnn, -1) if stripe else c
         streams, nsizes, nraw = rle_host.encode_payloads(cbm.cpu().numpy(),
                                                          mk.cpu().numpy())
         del cbm
@@ -793,13 +844,15 @@ def main():
               f"{label}: sizes, raw flags and stream bit-equal to native "
               "cvx_encode_payloads on the encode's coefficients and table")
         del streams, parts, nat
+        if fused:  # volume in; coefficients, descriptors, counts, table out
+            enc_bound = bound(4 * v.size + 8 * ncell + 4 * nchunks + 9 * nnn,
+                              (casc + 1) * ncell, 2 * ncell if local else 0)
+        else:  # coefficients and the table in; descriptors, counts out
+            enc_bound = bound(8 * ncell + 4 * nchunks + 9 * nnn, 0)
         out = {
             kname: dict(
-                max_abs_err=0.0, ms=cuda_ms(tok, iters),
-                plain_ms=cuda_ms(tok_plain, plain_iters),
-                # coefficients and the table in; descriptors, chunk counts,
-                # sizes and raw flags out
-                **bound(8 * ncell + 4 * nchunks + 9 * nnn, 0)),
+                max_abs_err=err_c, ms=cuda_ms(enc, iters),
+                plain_ms=cuda_ms(enc_plain, plain_iters), **enc_bound),
             "block_emit": dict(
                 max_abs_err=float((stk.int() - stp.int()).abs().max()) if total else 0.0,
                 ms=cuda_ms(lambda: pack.emit_chunks(c, mk, dk, cbk, cbase, total, sb),
@@ -808,11 +861,32 @@ def main():
                                                                 total, sb), plain_iters),
                 **bound(emit_chunks_bytes(dk, cbk, total), 0)),
         }
-        del c, dk, cbk, sk, rk, mk, stk, stp, cbase
+        del c, dk, cbk, sk, rk, mk, stk, stp, cbase, vt
         torch.cuda.empty_cache()
         d, r = cvt.compress(v, SCALE, block=block, use_local_rms=local)
         print(f"  {label}: container {d.size} B, ratio {r:.1f}")
-        decode_stages(f"{label} container", d, 3, 1)
+        dense = decode_stages(f"{label} container", d, 3, 1)[0]
+        if fused:
+            vk = fused_inverse.stripe_fused_inverse(dense, v.shape, block)
+            vp = fused_inverse.stripe_fused_inverse_plain(dense, v.shape, block)
+            torch.cuda.synchronize()
+            fin = torch.isfinite(vp)
+            e = rel_rms(vk[fin], vp[fin])
+            check(e < TRANSFORM_TOL and torch.equal(fin, torch.isfinite(vk)),
+                  f"{label}: stripe_fused_inverse rel RMS {e:.3e} < 1e-5 on the decoded "
+                  f"coefficients ({int((~fin).sum())} non-finite cells, where the "
+                  "plain version's are)")
+            casc_inv = sum(cascade_flops(n, inverse=True) for n in block if n > 1)
+            out["stripe_fused_inverse"] = dict(
+                max_abs_err=float((vk[fin] - vp[fin]).abs().max()),
+                ms=cuda_ms(lambda: fused_inverse.stripe_fused_inverse(dense, v.shape,
+                                                                      block), iters),
+                plain_ms=cuda_ms(lambda: fused_inverse.stripe_fused_inverse_plain(
+                    dense, v.shape, block), plain_iters),
+                # coefficients in, volume out
+                **bound(4 * dense.numel() + 4 * v.size, casc_inv * dense.numel()))
+            del vk, vp
+        del dense
         torch.cuda.empty_cache()
         for k, rep in out.items():
             print(f"  {label}: {k} kernel {rep['ms']:.4f} ms, plain {rep['plain_ms']:.3f}"
@@ -821,6 +895,7 @@ def main():
 
     vol_half = sinusoid(*SHAPE_HALF, PERIODS)
     vol_half[SHAPE_HALF[0] // 2:] = 0.0
+    vol_s = sinusoid(*SHAPE_S, PERIODS)
     generic = {}
     for label, v, block, local, half in (
             ("A 8^3", vol, (8, 8, 8), False, False),
@@ -829,15 +904,27 @@ def main():
             ("A 256^3 local ramp", ramp(vol, 256), (256, 256, 256), True, False),
             ("half-zero 256^3", vol_half, (256, 256, 256), False, True),
             ("A 64^3", vol, (64, 64, 64), False, False),
-            ("A 64^3 local ramp", ramp(vol, 64), (64, 64, 64), True, False)):
-        generic[label] = generic_kernels(label, v, block, local, 10, 1, half)
+            ("A 64^3 local ramp", ramp(vol, 64), (64, 64, 64), True, False),
+            ("A 64x32x32", vol, (64, 32, 32), False, False),
+            ("A 64x32x32 local ramp", ramp(vol, 64), (64, 32, 32), True, False),
+            ("S 16^3", vol_s, (16, 16, 16), False, False),
+            ("S 16^3 local", vol_s, (16, 16, 16), True, False),
+            ("S 16^3 local ramp", ramp(vol_s, 16), (16, 16, 16), True, False),
+            ("S 16x16x1", vol_s, (16, 16, 1), False, False),
+            ("S 16x16x1 local ramp", ramp(vol_s, 16), (16, 16, 1), True, False),
+            ("S 8x8x1", vol_s, (8, 8, 1), False, False),
+            ("S 128x8x8", vol_s, (128, 8, 8), False, False)):
+        generic[label] = generic_kernels(label, v, block, local, 5, 1, half)
         print(f"  {label} done at {time.perf_counter() - t_start:.1f} s", flush=True)
     del vol_half
-    report["tokenize_chunks"] = dict(generic["A 8^3"]["tokenize_chunks"])
-    report["tokenize_stripe"] = dict(generic["A 64^3"]["tokenize_stripe"])
-    # every input's numbers beside the row's own (A 8^3, A 64^3; B for
-    # block_emit)
-    for k in ("tokenize_chunks", "tokenize_stripe", "block_emit"):
+    # each kernel's row at its cell (K13 at A-64^3, K1 at S-16^3), every
+    # input's numbers beside it (B for block_emit)
+    for k, cell in (("tokenize_stripe", "A 64^3"), ("stripe_fused_encode", "S 16^3"),
+                    ("stripe_fused_encode_local", "S 16^3 local"),
+                    ("stripe_fused_inverse", "S 16^3")):
+        report[k] = dict(generic[cell][k])
+    for k in ("tokenize_stripe", "stripe_fused_encode", "stripe_fused_encode_local",
+              "stripe_fused_inverse", "block_emit"):
         report[k]["inputs"] = {
             label: {f: r[k][f] for f in ("ms", "plain_ms", "bound_ms")}
             for label, r in generic.items() if k in r}
@@ -1008,7 +1095,8 @@ def main():
     # -- phase 3e: every other geometry through the public API -------------
     print(f"  at {time.perf_counter() - t_start:.1f} s", flush=True)
     print("phase 3e: the other geometries, compress -> decompress (default device, "
-          "engine auto = device), held against native run here, on", name, flush=True)
+          "engine auto = device), held against native run here and the JAX package's "
+          "record, on", name, flush=True)
 
     # The native codec is serial here (no OpenMP runtime), so its
     # references run in worker threads (ctypes releases the GIL), none of
@@ -1021,53 +1109,124 @@ def main():
         on = rle_host.host_decompress(dn)
         return dn, rn, on, *err_snr(v, on)
 
-    def generic_path(tag, v, block, local, timed, ref):
+    def steps(v, block, local, dn):
+        """The port's quantized coefficients against native's container dn
+        (its decode times each block's mulfac, rounded), raw blocks left
+        out: (coefficients that differ, the largest |difference|, the
+        largest distance of a differing one's scaled value |fv| from the
+        step max(|q|, |q_native|) over its block's largest |fv|, and what
+        the steps can move the reconstruction: kappa * ||steps|| / ||v||,
+        kappa the inverse operators' 2-norms, each step 1/mulfac of its
+        block).  A transform difference within its 1e-5 contract moves a
+        quantized value only where the scaled value sits on a step."""
+        vt = torch.from_numpy(v).to(dev)
+        args = dict(scale=SCALE) if local else dict(mulfac=quant.global_mulfac(v, SCALE))
+        if codec.route(v.shape, block) == "stripe_fused":
+            c, *_, raw, mf = tokenize.stripe_fused_encode(vt, block, **args)
+        else:
+            c, *_, raw, mf = tokenize.encode(vt, block, **args)
+            c = blocks.to_blocks(c, block).view(mf.numel(), -1)
+        del vt
+        hdr, blkoffs, blkmf, pbase = cvt.container.unpack(dn)
+        mfn = (np.full(blkoffs.size, hdr.glob_mulfac, np.float32) if blkmf is None
+               else blkmf)
+        qn = torch.from_numpy(rle_host.decode_payloads(
+            dn[pbase:], blkoffs, hdr.glob_mulfac, c.shape[1], blkmf))
+        live = ~raw & torch.from_numpy(blkoffs >= 0).to(dev)
+        qn = qn.to(dev)[live].double().mul_(torch.from_numpy(mfn).to(dev)[live][:, None])
+        qn = qn.round_()
+        fv = (c[live] * mf[live][:, None]).double()
+        del c
+        d = quant.quantize(fv.float()).double() - qn
+        diff = d != 0
+        n = int(diff.sum())
+        if not n:
+            return 0, 0.0, 0.0, 0.0
+        step = torch.maximum(fv.trunc().abs(), qn.abs())
+        dist = ((fv.abs() - step).abs() / fv.abs().amax(1, keepdim=True))[diff]
+        norm2 = float((diff.sum(1).double() / mf[live].double() ** 2).sum())
+        kappa = float(np.prod([np.linalg.norm(wavelet.inverse_matrix(b), 2)
+                               for b in block]))
+        return (n, float(d.abs().max()), float(dist.max()),
+                kappa * norm2 ** 0.5 / float(np.sqrt(np.square(v, dtype=np.float64).sum())))
+
+    def generic_path(tag, v, block, local, timed, ref, jax_ref):
         """compress -> decompress of `v` at `block` on the default device:
-        the route's launches, quality and ratio against native's codec on
-        the same input (`ref`, the future of `native_ref`), interop both
-        ways; with `timed`, the medians of 3 (and, under the global RMS,
-        one profiled window)."""
-        kname = ("tokenize_stripe" if codec.route(v.shape, block) == "stripe"
-                 else "tokenize_chunks")
+        the route's launches; the size within 1 % of the reference's (the
+        JAX package's record `jax_ref` where given, else native's codec on
+        the same input, `ref`, the future of `native_ref`); the quantized
+        coefficients against native's (`steps`); err and SNR within 2 % and
+        0.2 dB of native's where no coefficient steps, else within what the
+        steps can move them, and of the JAX record where neither the port's
+        nor the JAX package's coefficients step; interop both ways; with
+        `timed`, the medians of 3 (and, under the global RMS, one profiled
+        window)."""
+        names = (("stripe_fused_encode_local" if local else "stripe_fused_encode",
+                  "stripe_fused_inverse")
+                 if codec.route(v.shape, block) == "stripe_fused" else ("tokenize_stripe",))
         _kernels.reset_counts()
         d, r = cvt.compress(v, SCALE, block=block, use_local_rms=local)
         o = cvt.decompress(d)
         torch.cuda.synchronize()
         counts = dict(_kernels.launches)
         under_native = pool.submit(rle_host.host_decompress, d)
-        want = {kname: 1, "block_emit": 1, **{k: 1 for k in DECODE_KERNELS}}
+        want = {k: 1 for k in (*names, "block_emit", *DECODE_KERNELS)}
         check(counts == {k: want.get(k, 0) for k in counts},
-              f"{tag}: one launch each of {kname}, block_emit and the decode kernels, "
-              "none else")
+              f"{tag}: one launch each of {', '.join(names)}, block_emit and the decode "
+              "kernels, none else")
         oh = o.cpu().numpy()
         del o
         check(oh.shape == v.shape and bool(np.isfinite(oh).all()),
               f"{tag}: decompressed volume finite, shape {v.shape}")
         err_g, snr_g = err_snr(v, oh)
         dn, rn, on, err_n, snr_n = ref.result()
-        # The transforms differ from native's in the last bits, so a
-        # coefficient that sits on a quantization step may truncate to the
-        # other integer.  The sinusoid has many such: at (16, 16, 1) blocks
-        # whole z-slices of DC coefficients are -1600 to f32 rounding, and
-        # where the port truncates to -1600 and native to -1599 the port's
-        # err is ~2 % lower.  So the size is held within 1 %, or 64 B for a
-        # container under 6.4 KB (at a ratio ~50,000 three such
-        # coefficients move a 1.3 KB container by 1.1 %), and the quality
-        # to no more than 2 % above native's err and 0.2 dB below its SNR.
-        check(abs(d.size - dn.size) <= max(64, 0.01 * dn.size)
-              and err_g <= 1.02 * err_n and snr_g >= snr_n - 0.2,
-              f"{tag}: ratio {r:.1f} ({d.size} B), err {err_g:.4e}, SNR {snr_g:.2f} dB "
-              f"against native's {rn:.1f} ({dn.size} B), {err_n:.4e}, {snr_n:.2f} dB "
-              f"(size within max(64 B, 1 %): {(d.size - dn.size) / dn.size:+.4%}; err "
-              f"at most 2 % above: {err_g / err_n - 1:+.4%}; SNR at most 0.2 dB below: "
-              f"{snr_g - snr_n:+.3f} dB)")
+        size_r, err_r, snr_r = jax_ref or (dn.size, err_n, snr_n)
+        who = "the JAX package's" if jax_ref else "native's"
+        check(abs(d.size - size_r) <= 0.01 * size_r,
+              f"{tag}: ratio {r:.1f} ({d.size} B) within 1 % of {who} {size_r} B "
+              f"({(d.size - size_r) / size_r:+.4%}; native {dn.size} B)")
+        n, dmax, dist, moved = steps(v, block, local, dn)
+        check(dmax <= 1 and dist <= 1e-5,
+              f"{tag}: quantized coefficients equal to native's but {n}, each one step "
+              f"away where the port's scaled value sits within {dist:.2e} (<= 1e-5) of "
+              f"the step, relative to its block's largest")
+        # err and SNR against native's: equal coefficients leave only the
+        # transforms' last bits (2 %, 0.2 dB); steps move the reconstruction
+        # by at most `moved` (and the transforms' rounding, 1e-6), so err by
+        # at most as much
+        if n:
+            tol = moved + 1e-6
+            ok = abs(err_g - err_n) <= tol and abs(snr_g - snr_n) <= 20 * np.log10(
+                1 + tol / min(err_g, err_n))
+            bar = f"within the {tol:.3e} the steps can move err from native's"
+        else:
+            ok = abs(err_g / err_n - 1) <= 0.02 and abs(snr_g - snr_n) <= 0.2
+            bar = "within 2 % and 0.2 dB of native's"
+        check(ok, f"{tag}: err {err_g:.4e}, SNR {snr_g:.2f} dB {bar} ({err_n:.4e}, "
+              f"{snr_n:.2f} dB)")
+        if jax_ref:
+            # against the JAX record: 2 %, 0.2 dB where neither the port's
+            # coefficients step from native's nor the JAX package's (its err
+            # over 2 % from native's; tests/test_torch_generic.py shows such
+            # steps at (8, 8, 1) under the local RMS); else the steps decide
+            jax_steps = abs(err_r / err_n - 1) > 0.02
+            if n or jax_steps:
+                print(f"  {tag}: err {err_g:.4e}, SNR {snr_g:.2f} dB beside the JAX "
+                      f"package's {err_r:.4e}, {snr_r:.2f} dB: not held to 2 %, the "
+                      f"{'port' if n else 'JAX package'}'s coefficients step")
+            else:
+                check(abs(err_g / err_r - 1) <= 0.02 and abs(snr_g - snr_r) <= 0.2,
+                      f"{tag}: err {err_g:.4e}, SNR {snr_g:.2f} dB within 2 % and "
+                      f"0.2 dB of the JAX package's {err_r:.4e}, {snr_r:.2f} dB")
         e1 = rel_rms(torch.from_numpy(under_native.result()), torch.from_numpy(oh))
         e2 = rel_rms(cvt.decompress(dn, engine="device").cpu(), torch.from_numpy(on))
         check(e1 < TRANSFORM_TOL and e2 < TRANSFORM_TOL,
               f"{tag}: the port's container decodes under native (rel RMS {e1:.3e}), "
               f"native's on the device engine ({e2:.3e})")
         res = dict(ratio=r, err=err_g, snr_db=snr_g, native_ratio=rn, native_err=err_n,
-                   native_snr_db=snr_n)
+                   native_snr_db=snr_n, steps=n)
+        if jax_ref:
+            res.update(jax_bytes=size_r, jax_err=err_r, jax_snr_db=snr_r)
         if local:
             mf, mfn = cvt.container.unpack(d)[2], cvt.container.unpack(dn)[2]
             rt = float(np.max(np.abs(mf.astype(np.float64) / mfn - 1.0)))
@@ -1085,20 +1244,21 @@ def main():
         return counts, res
 
     counts_e, res_e = {}, {}
-    vol_s = sinusoid(*SHAPE_S, PERIODS)
-    for v, blks, prefix, timed in ((vol, BLOCKS_A, "A", True),
-                                   (vol_s, BLOCKS_S, "S", False)):
-        cases = [(f"{prefix} {'x'.join(map(str, b))}{' local' if lo else ''}", b, lo)
-                 for b in blks for lo in (False, True)]
-        refs = {tag: pool.submit(native_ref, v, b, lo) for tag, b, lo in cases}
+    for v, cases, prefix, timed in (
+            (vol, tuple((b, lo) for b in BLOCKS_A for lo in (False, True)), "A", True),
+            (vol_s, CASES_S, "S", False)):
+        cases = [(f"{'x'.join(map(str, b))} {'local' if lo else 'global'}", b, lo)
+                 for b, lo in cases]
+        refs = {key: pool.submit(native_ref, v, b, lo) for key, b, lo in cases}
         if timed:  # every reference made before the first timed path
             for f in refs.values():
                 f.result()
         print(f"  {prefix}: native references submitted, at "
               f"{time.perf_counter() - t_start:.1f} s", flush=True)
-        for tag, b, lo in cases:
-            counts_e[tag], res_e[tag] = generic_path(tag, v, b, lo, timed,
-                                                     refs.pop(tag))
+        for key, b, lo in cases:
+            tag = f"{prefix} {key}"
+            counts_e[tag], res_e[tag] = generic_path(
+                tag, v, b, lo, timed, refs.pop(key), REF_S[key] if prefix == "S" else None)
             print(f"  {tag} done at {time.perf_counter() - t_start:.1f} s", flush=True)
     pool.shutdown()
     del vol_s
@@ -1140,21 +1300,28 @@ def main():
         "block_scale_tok": ("csrc/block_encode_local.cu",
                             "cvxcompress_tpu/ops/fused_compress.py:395",
                             "cvxcompress_tpu/ops/fused_compress.py:361"),
-        "tokenize_chunks": ("csrc/tokenize_chunks.cu",
-                            "cvxcompress_tpu/ops/tokenize_pallas.py:437",
+        "tokenize_stripe": ("csrc/tokenize_stripe.cu",
+                            "cvxcompress_tpu/ops/tokenize_pallas.py:744",
+                            "cvxcompress_tpu/ops/tokenize_pallas.py:437, "
                             "cvxcompress_tpu/ops/tokenize_pallas.py:391"),
-        "tokenize_stripe": ("csrc/tokenize_chunks.cu",
-                            "cvxcompress_tpu/ops/tokenize_pallas.py:744", None),
+        "stripe_fused_encode": ("csrc/stripe_fused.cu",
+                                "cvxcompress_tpu/ops/tokenize_pallas.py:939", None),
+        "stripe_fused_encode_local": ("csrc/stripe_fused.cu",
+                                      "cvxcompress_tpu/ops/tokenize_pallas.py:907", None),
+        "stripe_fused_inverse": ("csrc/stripe_fused.cu",
+                                 "cvxcompress_tpu/ops/fused_inverse.py:128", None),
     }
     kernels = []
     for k, r in report.items():
         src, rep, also = meta[k]
         # launches on the path's own drive: the local paths for their
-        # kernels, config B for the other 128^3 kernels, A at 8^3 and at 64^3
-        # for the two tokenizes of the other geometries, A for the rest
-        launches = (counts_e["A 8x8x8"][k] if k == "tokenize_chunks" else
-                    counts_e["A 64x64x64"][k] if k == "tokenize_stripe" else
-                    counts_c[k] if k == "fused_encode_local" else
+        # kernels, config B for the other 128^3 kernels, A at 64^3 for the
+        # stripe tokenize, S at 16^3 for the fused stripe kernels, A for the
+        # rest
+        launches = (counts_e["A 64x64x64 global"][k] if k == "tokenize_stripe" else
+                    counts_e["S 16x16x16 local"][k] if k == "stripe_fused_encode_local"
+                    else counts_e["S 16x16x16 global"][k] if k.startswith("stripe_fused")
+                    else counts_c[k] if k == "fused_encode_local" else
                     counts_d[k] if k in KERNELS_D and k not in KERNELS_B else
                     counts_b[k] if k in KERNELS_B else counts_a[k])
         # no single PyTorch call computes any of these functions (PERF.md)

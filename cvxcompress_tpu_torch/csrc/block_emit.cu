@@ -20,9 +20,10 @@
 // coefficients and the block's entry of the (nnn,) mulfac table (emit_group
 // in tokens.cuh, shared with emit_payload; one value repeated under the
 // global RMS).  The descriptors are block-major; the coefficients are
-// block-major too, or (template STRIPE) the stripe route's volume-order
-// plane, read through the stripe map (stripe_map.cuh): a group of 8 cells
-// is 8 consecutive, aligned floats of one plane row either way.
+// block-major too (the 128^3 and fused stripe encodes), or (template
+// STRIPE) the stripe route's volume-order plane, read through the stripe
+// map (stripe_map.cuh): a group of 8 cells is 8 consecutive, aligned floats
+// of one plane row either way.
 // What bounds it on an H100: the chunk byte counts (4 B per chunk) and the
 // coefficients and descriptors of the live chunks only; at a high ratio the
 // launch itself.
@@ -93,10 +94,11 @@ static int launch_emit(const float* coeffs, const float* mulfacs,
 
 }  // namespace cvx
 
-// `lchunk` is log2 of the cells per chunk (7, or 6 for 64-cell blocks),
-// `lcpb` log2 of the chunks per block; `stripe` 0 reads block-major
-// coefficients, 1 the volume-order plane through the map of the other
-// arguments (stripe_map.cuh; they are ignored when `stripe` is 0).
+// `lchunk` is log2 of the cells per chunk (7, or 6 for 64-cell blocks, which
+// only the stripe route has), `lcpb` log2 of the chunks per block; `stripe`
+// 0 reads block-major coefficients, 1 the volume-order plane through the map
+// of the other arguments (stripe_map.cuh; they are ignored when `stripe` is
+// 0).
 extern "C" int cvx_block_emit(const float* coeffs, const float* mulfacs,
                               const int32_t* desc, const int32_t* chunk_bytes,
                               const int64_t* chunk_base, int64_t nchunks,
@@ -112,14 +114,14 @@ extern "C" int cvx_block_emit(const float* coeffs, const float* mulfacs,
     if (lchunk == 7)
       return launch_emit<16, true>(coeffs, mulfacs, desc, chunk_bytes,
                                    chunk_base, nchunks, lcpb, map, out, st);
+    if (lchunk == 6)
+      return launch_emit<8, true>(coeffs, mulfacs, desc, chunk_bytes,
+                                  chunk_base, nchunks, lcpb, map, out, st);
   } else {
     const StripeMap map = make_map(lchunk + lcpb, 0, 0, 1, 1, 0, 0);
     if (lchunk == 7)
       return launch_emit<16, false>(coeffs, mulfacs, desc, chunk_bytes,
                                     chunk_base, nchunks, lcpb, map, out, st);
-    if (lchunk == 6)
-      return launch_emit<8, false>(coeffs, mulfacs, desc, chunk_bytes,
-                                   chunk_base, nchunks, lcpb, map, out, st);
   }
   return (int)cudaErrorInvalidValue;
 }

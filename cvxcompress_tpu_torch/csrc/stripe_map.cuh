@@ -1,5 +1,5 @@
 // The address map of the block-major cell order onto a volume-order plane,
-// shared by tokenize_chunks.cu (tokenize_stripe) and block_emit.cu.
+// shared by tokenize_stripe.cu and block_emit.cu.
 //
 // The stripe route (ops/geometry.py) keeps the forward transform's output in
 // volume order: the zero-padded (nzp, nyp, nxp) plane, each block's

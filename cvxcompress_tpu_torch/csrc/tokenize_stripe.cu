@@ -1,25 +1,26 @@
-// tokenize_chunks and tokenize_stripe: scale + quantize + tokenize of the
-// wavelet coefficients of any block geometry.
+// tokenize_stripe: scale + quantize + tokenize of the wavelet coefficients
+// of every block geometry without an encode kernel of its own (all but
+// 32^3, aligned 128^3 and the fused stripe blocks of stripe_fused.cu).
 //
-// Replaces the TPU kernels tokenize_pallas.tokenize_tiles2 (K12,
-// cvxcompress_tpu/ops/tokenize_pallas.py:437, call :454), tokenize_tiles
-// (K12', :391, call :402; the same body `_kernel` :292 with `_tile_desc`
-// :116) and tokenize_tiles_stripe (K13, :744, call :781; `_kernel_stripe`
-// :702 with `_tile_desc_stripe` :538), with the XLA epilogues around them
-// (tokenize_desc_fast2 :478, _stripe_accounting :1092: chunk bytes, block
-// sizes).  The raw-fallback decision follows in the wrapper
+// Replaces the TPU kernels tokenize_pallas.tokenize_tiles_stripe (K13,
+// cvxcompress_tpu/ops/tokenize_pallas.py:744, call :781; `_kernel_stripe`
+// :702 with `_tile_desc_stripe` :538), tokenize_tiles2 (K12, :437, call
+// :454) and tokenize_tiles (K12', :391, call :402; the same body `_kernel`
+// :292 with `_tile_desc` :116), with the XLA epilogues around them
+// (_stripe_accounting :1092, tokenize_desc_fast2 :478: chunk bytes, block
+// sizes).  The JAX package tokenizes the block-major, chunk-major layout
+// (K12) where its stripe gate fails; here every geometry reads the
+// transform's volume-order plane in place, so no relayout precedes the
+// tokenize.  The raw-fallback decision follows in the wrapper
 // (ops/tokenize.py).
 //
-// Input: the UNSCALED coefficients, block-major (nnn, cells) for
-// tokenize_chunks, or the volume-order (nzp, nyp, nxp) plane for
-// tokenize_stripe, read through the stripe map (stripe_map.cuh); one kernel
-// template over the map (STRIPE) serves both.  Each block's mulfac comes
-// from the (nnn,) table (one value repeated under the global RMS):
+// Input: the UNSCALED coefficients of the volume-order (nzp, nyp, nxp)
+// plane, read through the stripe map (stripe_map.cuh).  Each block's mulfac
+// comes from the (nnn,) table (one value repeated under the global RMS):
 // fv = __fmul_rn(c, mf[block]), the single f32 rounding of the JAX stage
-// `chunks * mfc` (codec.py:94).  Output, block
-// major whatever the input: the per-cell descriptors (cost | run_end << 3 |
-// min(run_len, 2^24 - 1) << 4), the byte count of every min(128, cells)-cell
-// chunk and every block's size.
+// `chunks * mfc` (codec.py:94).  Output, block major: the per-cell
+// descriptors (cost | run_end << 3 | min(run_len, 2^24 - 1) << 4), the byte
+// count of every min(128, cells)-cell chunk and every block's size.
 //
 // A CTA takes a tile of 16,384 consecutive block-major cells from an atomic
 // ticket, copies them into shared memory (65-word rows, one per thread, so
@@ -55,14 +56,13 @@ constexpr int TPER = TT / TBT;        // 64 cells per thread
 constexpr int TPITCH = TPER + 1;      // padded row of one thread's cells
 constexpr size_t TSMEM = (size_t)TBT * TPITCH * sizeof(float);
 
-template <bool STRIPE>
 __global__ void __launch_bounds__(TBT)
-tokenize_tiles_kernel(const float* __restrict__ src,
-                      const float* __restrict__ mulfacs, int64_t nnn,
-                      StripeMap map, int* __restrict__ ticket,
-                      int* __restrict__ status, int32_t* __restrict__ desc,
-                      int32_t* __restrict__ chunk_bytes,
-                      int32_t* __restrict__ sizes) {
+tokenize_stripe_kernel(const float* __restrict__ src,
+                       const float* __restrict__ mulfacs, int64_t nnn,
+                       StripeMap map, int* __restrict__ ticket,
+                       int* __restrict__ status, int32_t* __restrict__ desc,
+                       int32_t* __restrict__ chunk_bytes,
+                       int32_t* __restrict__ sizes) {
   extern __shared__ __align__(16) float s[];
   __shared__ int64_t s_org[TBT];
   __shared__ int s_tile, s_carry, scan_buf[32];
@@ -82,7 +82,7 @@ tokenize_tiles_kernel(const float* __restrict__ src,
   const int bpt = lcells < LTT ? 1 << (LTT - lcells) : 1;  // blocks per tile
   if (threadIdx.x < bpt)
     s_org[threadIdx.x] =
-        fb + threadIdx.x < nnn ? map_origin<STRIPE>(map, fb + threadIdx.x) : 0;
+        fb + threadIdx.x < nnn ? map_origin<true>(map, fb + threadIdx.x) : 0;
   __syncthreads();
 
   // the tile into shared memory, consecutive threads on consecutive cells
@@ -93,7 +93,7 @@ tokenize_tiles_kernel(const float* __restrict__ src,
       const int bi = (int)((g >> lcells) - fb);
       const int l = (int)(g & (cells - 1));
       s[(c >> 6) * TPITCH + (c & (TPER - 1))] =
-          src[s_org[bi] + map_cell<STRIPE>(map, l)];
+          src[s_org[bi] + map_cell<true>(map, l)];
     }
   }
   __syncthreads();
@@ -137,7 +137,7 @@ tokenize_tiles_kernel(const float* __restrict__ src,
   // run starts at the block's start); a scan result from an earlier block
   // of the tile falls below 0 and does not count
   const int el = excl >= 0 ? excl - c0 + l0 : -1;
-  int last = el >= 0 ? el : (ltpb > 0 ? s_carry : -1);
+  const int last = el >= 0 ? el : (ltpb > 0 ? s_carry : -1);
   // whether a run in the thread's last cell ends there: at its block's end
   // always, else when the next cell quantizes to non-zero
   bool end_after;
@@ -147,89 +147,20 @@ tokenize_tiles_kernel(const float* __restrict__ src,
     end_after = cvtt(__fmul_rn(row[TPITCH], mf)) != 0;
   } else {  // the next tile's first cell, same block
     end_after =
-        cvtt(__fmul_rn(src[s_org[0] + map_cell<STRIPE>(map, l0 + TPER)], mf)) !=
-        0;
+        cvtt(__fmul_rn(src[s_org[0] + map_cell<true>(map, l0 + TPER)], mf)) != 0;
   }
 
-  int total_cost = 0;
-  int32_t* dst = desc + g0;
-  for (int g = 0; g < TPER / 8; ++g) {
-    int32_t iv[8];
-#pragma unroll
-    for (int l = 0; l < 8; ++l) iv[l] = cvtt(__fmul_rn(row[8 * g + l], mf));
-    const int mode = group_mode(iv);
-    int32_t d[8];
-#pragma unroll
-    for (int l = 0; l < 8; ++l) {
-      const int i = 8 * g + l;
-      const int lc = l0 + i;
-      if (iv[l] != 0) {
-        last = lc;
-        d[l] = value_cost(mode, l, iv[l]);
-      } else {
-        const bool nz_next =
-            i + 1 < TPER ? ((nonzero >> (i + 1)) & 1) != 0 : end_after;
-        d[l] = zero_desc(nz_next, lc - last);
-      }
-      total_cost += d[l] & 7;
-    }
-    int4* v = reinterpret_cast<int4*>(dst + 8 * g);
-    v[0] = make_int4(d[0], d[1], d[2], d[3]);
-    v[1] = make_int4(d[4], d[5], d[6], d[7]);
-  }
-  // a 128-cell chunk is two threads' cells, a 64-cell one (cells == 64) one
-  // thread's; the chunk's count is complete here, so it is stored
-  if (cells >= 128) {
-    const int pair = total_cost + __shfl_xor_sync(live, total_cost, 1);
-    if ((threadIdx.x & 1) == 0) chunk_bytes[g0 >> 7] = pair;
-  } else {
-    chunk_bytes[g0 >> 6] = total_cost;
-  }
-  // the block's size: the sum over its threads inside the warp (a butterfly
-  // over aligned groups of cells / 64 lanes, at most the warp), then one
-  // atomic add per group into the zeroed sizes
-  const int w = cells / TPER < 32 ? cells / TPER : 32;
-  int bsum = total_cost;
-  for (int o = 1; o < w; o <<= 1) bsum += __shfl_xor_sync(live, bsum, o);
-  if ((threadIdx.x & (w - 1)) == 0 && bsum) atomicAdd(&sizes[blk], bsum);
-}
-
-// Zero the ticket, the look-back status words and the block sizes, then
-// launch one CTA per tile.
-template <bool STRIPE>
-static int launch_tokenize(const float* src, const float* mulfacs,
-                           int64_t nnn, StripeMap map, int* scratch,
-                           int32_t* desc, int32_t* chunk_bytes,
-                           int32_t* sizes, cudaStream_t st) {
-  if (nnn == 0) return 0;
-  const int lcells = map.lbx + map.lby + map.lbz;
-  const int64_t ntiles = ((nnn << lcells) + TT - 1) >> LTT;
-  cudaError_t e = cudaFuncSetAttribute(
-      tokenize_tiles_kernel<STRIPE>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)TSMEM);
-  if (e == cudaSuccess)
-    e = cudaMemsetAsync(scratch, 0, (1 + ntiles) * sizeof(int), st);
-  if (e == cudaSuccess) e = cudaMemsetAsync(sizes, 0, nnn * sizeof(int32_t), st);
-  if (e != cudaSuccess) return (int)e;
-  tokenize_tiles_kernel<STRIPE><<<(unsigned)ntiles, TBT, TSMEM, st>>>(
-      src, mulfacs, nnn, map, scratch, scratch + 1, desc, chunk_bytes, sizes);
-  return (int)cudaGetLastError();
+  const int cost = tokenize64(
+      [&](int i) { return cvtt(__fmul_rn(row[i], mf)); }, nonzero, last, l0,
+      end_after, desc + g0);
+  store_counts(cost, live, cells, g0, blk, chunk_bytes, sizes);
 }
 
 }  // namespace cvx
 
 // `scratch` holds 1 + ceil(nnn * cells / 16384) ints: the ticket and the
-// tiles' status words.
-extern "C" int cvx_tokenize_chunks(const float* coeffs, const float* mulfacs,
-                                   int64_t nnn, int lcells, int* scratch,
-                                   int32_t* desc, int32_t* chunk_bytes,
-                                   int32_t* sizes, void* stream) {
-  using namespace cvx;
-  return launch_tokenize<false>(coeffs, mulfacs, nnn,
-                                make_map(lcells, 0, 0, 1, 1, 0, 0), scratch,
-                                desc, chunk_bytes, sizes, (cudaStream_t)stream);
-}
-
+// tiles' status words.  Zeroes them and the block sizes, then launches one
+// CTA per tile.
 extern "C" int cvx_tokenize_stripe(const float* plane, const float* mulfacs,
                                    int64_t nnn, int lbx, int lby, int lbz,
                                    int64_t nbx, int64_t nby, int64_t nxp,
@@ -237,8 +168,18 @@ extern "C" int cvx_tokenize_stripe(const float* plane, const float* mulfacs,
                                    int32_t* chunk_bytes, int32_t* sizes,
                                    void* stream) {
   using namespace cvx;
-  return launch_tokenize<true>(plane, mulfacs, nnn,
-                               make_map(lbx, lby, lbz, nbx, nby, nxp, nyp),
-                               scratch, desc, chunk_bytes, sizes,
-                               (cudaStream_t)stream);
+  if (nnn == 0) return 0;
+  cudaStream_t st = (cudaStream_t)stream;
+  const int64_t ntiles = ((nnn << (lbx + lby + lbz)) + TT - 1) >> LTT;
+  cudaError_t e = cudaFuncSetAttribute(
+      tokenize_stripe_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)TSMEM);
+  if (e == cudaSuccess)
+    e = cudaMemsetAsync(scratch, 0, (1 + ntiles) * sizeof(int), st);
+  if (e == cudaSuccess) e = cudaMemsetAsync(sizes, 0, nnn * sizeof(int32_t), st);
+  if (e != cudaSuccess) return (int)e;
+  tokenize_stripe_kernel<<<(unsigned)ntiles, TBT, TSMEM, st>>>(
+      plane, mulfacs, nnn, make_map(lbx, lby, lbz, nbx, nby, nxp, nyp),
+      scratch, scratch + 1, desc, chunk_bytes, sizes);
+  return (int)cudaGetLastError();
 }

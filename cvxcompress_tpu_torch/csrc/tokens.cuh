@@ -103,6 +103,67 @@ __device__ int block_exclusive_scan(int v, int identity, Op op, int* buf,
   return res;
 }
 
+// The descriptors of one thread's 64 consecutive cells of one block, l0 the
+// first one's block-local index: q(i) is cell i's quantized value, `nonzero`
+// the mask of the non-zero ones, `last` the block-local index of the last
+// non-zero cell before them (-1: none since the block's start), `end_after`
+// whether a zero run in the 64th cell ends there (at the block's end, or
+// before a non-zero cell).  Writes the 64 descriptors at dst (16-byte
+// aligned) and returns their total cost.
+template <class Q>
+__device__ __forceinline__ int tokenize64(Q q, uint64_t nonzero, int last,
+                                          int l0, bool end_after,
+                                          int32_t* dst) {
+  int total_cost = 0;
+  for (int g = 0; g < 8; ++g) {
+    int32_t iv[8];
+#pragma unroll
+    for (int l = 0; l < 8; ++l) iv[l] = q(8 * g + l);
+    const int mode = group_mode(iv);
+    int32_t d[8];
+#pragma unroll
+    for (int l = 0; l < 8; ++l) {
+      const int i = 8 * g + l;
+      const int lc = l0 + i;
+      if (iv[l] != 0) {
+        last = lc;
+        d[l] = value_cost(mode, l, iv[l]);
+      } else {
+        const bool nz_next = i + 1 < 64 ? ((nonzero >> (i + 1)) & 1) != 0 : end_after;
+        d[l] = zero_desc(nz_next, lc - last);
+      }
+      total_cost += d[l] & 7;
+    }
+    int4* v = reinterpret_cast<int4*>(dst + 8 * g);
+    v[0] = make_int4(d[0], d[1], d[2], d[3]);
+    v[1] = make_int4(d[4], d[5], d[6], d[7]);
+  }
+  return total_cost;
+}
+
+// A thread's cost of its 64 cells (from global cell g0 of block blk) into
+// its chunk's byte count and its block's size.  A 128-cell chunk is two
+// neighbouring threads' cells, a 64-cell one (cells == 64) one thread's; the
+// block's size is the sum over its threads inside the warp (a butterfly
+// over aligned groups of cells / 64 lanes, at most the warp), then one
+// atomic add per group into the zeroed sizes.  `live`: the warp's lanes
+// that call it; the lanes of one chunk or one block are all in it or out.
+__device__ __forceinline__ void store_counts(int cost, unsigned live, int cells,
+                                             int64_t g0, int64_t blk,
+                                             int32_t* chunk_bytes,
+                                             int32_t* sizes) {
+  if (cells >= 128) {
+    const int pair = cost + __shfl_xor_sync(live, cost, 1);
+    if ((threadIdx.x & 1) == 0) chunk_bytes[g0 >> 7] = pair;
+  } else {
+    chunk_bytes[g0 >> 6] = cost;
+  }
+  const int w = cells / 64 < 32 ? cells / 64 : 32;
+  int bsum = cost;
+  for (int o = 1; o < w; o <<= 1) bsum += __shfl_xor_sync(live, bsum, o);
+  if ((threadIdx.x & (w - 1)) == 0 && bsum) atomicAdd(&sizes[blk], bsum);
+}
+
 // Sum of the CTA's threads' values in a fixed order, returned to every
 // thread: a halving tree over each warp's lanes (lane i + lane i+16, then
 // i + i+8, ...), then the same tree over the warps' sums.  No atomics, so

@@ -68,8 +68,17 @@ _SIGNATURES = {
         ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int64,
         ctypes.c_int64, ctypes.c_int64, ctypes.c_int64, _VP, _VP,
     ],
-    "cvx_tokenize_chunks": [
-        _VP, _VP, ctypes.c_int64, ctypes.c_int, _VP, _VP, _VP, _VP, _VP,
+    "cvx_stripe_fused_encode": [
+        _VP, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+        ctypes.c_int, _VP, _VP, _VP, ctypes.c_float, _VP, _VP, _VP, _VP, _VP, _VP,
+    ],
+    "cvx_stripe_fused_encode_local": [
+        _VP, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+        ctypes.c_int, _VP, _VP, _VP, ctypes.c_float, _VP, _VP, _VP, _VP, _VP, _VP,
+    ],
+    "cvx_stripe_fused_inverse": [
+        _VP, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+        ctypes.c_int, _VP, _VP, _VP, _VP, _VP, _VP,
     ],
     "cvx_tokenize_stripe": [
         _VP, _VP, ctypes.c_int64, ctypes.c_int, ctypes.c_int, ctypes.c_int,

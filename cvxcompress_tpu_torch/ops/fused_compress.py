@@ -36,7 +36,7 @@ from __future__ import annotations
 import torch
 
 from . import _kernels, blocks, quant, rle_device, wavelet
-from .tokenize import raw_fallback, scaled, tokenize_scaled_plain
+from .tokenize import raw_fallback, tokenize_blocks_plain
 
 B = 128
 BLOCK = (B, B, B)
@@ -67,7 +67,7 @@ def _xy_plain(tmp):
 def encode_xy_plain(tmp, mulfac):
     """Plain version of pass 2: the x, then y cascade and the tokenize."""
     coeffs = _xy_plain(tmp)
-    return (coeffs, *tokenize_scaled_plain(scaled(coeffs, mulfac)),
+    return (coeffs, *tokenize_blocks_plain(coeffs, mulfac),
             torch.full((coeffs.shape[0],), mulfac, dtype=torch.float32,
                        device=coeffs.device))
 
@@ -83,7 +83,7 @@ def scale_tok_plain(coeffs, partials, scale):
     """Plain version of `scale_tok`: (desc, chunk_bytes, sizes, raw,
     mulfacs)."""
     mulfacs = quant.mulfac_from_rms(quant.rms_of_partials(partials, CELLS), scale)
-    return (*tokenize_scaled_plain(scaled(coeffs, mulfacs)), mulfacs)
+    return (*tokenize_blocks_plain(coeffs, mulfacs), mulfacs)
 
 
 def block_encode_plain(vol, mulfac=None, *, scale=None):

@@ -19,13 +19,20 @@ TPU counterpart: `cvxcompress_tpu/ops/fused_inverse.py`
 `block_fused_inverse` :65): the dense block-major (nnn*16384, 128) buffer
 the device entropy decoder writes -> the (nz, ny, nx) volume, dims
 multiples of 128.
+
+`stripe_fused_inverse` (csrc/stripe_fused.cu, plain version
+`stripe_fused_inverse_plain`) is K5 at the other blocks of the JAX gate
+`stripe_fused_ok` (16^3, (16, 16, 1), ...; ops/geometry.py): the dense
+block-major (nnn, cells) coefficients -> the volume.
 """
 
 from __future__ import annotations
 
+import math
+
 import torch
 
-from . import _kernels, blocks, wavelet
+from . import _kernels, blocks, geometry, wavelet
 
 BLOCK = (32, 32, 32)
 CHUNK = 128
@@ -135,3 +142,40 @@ def block_fused_inverse(dense, vol_shape):
     """(nz, ny, nx) f32 volume from the dense (nnn*16384, 128) coefficient
     rows of 128^3 blocks (dims multiples of 128); see the module doc."""
     return block_inv_z(block_inv_xy(dense, vol_shape))
+
+
+def stripe_fused_inverse_plain(dense, vol_shape, block):
+    """Plain PyTorch version of the fused stripe inverse (same volume)."""
+    bx, by, bz = block
+    coeffs = dense.reshape(-1, bz, by, bx)
+    return blocks.from_blocks(wavelet.inverse_blocks(coeffs), vol_shape, block)
+
+
+def stripe_fused_inverse(dense, vol_shape, block):
+    """(nz, ny, nx) f32 volume from the dense block-major coefficients
+    (nnn * cells f32, as the device entropy decoder writes them) of a block
+    of the "stripe_fused" route: the x, y, z inverse in one kernel
+    (`stripe_fused_inverse`, csrc/stripe_fused.cu).  TPU counterpart:
+    `stripe_fused_inverse` (`cvxcompress_tpu/ops/fused_inverse.py:128`)."""
+    bx, by, bz = block
+    cells = bx * by * bz
+    nnn = math.prod(blocks.grid_shape(vol_shape, block))
+    if dense.numel() != nnn * cells:
+        raise ValueError(f"dense holds {dense.numel()} cells, {tuple(vol_shape)} "
+                         f"in {block} blocks needs {nnn * cells}")
+    if dense.device.type == "cpu":
+        return stripe_fused_inverse_plain(dense, vol_shape, block)
+    _kernels.check_cuda(dense, dtypes=(torch.float32,))
+    if bx < 8 or by < 8 or cells < 128:
+        raise ValueError(f"the fused stripe kernel takes blocks of bx, by >= 8 "
+                         f"and >= 128 cells, got {block}")
+    dev = dense.device
+    nz, ny, nx = vol_shape
+    # a block over a tile (16,384 cells) is worked in device memory
+    work = torch.empty_like(dense) if cells > (1 << 14) else dense
+    vol = torch.empty(vol_shape, dtype=torch.float32, device=dev)
+    ops = wavelet.operators_t(block, inverse=True, device=dev)
+    _kernels.launch("stripe_fused_inverse", dense.data_ptr(), nx, ny, nz,
+                    *geometry.log2_block(block), *(op.data_ptr() for op in ops),
+                    work.data_ptr(), vol.data_ptr())
+    return vol

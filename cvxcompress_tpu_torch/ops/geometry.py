@@ -7,16 +7,19 @@ compresses on one of four routes (ops/codec.py `route`, `compress`):
 - "fused32": (32, 32, 32) blocks, any volume (ops/tokenize.py `fused_encode`);
 - "block128": (128, 128, 128) blocks over dims that are multiples of 128
   (ops/fused_compress.py `block_encode`);
-- "stripe": every other bx < 128 where `stripe_path_ok` holds: the forward
-  transform in volume order, then `tokenize_stripe` and `emit_chunks`
-  reading the plane through the stripe map (`stripe_addr`);
-- "chunks": the rest (bx >= 128, and bx = by = 8): the transform into
-  block-major (nnn, cells), then `tokenize_chunks` and `emit_chunks`.
+- "stripe_fused": the other blocks where the JAX gate `stripe_fused_ok`
+  holds (16^3, (16, 16, 1), (64, 32, 32), ...): one kernel from the volume
+  to the tokens (ops/tokenize.py `stripe_fused_encode`), one back
+  (ops/fused_inverse.py `stripe_fused_inverse`);
+- "stripe": the rest (8^3, 64^3, 256^3, (128, 8, 8), (8, 8, 1), ...): the
+  forward transform in volume order, then `tokenize_stripe` and
+  `emit_chunks` reading the plane through the stripe map (`stripe_addr`).
 
-The JAX package's TPU routes are the same split (`cvxcompress_tpu/ops/
-codec.py:328-440` `_encode_device`): K13 where `stripe_path_ok`, K12
-elsewhere, K1 and K6 at their geometries.  Chunks hold min(128, cells)
-cells (`rle_device.chunk_cells`).
+The JAX package's TPU routes (`cvxcompress_tpu/ops/codec.py:328-440`
+`_encode_device`) run K1 and K6 at their geometries, K1 where
+`stripe_fused_ok`, K13 where only `stripe_path_ok` holds, K12 on a
+block-major relayout elsewhere; the stripe map makes that relayout needless
+here.  Chunks hold min(128, cells) cells (`rle_device.chunk_cells`).
 """
 
 from __future__ import annotations
@@ -39,19 +42,18 @@ def check_block(block):
     return block
 
 
-def stripe_path_ok(vol_shape, block):
-    """The JAX stripe gate (`cvxcompress_tpu/ops/tokenize_pallas.py:728`):
-    bx < 128 and a chunk of 128 cells tiles whole groups of 128 // bx
-    x-rows of one block column."""
+def stripe_fused_ok(vol_shape, block):
+    """The JAX gate of the fused stripe kernels K1 and K5
+    (`cvxcompress_tpu/ops/tokenize_pallas.py:831` `stripe_fused_ok`, with
+    `stripe_path_ok` :728 and `wavelet.padded_nbx` :280), on a valid block:
+    bx < 128, by a multiple of 128 // bx, and a (bz * by, W) f32 block row
+    within 3 MiB, W the x extent padded to a multiple of 128."""
     bx, by, bz = block
-    if bx >= 128 or bx < 8 or by < 8:
+    if bx >= 128 or by % (128 // bx):
         return False
-    if by % (128 // bx):
-        return False
-    zg = max(1, min(bz, 512 // by))
-    while bz % zg:
-        zg -= 1
-    return zg >= 1 and (bz % zg == 0)
+    k = 128 // bx
+    w = -(-blocks.grid_shape(vol_shape, block)[2] // k) * k * bx
+    return bz * by * w * 4 <= 3 << 20
 
 
 def plane_shape(vol_shape, block):
@@ -66,7 +68,7 @@ def stripe_addr(blk, cell, vol_shape, block):
     block-local cell `cell` (z, y, x inside the block, x fastest); integer
     tensors, broadcast.  The counterpart of `cvxcompress_tpu/ops/codec.py:151`
     `stripe_rowmap` without the TPU's x-pad to 128 lanes, and of
-    `stripe_addr` in csrc/tokenize_chunks.cuh."""
+    `map_origin` + `map_cell` in csrc/stripe_map.cuh."""
     bx, by, bz = block
     nbz, nby, nbx = blocks.grid_shape(vol_shape, block)
     _, nyp, nxp = plane_shape(vol_shape, block)
@@ -75,14 +77,17 @@ def stripe_addr(blk, cell, vol_shape, block):
     return ((bzi * bz + z) * nyp + byi * by + y) * nxp + bxi * bx + x
 
 
+def log2_block(block):
+    """log2 of bx, by, bz (powers of two)."""
+    return tuple(b.bit_length() - 1 for b in block)
+
+
 def map_args(vol_shape, block):
     """The stripe map as the kernels take it (csrc/stripe_map.cuh): log2 of
     bx, by, bz, then nbx, nby, nxp, nyp."""
-    bx, by, bz = block
     _, nby, nbx = blocks.grid_shape(vol_shape, block)
     _, nyp, nxp = plane_shape(vol_shape, block)
-    return (bx.bit_length() - 1, by.bit_length() - 1, bz.bit_length() - 1,
-            nbx, nby, nxp, nyp)
+    return (*log2_block(block), nbx, nby, nxp, nyp)
 
 
 def gather_blocks(plane, ids, vol_shape, block):

@@ -15,8 +15,8 @@ TPU counterparts: `pack_pallas.pack_staging_seg` (:479) and
 
 `emit_chunks` (csrc/block_emit.cu, plain version `emit_chunks_plain`) is
 the same stream for every other geometry (the 128^3 blocks of
-ops/fused_compress.py, the block-major and stripe routes of
-ops/tokenize.py `encode`), laid out by min(128, cells)-cell chunk: each
+ops/fused_compress.py, ops/tokenize.py `stripe_fused_encode` and the stripe
+route's `encode`), laid out by min(128, cells)-cell chunk: each
 chunk's tokens land at its own base, the exclusive cumsum of the chunk
 byte counts (0 in raw blocks).  TPU counterpart: `pack_pallas.pack_staging`
 (:515) inside `rle_device.pack_active` (:401).

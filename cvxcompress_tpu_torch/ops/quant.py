@@ -16,8 +16,9 @@ for bit: a CTA's thread t adds the squares of its 64 consecutive cells in
 turn; the threads' sums meet in a halving tree over each warp's 32 lanes
 (lane i + lane i+16, then i + i+8, ...) and the warps' sums in the same
 tree; at 128^3 one CTA reduces each z-slice and the 128 slice sums add in
-slice order.  The JAX package sums in float32 trees; the tables agree to
-its own contract between paths, rtol 1e-5.
+slice order; at the other fused stripe blocks each run of 64 cells adds in
+turn, then the runs (`run_rms`).  The JAX package sums in float32 trees;
+the tables agree to its own contract between paths, rtol 1e-5.
 
 Quantization (Run_Length_Encode_Slow.cpp:203-207): i = trunc(mulfac * c)
 toward zero with x86 cvttps semantics — NaN and values outside the int32
@@ -104,27 +105,36 @@ def local_rms(coeffs):
     return rms_of_partials(partials.view(n, slices), cells)
 
 
-def block_table(coeffs, block, mulfac=None, *, scale=None):
-    """The (nnn,) f32 mulfac table of the block-major and stripe routes
-    (ops/geometry.py) from their coefficients: block-major (nnn, cells) or
-    the volume-order plane (nzp, nyp, nxp).  Global RMS: `mulfac` for every
-    block.  Local RMS (`scale`): `mulfac_from_rms` of each block's RMS, the
-    square root of its f64 sum of squares over its cells, rounded to f32 as
-    native's.  The JAX package sums in f32 (`cvxcompress_tpu/ops/quant.py:
-    36-46`), so no kernel is owed; the tables agree to rtol 1e-5."""
+def run_rms(coeffs):
+    """Per-block RMS of block-major (n, cells) f32 coefficients in the
+    fused stripe kernels' order (csrc/stripe_fused.cu): the f64 squares of
+    each run of 64 consecutive cells added in turn, then the runs' sums in
+    turn; sqrt(sum / cells) in f64, rounded to f32.  (n,) f32."""
+    n, cells = coeffs.shape
+    sq = coeffs.to(torch.float64).square().view(n, cells // 64, 64)
+    runs = torch.zeros(sq.shape[:2], dtype=torch.float64, device=coeffs.device)
+    for i in range(64):
+        runs = runs + sq[:, :, i]
+    return rms_of_partials(runs, cells)
+
+
+def block_table(plane, block, mulfac=None, *, scale=None):
+    """The (nnn,) f32 mulfac table of the stripe route (ops/geometry.py) from
+    its volume-order coefficient plane (nzp, nyp, nxp).  Global RMS:
+    `mulfac` for every block.  Local RMS (`scale`): `mulfac_from_rms` of each
+    block's RMS, the square root of its f64 sum of squares over its cells,
+    rounded to f32 as native's.  The JAX package sums in f32
+    (`cvxcompress_tpu/ops/quant.py:36-46`), so no kernel is owed; the tables
+    agree to rtol 1e-5."""
     bx, by, bz = block
-    cells = bx * by * bz
-    if coeffs.dim() == 3:
-        nzp, nyp, nxp = coeffs.shape
-        view = coeffs.view(nzp // bz, bz, nyp // by, by, nxp // bx, bx)
-        nnn, dims = view.shape[0] * view.shape[2] * view.shape[4], (1, 3, 5)
-    else:
-        view, nnn, dims = coeffs, coeffs.shape[0], (1,)
+    nzp, nyp, nxp = plane.shape
+    view = plane.view(nzp // bz, bz, nyp // by, by, nxp // bx, bx)
+    nnn = view.shape[0] * view.shape[2] * view.shape[4]
     if not is_local(mulfac, scale):
         return torch.full((nnn,), float(mulfac), dtype=torch.float32,
-                          device=coeffs.device)
-    ss = view.to(torch.float64).square().sum(dims).reshape(nnn)
-    return mulfac_from_rms(torch.sqrt(ss / cells).to(torch.float32), scale)
+                          device=plane.device)
+    ss = view.to(torch.float64).square().sum((1, 3, 5)).reshape(nnn)
+    return mulfac_from_rms(torch.sqrt(ss / (bx * by * bz)).to(torch.float32), scale)
 
 
 def is_local(mulfac, scale):

@@ -19,14 +19,17 @@ TPU counterpart: `cvxcompress_tpu/ops/tokenize_pallas.py`
 `stripe_fused_encode` (:1056), whose kernel is `stripe_fused_tiles` (:939;
 the local branch `_kernel_stripe_fused_local` :907).
 
-Every other geometry (ops/geometry.py) runs `encode`: the transform and
-the mulfac table as library products, then the tokenize kernel of given
-coefficients, `tokenize_chunks` (block-major input, K12 and K12' port) or
-`tokenize_stripe` (the volume-order plane read through the stripe map, K13
-port), both csrc/tokenize_chunks.cu.
+Every other geometry (ops/geometry.py) runs `stripe_fused_encode` (one
+kernel from the volume to the tokens, csrc/stripe_fused.cu, where the JAX
+gate `stripe_fused_ok` holds: the K1 and K9 port at 16^3, (16, 16, 1), ...)
+or `encode`: the transform and the mulfac table as library products, then
+the kernel `tokenize_stripe` (the volume-order plane read through the
+stripe map, csrc/tokenize_stripe.cu: the K13 port, and of K12 and K12').
 """
 
 from __future__ import annotations
+
+import math
 
 import torch
 
@@ -85,9 +88,9 @@ def fused_encode(vol, mulfac=None, *, scale=None):
     return coeffs, desc, sizes, raw, mulfacs
 
 
-# -- every other geometry: the tokenize of given coefficients (K12, K13) ------
+# -- every other geometry ------------------------------------------------------
 
-TILE = 1 << 14  # cells per CTA of csrc/tokenize_chunks.cu
+TILE = 1 << 14  # cells per CTA of csrc/tokenize_stripe.cu and stripe_fused.cu
 
 
 def raw_fallback(desc, chunk_bytes, sizes):
@@ -103,99 +106,127 @@ def raw_fallback(desc, chunk_bytes, sizes):
     return desc, chunk_bytes, sizes, raw
 
 
-def tokenize_scaled_plain(fv):
-    """The tokenize of PRE-SCALED block-major (n, cells) coefficients, plain:
-    (desc, chunk_bytes per min(128, cells)-cell chunk, sizes, raw)."""
-    n, cells = fv.shape
-    desc, _, _ = rle_device.tokenize(fv)
+def tokenize_blocks_plain(coeffs, mulfacs):
+    """The tokenize of block-major UNSCALED (n, cells) coefficients, each
+    block at its entry of the (n,) table, plain: (desc, chunk_bytes per
+    min(128, cells)-cell chunk, sizes, raw)."""
+    n, cells = coeffs.shape
+    desc, _, _ = rle_device.tokenize(scaled(coeffs, mulfacs))
     chunk_bytes = (desc & 7).view(-1, rle_device.chunk_cells(cells)).sum(
         1, dtype=torch.int32)
     sizes = chunk_bytes.view(n, -1).sum(1, dtype=torch.int32)
     return raw_fallback(desc, chunk_bytes, sizes)
 
 
-def tokenize_chunks_plain(coeffs, mulfacs):
-    """Plain PyTorch version of `tokenize_chunks` (same outputs)."""
-    return tokenize_scaled_plain(scaled(coeffs, mulfacs))
-
-
 def tokenize_stripe_plain(plane, mulfacs, block):
     """Plain PyTorch version of `tokenize_stripe`: the plane gathered to
-    block-major, then `tokenize_chunks_plain`."""
+    block-major, then `tokenize_blocks_plain`."""
     coeffs = blocks.to_blocks(plane, block).view(mulfacs.shape[0], -1)
-    return tokenize_chunks_plain(coeffs, mulfacs)
+    return tokenize_blocks_plain(coeffs, mulfacs)
 
 
-def _tokenize_launch(name, src, mulfacs, nnn, cells, *geom):
-    _kernels.check_cuda(src, mulfacs, dtypes=(torch.float32, torch.float32))
-    if mulfacs.shape != (nnn,):
-        raise ValueError(f"the mulfac table must be ({nnn},), got "
-                         f"{tuple(mulfacs.shape)}")
-    if cells < 64 or cells & (cells - 1):
-        raise ValueError(f"cells per block must be a power of two >= 64, got {cells}")
-    dev = src.device
-    ntiles = -(-nnn * cells // TILE)
-    scratch = torch.empty(1 + ntiles, dtype=torch.int32, device=dev)
-    desc = torch.empty((nnn, cells), dtype=torch.int32, device=dev)
-    chunk_bytes = torch.empty(nnn * cells // rle_device.chunk_cells(cells),
-                              dtype=torch.int32, device=dev)
-    sizes = torch.empty(nnn, dtype=torch.int32, device=dev)
-    _kernels.launch(name, src.data_ptr(), mulfacs.data_ptr(), nnn, *geom,
-                    scratch.data_ptr(), desc.data_ptr(), chunk_bytes.data_ptr(),
-                    sizes.data_ptr())
-    return raw_fallback(desc, chunk_bytes, sizes)
-
-
-def tokenize_chunks(coeffs, mulfacs):
-    """Tokenize block-major UNSCALED coefficients (nnn, cells) f32, each
-    block at its entry of the (nnn,) f32 mulfac table (K12 and K12' port,
-    kernel `tokenize_chunks` in csrc/tokenize_chunks.cu).
-
-    Returns desc (nnn, cells) int32, chunk_bytes (nnn * cells / chunk,)
-    int32 per min(128, cells)-cell chunk (0 in a raw block), sizes (nnn,)
-    int32 (4*cells when raw) and raw (nnn,) bool.  The plain version runs
-    for a CPU tensor.  TPU counterpart: `tokenize_pallas.tokenize_desc_fast2`
-    (:478) on `codec._stage_w_pallas`'s pre-scaled chunks.
-    """
-    if coeffs.device.type == "cpu":
-        return tokenize_chunks_plain(coeffs, mulfacs)
-    nnn, cells = coeffs.shape
-    return _tokenize_launch("tokenize_chunks", coeffs, mulfacs, nnn, cells,
-                            cells.bit_length() - 1)
-
-
-def encode(vol, block, mulfac=None, *, scale=None):
-    """The forward transform, the mulfac table and the tokenize of a
-    (nz, ny, nx) volume at a block of the "stripe" or "chunks" route
-    (ops/geometry.py): (coeffs, desc, chunk_bytes, sizes, raw, mulfacs),
-    `coeffs` the volume-order plane on the stripe route, block-major (nnn,
-    cells) on the other.  The transform and the local RMS are library
-    products (ops/wavelet.py, ops/quant.py `block_table`); the tokenize is
-    the kernel (the plain version on the CPU)."""
-    if geometry.stripe_path_ok(vol.shape, block):
-        coeffs = wavelet.forward_3d_volume(vol, block)
-        mulfacs = quant.block_table(coeffs, block, mulfac, scale=scale)
-        return (coeffs, *tokenize_stripe(coeffs, mulfacs, block), mulfacs)
-    coeffs = wavelet.forward_3d_blocked(vol, block)
-    coeffs = coeffs.view(coeffs.shape[0], -1)
-    mulfacs = quant.block_table(coeffs, block, mulfac, scale=scale)
-    return (coeffs, *tokenize_chunks(coeffs, mulfacs), mulfacs)
+def _outputs(nnn, cells, dev):
+    """Empty (desc, chunk_bytes, sizes) of a tokenize."""
+    return (torch.empty((nnn, cells), dtype=torch.int32, device=dev),
+            torch.empty(nnn * cells // rle_device.chunk_cells(cells),
+                        dtype=torch.int32, device=dev),
+            torch.empty(nnn, dtype=torch.int32, device=dev))
 
 
 def tokenize_stripe(plane, mulfacs, block):
-    """`tokenize_chunks` of the coefficients of a volume-order (nzp, nyp,
-    nxp) plane (ops/wavelet.py `forward_3d_volume`), read in place through
-    the stripe map (K13 port, kernel `tokenize_stripe`); the outputs are
-    block-major.  TPU counterpart: `tokenize_pallas.tokenize_desc_stripe_fast`
-    (:1228), whose volume-order descriptors and per-(row, block column)
-    counts are TPU layouts (held against these through `stripe_rowmap` in
-    tests/test_torch_stripe.py)."""
+    """Tokenize the UNSCALED coefficients of a volume-order (nzp, nyp, nxp)
+    f32 plane (ops/wavelet.py `forward_3d_volume`), each block at its entry
+    of the (nnn,) f32 mulfac table, read in place through the stripe map
+    (kernel `tokenize_stripe`, csrc/tokenize_stripe.cu: the K13 port, and of
+    K12 and K12' at the blocks where the JAX package relayouts first).
+
+    Returns, block-major, desc (nnn, cells) int32, chunk_bytes (nnn * cells /
+    chunk,) int32 per min(128, cells)-cell chunk (0 in a raw block), sizes
+    (nnn,) int32 (4*cells when raw) and raw (nnn,) bool.  The plain version
+    runs for a CPU tensor.  TPU counterparts:
+    `tokenize_pallas.tokenize_desc_stripe_fast` (:1228), whose volume-order
+    descriptors and per-(row, block column) counts are TPU layouts (held
+    against these through `stripe_rowmap` in tests/test_torch_stripe.py),
+    and `tokenize_desc_fast2` (:478) on chunk-major coefficients
+    (tests/test_torch_generic.py)."""
     if plane.dim() != 3 or any(n % b for n, b in zip(plane.shape, block[::-1])):
         raise ValueError(f"the plane must be (nzp, nyp, nxp) in whole {block} "
                          f"blocks, got {tuple(plane.shape)}")
     if plane.device.type == "cpu":
         return tokenize_stripe_plain(plane, mulfacs, block)
+    _kernels.check_cuda(plane, mulfacs, dtypes=(torch.float32, torch.float32))
     cells = block[0] * block[1] * block[2]
-    return _tokenize_launch("tokenize_stripe", plane, mulfacs,
-                            plane.numel() // cells, cells,
-                            *geometry.map_args(plane.shape, block))
+    nnn = plane.numel() // cells
+    if mulfacs.shape != (nnn,):
+        raise ValueError(f"the mulfac table must be ({nnn},), got "
+                         f"{tuple(mulfacs.shape)}")
+    desc, chunk_bytes, sizes = _outputs(nnn, cells, plane.device)
+    scratch = torch.empty(1 + -(-nnn * cells // TILE), dtype=torch.int32,
+                          device=plane.device)
+    _kernels.launch("tokenize_stripe", plane.data_ptr(), mulfacs.data_ptr(), nnn,
+                    *geometry.map_args(plane.shape, block), scratch.data_ptr(),
+                    desc.data_ptr(), chunk_bytes.data_ptr(), sizes.data_ptr())
+    return raw_fallback(desc, chunk_bytes, sizes)
+
+
+def encode(vol, block, mulfac=None, *, scale=None):
+    """The forward transform, the mulfac table and the tokenize of a
+    (nz, ny, nx) volume at a block of the "stripe" route (ops/geometry.py):
+    (plane, desc, chunk_bytes, sizes, raw, mulfacs), the plane the
+    volume-order coefficients.  The transform and the local RMS are library
+    products (ops/wavelet.py, ops/quant.py `block_table`), as they are XLA
+    in the JAX package; the tokenize is the kernel (the plain version on the
+    CPU)."""
+    plane = wavelet.forward_3d_volume(vol, block)
+    mulfacs = quant.block_table(plane, block, mulfac, scale=scale)
+    return (plane, *tokenize_stripe(plane, mulfacs, block), mulfacs)
+
+
+def stripe_fused_encode_plain(vol, block, mulfac=None, *, scale=None):
+    """Plain PyTorch version of `stripe_fused_encode` (same outputs)."""
+    local = quant.is_local(mulfac, scale)
+    coeffs = wavelet.forward_blocks(blocks.to_blocks(vol, block))
+    coeffs = coeffs.reshape(coeffs.shape[0], -1)
+    if local:
+        mulfacs = quant.mulfac_from_rms(quant.run_rms(coeffs), scale)
+    else:
+        mulfacs = torch.full((coeffs.shape[0],), mulfac, dtype=torch.float32,
+                             device=coeffs.device)
+    return (coeffs, *tokenize_blocks_plain(coeffs, mulfacs), mulfacs)
+
+
+def stripe_fused_encode(vol, block, mulfac=None, *, scale=None):
+    """(nz, ny, nx) f32 volume -> (coeffs, desc, chunk_bytes, sizes, raw,
+    mulfacs) at a block of the "stripe_fused" route (ops/geometry.py): the
+    forward transform, each block's mulfac and the tokenize in one kernel
+    (csrc/stripe_fused.cu; K1 and K9 port at those blocks), launched as
+    `stripe_fused_encode`, or under the local RMS (give `scale` instead of
+    `mulfac`: each block's mulfac is 1/(rms*scale) of its own coefficients,
+    summed as ops/quant.py `run_rms`) as `stripe_fused_encode_local`.
+    `coeffs` are the UNSCALED block-major (nnn, cells) coefficients; the
+    rest as `tokenize_stripe`.  TPU counterpart:
+    `tokenize_pallas.stripe_fused_encode` (:1056)."""
+    local = quant.is_local(mulfac, scale)
+    if vol.device.type == "cpu":
+        return stripe_fused_encode_plain(vol, block, mulfac, scale=scale)
+    _kernels.check_cuda(vol, dtypes=(torch.float32,))
+    bx, by, bz = block
+    cells = bx * by * bz
+    if bx < 8 or by < 8 or cells < 128:
+        raise ValueError(f"the fused stripe kernel takes blocks of bx, by >= 8 "
+                         f"and >= 128 cells, got {block}")
+    nz, ny, nx = vol.shape
+    nnn = math.prod(blocks.grid_shape(vol.shape, block))
+    dev = vol.device
+    coeffs = torch.empty((nnn, cells), dtype=torch.float32, device=dev)
+    desc, chunk_bytes, sizes = _outputs(nnn, cells, dev)
+    mulfacs = torch.empty((nnn,), dtype=torch.float32, device=dev)
+    ops = wavelet.operators_t(block, inverse=False, device=dev)
+    _kernels.launch(
+        "stripe_fused_encode_local" if local else "stripe_fused_encode",
+        vol.data_ptr(), nx, ny, nz, *geometry.log2_block(block),
+        *(op.data_ptr() for op in ops), float(scale if local else mulfac),
+        coeffs.data_ptr(), desc.data_ptr(), chunk_bytes.data_ptr(),
+        sizes.data_ptr(), mulfacs.data_ptr(),
+    )
+    return (coeffs, *raw_fallback(desc, chunk_bytes, sizes), mulfacs)

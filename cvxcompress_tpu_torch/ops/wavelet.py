@@ -12,9 +12,8 @@ tests/test_torch_wavelet.py holds the operators bit-equal to those.
 (n, bz, by, bx) block batch, three f32 contractions in the reference's axis
 order x -> y -> z.  They are the specification the CUDA kernels in
 ops/tokenize.py and ops/fused_inverse.py are compared with, and the
-transforms themselves at every other block geometry (with
-`forward_3d_volume` / `forward_3d_blocked`), where the JAX package runs
-them as XLA products too.  The matmuls
+transforms themselves on the stripe route (with `forward_3d_volume`), where
+the JAX package runs them as XLA products too.  The matmuls
 must run in full f32: a TF32 contraction keeps ~3 decimal digits and breaks
 the 1e-5 transform contract (CvxCompress.cpp:597), so this module pins
 `torch.backends.cuda.matmul.allow_tf32 = False` (PyTorch's own default).
@@ -195,6 +194,12 @@ def operator(dim, inverse, device):
     return torch.tensor(np.asarray(m, dtype=F32), device=device)
 
 
+def operators_t(block, inverse, device):
+    """The f32 operators of bx, by and bz, each transposed (contiguous), as
+    the fused stripe kernels take them (csrc/stripe_fused.cu)."""
+    return tuple(operator(n, inverse, device).t().contiguous() for n in block)
+
+
 def _apply_3d(blocks, inverse):
     bz, by, bx = blocks.shape[-3:]
     dev = blocks.device
@@ -239,10 +244,3 @@ def forward_3d_volume(vol, block):
         a = torch.einsum("hzr,Zz->hZr", a.reshape(nbz, bz, nyp * nxp),
                          operator(bz, False, dev))
     return a.reshape(nzp, nyp, nxp).contiguous()
-
-
-def forward_3d_blocked(vol, block):
-    """Forward transform into block-major (nnn, bz, by, bx) coefficients
-    (`cvxcompress_tpu/ops/wavelet.py:175`): the volume-order transform, then
-    one relayout."""
-    return blocks.to_blocks(forward_3d_volume(vol, block), block)

@@ -81,7 +81,7 @@ def test_tokenize_stage_exact_against_jax_k6(jax_k6):
     and the block boundary included."""
     _, out = jax_k6
     j = out[MULFAC]
-    desc, cb, sizes, raw = tokenize.tokenize_scaled_plain(torch.from_numpy(j["fv"]))
+    desc, cb, sizes, raw = tokenize.tokenize_blocks_plain(torch.from_numpy(j["fv"]), 1.0)
     np.testing.assert_array_equal(desc.numpy(), j["desc"])
     np.testing.assert_array_equal(cb.numpy(), j["cb"])
     np.testing.assert_array_equal(sizes.numpy(), j["sizes"])
@@ -278,14 +278,13 @@ def test_decoder_at_two_million_cells():
 
 def test_gates():
     """The 128^3 kernels take 128^3 blocks over dims that are multiples of
-    128 only; 128^3 over other dims and 64^3 take the block-major and
-    stripe routes instead and round-trip, in compress and in decompress of
-    native's containers."""
+    128 only; 128^3 over other dims and 64^3 take the stripe route instead
+    and round-trip, in compress and in decompress of native's containers."""
     assert fused_compress.fused_path_ok((128, 128, 256), BLOCK)
     assert not fused_compress.fused_path_ok((128, 128, 200), BLOCK)
     assert not fused_compress.fused_path_ok((128, 128, 256), (128, 128, 64))
     vol = make_sinusoid_volume(128, 128, 200, periods=3)
-    assert codec.route(vol.shape, BLOCK) == "chunks"
+    assert codec.route(vol.shape, BLOCK) == "stripe"
     assert codec.route(vol.shape, (64, 64, 64)) == "stripe"
     for block in (BLOCK, (64, 64, 64)):
         data, _ = cvt.compress(vol, 1e-2, block=block, device="cpu")

@@ -239,7 +239,7 @@ def encode128_vs_plain(vt, mulfac):
     cp = fused_compress.block_encode_plain(vt, mulfac)[0]
     torch.cuda.synchronize()
     assert rel_rms(ck, cp) < TRANSFORM_TOL
-    d2, cb2, s2, r2 = tokenize.tokenize_scaled_plain(tokenize.scaled(ck, mulfac))
+    d2, cb2, s2, r2 = tokenize.tokenize_blocks_plain(ck, mulfac)
     assert torch.equal(dk, d2) and torch.equal(cbk, cb2)
     assert torch.equal(sk, s2) and torch.equal(rk, r2)
     assert bool((mk == mulfac).all())
@@ -461,7 +461,8 @@ def test_decode_kernels_on_local_containers(dev):
                                   nat.view(np.uint32))
 
 
-# -- every other geometry: tokenize_chunks, tokenize_stripe, block_emit ------
+# -- every other geometry: stripe_fused_encode / _inverse, tokenize_stripe,
+# -- block_emit ------------------------------------------------------------------
 
 
 def generic_volume(kind, shape, block):
@@ -476,28 +477,51 @@ def generic_volume(kind, shape, block):
     return v
 
 
+def route_kernels(shape, block, local=False):
+    """The encode and inverse kernels of the block's route."""
+    if codec.route(shape, block) == "stripe_fused":
+        return ("stripe_fused_encode_local" if local else "stripe_fused_encode",
+                "stripe_fused_inverse")
+    return ("tokenize_stripe",)
+
+
 def generic_vs_plain(vt, block, mulfac=None, scale=None):
-    """`tokenize.encode` on the card: its tokenize kernel and `emit_chunks`
-    bit-equal to their plain versions on the kernel's own coefficients and
-    table, and the stream equal to the native encoder's; returns the
-    encode's outputs and the route's kernel name."""
-    stripe = codec.route(tuple(vt.shape), block) == "stripe"
-    name = "tokenize_stripe" if stripe else "tokenize_chunks"
+    """The route's encode on the card: on the "stripe_fused" route the
+    kernel's coefficients within 1e-5 of the plain version's, its table
+    bit-equal to the plain table of its own coefficients, and the fused
+    inverse within 1e-5 of its plain version; on either route the tokenize
+    and `emit_chunks` bit-equal to their plain versions on the kernel's own
+    coefficients and table, and the stream equal to the native encoder's.
+    Returns the encode's outputs."""
+    shape, local = tuple(vt.shape), scale is not None
+    fused = codec.route(shape, block) == "stripe_fused"
     _kernels.reset_counts()
-    c, dk, cbk, sk, rk, mk = tokenize.encode(vt, block, mulfac, scale=scale)
-    torch.cuda.synchronize()
-    assert _kernels.launches[name] == 1
-    if stripe:
-        plain = tokenize.tokenize_stripe_plain(c, mk, block)
-        cbm = blocks.to_blocks(c, block).view(mk.shape[0], -1)
+    if fused:
+        c, dk, cbk, sk, rk, mk = tokenize.stripe_fused_encode(vt, block, mulfac,
+                                                              scale=scale)
     else:
-        plain = tokenize.tokenize_chunks_plain(c, mk)
-        cbm = c
+        c, dk, cbk, sk, rk, mk = tokenize.encode(vt, block, mulfac, scale=scale)
+    torch.cuda.synchronize()
+    assert _kernels.launches[route_kernels(shape, block, local)[0]] == 1
+    if fused:
+        cp = tokenize.stripe_fused_encode_plain(vt, block, mulfac, scale=scale)[0]
+        fin = torch.isfinite(cp).all(1)
+        assert rel_rms(c[fin], cp[fin]) < TRANSFORM_TOL
+        want = (quant.mulfac_from_rms(quant.run_rms(c), scale) if local
+                else torch.full_like(mk, mulfac))
+        assert torch.equal(mk, want)
+        plain = tokenize.tokenize_blocks_plain(c, mk)
+        cbm, sb = c, None
+        vk = fused_inverse.stripe_fused_inverse(torch.nan_to_num(c), shape, block)
+        vp = fused_inverse.stripe_fused_inverse_plain(torch.nan_to_num(c), shape, block)
+        assert rel_rms(vk, vp) < TRANSFORM_TOL
+    else:
+        plain = tokenize.tokenize_stripe_plain(c, mk, block)
+        cbm, sb = blocks.to_blocks(c, block).view(mk.shape[0], -1), block
     for got, ref in zip((dk, cbk, sk, rk), plain):
         assert torch.equal(got, ref)
     base = torch.cumsum(cbk.long(), 0) - cbk.long()
     total = int(cbk.sum())
-    sb = block if stripe else None
     got = pack.emit_chunks(c, mk, dk, cbk, base, total, sb)
     assert torch.equal(got, pack.emit_chunks_plain(c, mk, dk, cbk, base, total, sb))
     streams, nsizes, nraw = rle_host.encode_payloads(cbm.cpu().numpy(), mk.cpu().numpy())
@@ -506,7 +530,7 @@ def generic_vs_plain(vt, block, mulfac=None, scale=None):
     parts = [st for st, r in zip(streams, nraw) if not r]
     native = np.concatenate(parts) if parts else np.zeros(0, np.uint8)
     np.testing.assert_array_equal(got.cpu().numpy(), native)
-    return (c, dk, cbk, sk, rk, mk), name
+    return c, dk, cbk, sk, rk, mk
 
 
 @pytest.mark.parametrize("block,shape", [
@@ -516,6 +540,7 @@ def generic_vs_plain(vt, block, mulfac=None, scale=None):
     ((16, 16, 16), (40, 50, 70)), ((64, 64, 64), (70, 90, 100)),
     ((16, 16, 1), (3, 50, 70)), ((8, 16, 8), (20, 40, 60)),
     ((32, 32, 16), (40, 70, 70)), ((64, 32, 32), (70, 40, 140)),
+    ((16, 256, 16), (20, 300, 40)), ((64, 64, 64), (70, 90, 300)),
 ], ids=lambda v: "x".join(map(str, v)))
 @pytest.mark.parametrize("local", [False, True], ids=["global", "local"])
 def test_generic_kernels_match_plain(dev, block, shape, local):
@@ -525,43 +550,45 @@ def test_generic_kernels_match_plain(dev, block, shape, local):
     generic_vs_plain(vt, block, **args)
 
 
-@pytest.mark.parametrize("kind", ["half", "nan"])
+@pytest.mark.parametrize("kind", ["half", "nan", "fused_nan"])
 def test_generic_kernels_zero_and_nan_blocks(dev, kind):
     """Whole zero blocks (one run of 2^24 zeros in a 256^3 block: an RLESC3
-    of 2^24 - 1 and a trailing [0], cost 5) and a NaN block (raw)."""
-    block = (256, 256, 256)
-    vol = generic_volume(kind, (512, 256, 256), block)
+    of 2^24 - 1 and a trailing [0], cost 5) and a NaN block (raw), on the
+    stripe route and (the NaN) on the fused stripe route, whose blocks over
+    a tile are worked in device memory."""
+    block = (64, 32, 32) if kind == "fused_nan" else (256, 256, 256)
+    shape = (64, 64, 128) if kind == "fused_nan" else (512, 256, 256)
+    vol = generic_volume("half" if kind == "half" else "nan", shape, block)
     vt = torch.from_numpy(vol).to(dev)
     mulfac = quant.global_mulfac(np.nan_to_num(vol), 1e-2)
-    (c, dk, cbk, sk, rk, mk), _ = generic_vs_plain(vt, block, mulfac)
+    c, dk, cbk, sk, rk, mk = generic_vs_plain(vt, block, mulfac)
     if kind == "half":
         assert rk.tolist() == [False, False] and int(sk[1]) == 5
         assert int(dk[1, -1]) == 5 | 8 | (((1 << 24) - 1) << 4)
     else:
-        assert rk.tolist() == [False, True]
+        assert rk.tolist() == [False] * (rk.numel() - 1) + [True]
 
 
 @pytest.mark.parametrize("block,shape", [
     ((8, 8, 8), (40, 50, 70)), ((8, 8, 1), (5, 50, 70)), ((64, 64, 64), (70, 90, 100)),
     ((128, 128, 128), (130, 128, 140)), ((16, 16, 1), (3, 50, 70)),
+    ((16, 16, 16), (40, 50, 70)), ((64, 32, 32), (70, 40, 140)),
 ], ids=lambda v: "x".join(map(str, v)))
 def test_generic_roundtrip_on_the_card(dev, block, shape):
     """The public API at the other geometries on the default device: the
-    route's tokenize kernel and block_emit launch once, the decode kernels
-    once; the volume agrees with the host engine and the native decoder,
-    the size with the plain CPU path; a raw block and a local container
-    too."""
+    route's kernels and block_emit launch once, the decode kernels once;
+    the volume agrees with the host engine and the native decoder, the size
+    with the plain CPU path; a raw block and a local container too."""
     vol = generic_volume("sine", shape, block)
-    name = ("tokenize_stripe" if codec.route(shape, block) == "stripe"
-            else "tokenize_chunks")
     for scale, local in ((1e-2, False), (1e-2, True), (1e-12, False)):
+        names = route_kernels(shape, block, local)
         _kernels.reset_counts()
         data, _ = cvt.compress(vol, scale, block=block, use_local_rms=local)
         out = cvt.decompress(data)
         torch.cuda.synchronize()
-        for k in (name, "block_emit", "decode_maps", "decode_chase", "decode_emit"):
+        for k in (*names, "block_emit", "decode_maps", "decode_chase", "decode_emit"):
             assert _kernels.launches[k] == 1, k
-        assert sum(_kernels.launches.values()) == 5
+        assert sum(_kernels.launches.values()) == 4 + len(names)
         ref, _ = cvt.compress(vol, scale, block=block, use_local_rms=local,
                               device="cpu")
         assert abs(int(data.size) - int(ref.size)) <= max(64, 0.01 * ref.size)
@@ -578,11 +605,11 @@ def test_generic_roundtrip_on_the_card(dev, block, shape):
 
 def test_generic_wrappers_reject_bad_inputs(dev):
     with pytest.raises(ValueError):
-        tokenize.tokenize_chunks(torch.zeros((2, 512), device=dev),
-                                 torch.ones(3, device=dev))
+        tokenize.tokenize_stripe(torch.zeros((16, 16, 32), device=dev),
+                                 torch.ones(3, device=dev), (16, 16, 16))
     with pytest.raises(ValueError):
-        tokenize.tokenize_chunks(torch.zeros((2, 96), device=dev),
-                                 torch.ones(2, device=dev))
+        fused_inverse.stripe_fused_inverse(torch.zeros(4096 * 3, device=dev),
+                                           (16, 16, 32), (16, 16, 16))
     with pytest.raises(ValueError):
         tokenize.tokenize_stripe(torch.zeros((16, 16, 24), device=dev),
                                  torch.ones(2, device=dev), (16, 16, 16))

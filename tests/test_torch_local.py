@@ -283,7 +283,7 @@ def test_k10_k11_table_and_stage_exact(jax_k10_k11, onek):
     np.testing.assert_allclose(mulfacs.numpy(), j["mf"], rtol=TABLE_RTOL)
     assert mulfacs[1] / mulfacs[0] > 5e3
     fv = torch.from_numpy(j["fv"])
-    desc, cb, sizes, raw = tokenize.tokenize_scaled_plain(fv)
+    desc, cb, sizes, raw = tokenize.tokenize_blocks_plain(fv, 1.0)
     np.testing.assert_array_equal(desc.numpy(), j["desc"])
     np.testing.assert_array_equal(cb.numpy(), j["cb"])
     np.testing.assert_array_equal(sizes.numpy(), j["sizes"])
@@ -303,7 +303,7 @@ def test_k10_passes_agree_with_one_reduction(jax_k10_k11):
     _, _, port = jax_k10_k11
     coeffs, desc, cb, sizes, raw, mulfacs = port
     assert torch.equal(mulfacs, quant.mulfac_from_rms(quant.local_rms(coeffs), SCALE))
-    d2, cb2, s2, r2 = tokenize.tokenize_scaled_plain(tokenize.scaled(coeffs, mulfacs))
+    d2, cb2, s2, r2 = tokenize.tokenize_blocks_plain(coeffs, mulfacs)
     assert torch.equal(desc, d2) and torch.equal(cb, cb2)
     assert torch.equal(sizes, s2) and torch.equal(raw, r2)
     cb64 = cb.long()

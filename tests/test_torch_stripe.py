@@ -1,10 +1,14 @@
-"""The port's stripe route (bx < 128 where `stripe_path_ok` holds, but 32^3;
-ops/geometry.py) on the CPU: the gate against the JAX package's,
+"""The port's stripe and fused stripe routes at bx < 128 (but 32^3;
+ops/geometry.py) on the CPU: the gates against the JAX package's,
 `tokenize_stripe` (plain version, the K13 port) bit-exact against JAX K13 in
-interpret mode through `stripe_rowmap` (level 1), the volume-order transform
-within 1e-5 of the oracle and of JAX's (level 2), containers across the
-oracle, JAX and native codecs, sizes and local tables (level 3), the raw
-fallback and a NaN block."""
+interpret mode through `stripe_rowmap`, and `stripe_fused_encode` (plain
+version, the K1 and K9 port at the other `stripe_fused_ok` blocks) against
+JAX K1 in interpret mode: coefficients within 1e-5, tables within rtol
+1e-5, the tokenize of K1's fv bit-exact (level 1); the volume-order
+transform within 1e-5 of the oracle and of JAX's, `stripe_fused_inverse`
+within 1e-5 of JAX K5 (level 2); containers across the oracle, JAX and
+native codecs, sizes and local tables (level 3), the raw fallback and a NaN
+block."""
 
 import itertools
 
@@ -17,12 +21,15 @@ import jax.numpy as jnp
 
 import cvxcompress_tpu_torch as cvt
 from cvxcompress_tpu.ops import codec as jcodec
+from cvxcompress_tpu.ops import fused_inverse as jfi
 from cvxcompress_tpu.ops import tokenize_pallas as tp
 from cvxcompress_tpu.ops import wavelet as jwav
 from cvxcompress_tpu.oracle import codec as ocodec
 from cvxcompress_tpu.oracle import wavelet as owav
 from cvxcompress_tpu_torch import container as ctn
-from cvxcompress_tpu_torch.ops import blocks, codec, geometry, rle_host, tokenize, wavelet
+from cvxcompress_tpu_torch.ops import (
+    blocks, codec, fused_inverse, geometry, quant, rle_host, tokenize, wavelet,
+)
 
 from conftest import make_sinusoid_volume, rel_error_and_snr
 
@@ -30,12 +37,14 @@ TRANSFORM_TOL = 1e-5
 F32 = np.float32
 SIZES = (1, 8, 16, 32, 64, 128, 256)
 
-# each geometry of the route at a volume with partial edge blocks
+# geometries of the two routes at volumes with partial edge blocks (64^3 at
+# an x extent of 300: the JAX fused gate's 3 MiB block row is exceeded)
 GEOMS = {
     "16c": ((16, 16, 16), (20, 36, 52)),
-    "64c": ((64, 64, 64), (70, 64, 100)),
+    "64c": ((64, 64, 64), (70, 64, 300)),
     "16x16x1": ((16, 16, 1), (6, 36, 52)),
 }
+ROUTES = {"16c": "stripe_fused", "64c": "stripe", "16x16x1": "stripe_fused"}
 
 
 def rel_rms(got, ref):
@@ -45,20 +54,22 @@ def rel_rms(got, ref):
 
 
 def test_gates_match_jax():
-    """The port's copy of the stripe gate agrees with the JAX package's on
-    every valid block, and each valid block takes exactly one route."""
-    shape = (40, 50, 70)
-    for bx, by, bz in itertools.product(SIZES[1:], SIZES[1:], SIZES):
-        block = (bx, by, bz)
-        assert ctn.is_valid_block_size(*block)
-        assert geometry.stripe_path_ok(shape, block) == tp.stripe_path_ok(shape, block)
-        r = codec.route(shape, block)
-        if block == (32, 32, 32):
-            assert r == "fused32"
-        else:
-            assert r == ("stripe" if tp.stripe_path_ok(shape, block) else "chunks")
-    for name in GEOMS.values():
-        assert codec.route(name[1], name[0]) == "stripe"
+    """The port's copy of the fused stripe gate agrees with the JAX
+    package's on every valid block at narrow and wide volumes, and each
+    valid block takes exactly one route."""
+    for shape in ((40, 50, 70), (40, 50, 300), (20, 30, 2000)):
+        for bx, by, bz in itertools.product(SIZES[1:], SIZES[1:], SIZES):
+            block = (bx, by, bz)
+            assert ctn.is_valid_block_size(*block)
+            fused = tp.stripe_fused_ok(shape, block)
+            assert geometry.stripe_fused_ok(shape, block) == fused
+            r = codec.route(shape, block)
+            if block == (32, 32, 32):
+                assert r == "fused32"
+            else:
+                assert r == ("stripe_fused" if fused else "stripe")
+    for name, (block, shape) in GEOMS.items():
+        assert codec.route(shape, block) == ROUTES[name]
 
 
 def test_stripe_map_matches_rowmap():
@@ -141,7 +152,78 @@ def test_tokenize_stripe_matches_jax_k13(case):
         assert raw.tolist() == [False, True]
 
 
-# -- level 2: the volume-order transform ---------------------------------------
+# the fused stripe route's level-1 and level-2 cases: block, volume, local RMS
+FUSED_CASES = {
+    "16c": ((16, 16, 16), (20, 36, 52), False),
+    "16x16x1_local": ((16, 16, 1), (6, 36, 52), True),
+    "8x16x8": ((8, 16, 8), (20, 36, 52), False),
+}
+
+
+def jax_block_major(plane, shape, block):
+    """A JAX volume-order (nzp*nyp, W) plane (x-padded to 128 lanes) as
+    block-major (nnn, cells), through `stripe_rowmap`."""
+    bx, by, bz = block
+    nnn = int(np.prod(blocks.grid_shape(shape, block)))
+    rows = np.asarray(jcodec.stripe_rowmap(shape, block)(
+        np.arange(nnn * bx * by * bz // 128)))
+    return np.asarray(plane).reshape(-1, bx)[rows.reshape(-1)].reshape(nnn, -1)
+
+
+@pytest.mark.parametrize("case", list(FUSED_CASES))
+def test_stripe_fused_encode_matches_jax_k1(case):
+    """Level 1: `stripe_fused_encode` against JAX K1 (`stripe_fused_encode`,
+    interpret mode; K9 under the local RMS) on the same volume: the
+    coefficients within 1e-5 of K1's fv over its mulfacs, the table within
+    rtol 1e-5 (the port sums in f64, `quant.run_rms`), and the port's
+    tokenize of K1's own fv giving its descriptors, chunk bytes, sizes and
+    raw flags bit for bit."""
+    block, shape, local = FUSED_CASES[case]
+    assert codec.route(shape, block) == "stripe_fused"
+    vol = make_sinusoid_volume(*shape, periods=3)
+    vol += np.random.default_rng(11).standard_normal(shape).astype(F32) * 1e-2
+    vol[0, 0, :4] = [50.0, -50.0, 1e4, -1e4]
+    mulfac = quant.global_mulfac(vol, 1e-2)
+    args = dict(scale=1e-2) if local else dict(mulfac=mulfac)
+    c, _, _, _, _, mf = tokenize.stripe_fused_encode(torch.from_numpy(vol), block,
+                                                     **args)
+    jfv, jd, _, jcb, js, jr, _, jmf = tp.stripe_fused_encode(
+        jnp.asarray(vol), jnp.float32(1e-2 if local else mulfac), shape, block,
+        use_local=local, interpret=True)
+    jm = np.asarray(jmf) if local else np.full(mf.shape, mulfac, F32)
+    np.testing.assert_allclose(mf.numpy(), jm, rtol=1e-5)
+    fv = jax_block_major(jfv, shape, block)
+    assert rel_rms(c.numpy() * jm[:, None], fv) < TRANSFORM_TOL
+    desc, cb, sizes, raw = tokenize.tokenize_blocks_plain(
+        torch.from_numpy(fv), torch.ones(fv.shape[0]))
+    np.testing.assert_array_equal(desc.numpy(), jax_block_major(jd, shape, block))
+    np.testing.assert_array_equal(cb.numpy(), np.asarray(jcb))
+    np.testing.assert_array_equal(sizes.numpy(), np.asarray(js))
+    np.testing.assert_array_equal(raw.numpy(), np.asarray(jr))
+
+
+# -- level 2: the volume-order transform, the fused stripe inverse --------------
+
+
+@pytest.mark.parametrize("case", ["16c", "8x16x8"])
+def test_stripe_fused_inverse_matches_jax_k5(case):
+    """Level 2: `stripe_fused_inverse` (plain version) within 1e-5 of JAX K5
+    (`stripe_fused_inverse`, interpret mode) on the same coefficients, the
+    partial edge blocks clipped."""
+    block, shape, _ = FUSED_CASES[case]
+    bx, by, bz = block
+    nbz, nby, nbx = blocks.grid_shape(shape, block)
+    c = np.random.default_rng(5).standard_normal((nbz * nby * nbx, bx * by * bz))
+    c = c.astype(F32)
+    got = fused_inverse.stripe_fused_inverse(torch.from_numpy(c), shape, block)
+    nzp, nyp, nxp = geometry.plane_shape(shape, block)
+    plane = np.zeros((nzp, nyp, jwav.padded_nbx(nbx, bx) * bx), F32)
+    plane[:, :, :nxp] = blocks.from_blocks(torch.from_numpy(c).view(-1, bz, by, bx),
+                                           (nzp, nyp, nxp), block).numpy()
+    jv = jfi.stripe_fused_inverse(jnp.asarray(plane.reshape(nzp * nyp, -1)), shape,
+                                  block, interpret=True)
+    assert got.shape == tuple(shape)
+    assert rel_rms(got.numpy(), np.asarray(jv)) < TRANSFORM_TOL
 
 
 @pytest.mark.parametrize("block", [(16, 16, 16), (64, 64, 64), (16, 16, 1), (32, 8, 64)],
@@ -250,10 +332,11 @@ def test_local_table_matches_jax_and_native(containers, name):
                          ids=lambda b: "x".join(map(str, b)))
 def test_raw_fallback_and_nan_block(block):
     """x1000 noise beside a quiet region at 1e-8: the noisy blocks fall back
-    to raw, their unscaled coefficients gathered from the volume-order
-    plane.  Under the local RMS a NaN makes its block's coefficients NaN:
-    that block alone is raw.  Both engines agree bit for bit and native
-    decodes each container."""
+    to raw, their unscaled coefficients stored (the fused stripe route's
+    block-major ones; the stripe route's, gathered from the volume-order
+    plane, in tests/test_torch_generic.py).  Under the local RMS a NaN makes
+    its block's coefficients NaN: that block alone is raw.  Both engines
+    agree bit for bit and native decodes each container."""
     rng = np.random.default_rng(82)
     shape = (16, 64, 256)
     vol = (rng.standard_normal(shape) * 1000).astype(F32)
@@ -261,7 +344,7 @@ def test_raw_fallback_and_nan_block(block):
     nan_vol = vol.copy()
     nan_vol[-1, -1, -1] = np.nan
     nbz, nby, nbx = blocks.grid_shape(shape, block)
-    assert codec.route(shape, block) == "stripe"
+    assert codec.route(shape, block) == "stripe_fused"
     for v, scale, local in ((vol, 1e-8, False), (nan_vol, 1e-2, True)):
         data, _ = cvt.compress(v, scale, block=block, use_local_rms=local,
                                device="cpu")
