@@ -28,6 +28,18 @@ Builds the CUDA kernels (csrc/, nvcc for sm_90a) and the native host library
   the step, err within 2 % and SNR within 0.2 dB of the reference where no
   coefficient steps (else within what the steps can move them),
   containers decoding both ways;
+- the JAX package's opt-in encode routes (phases 2e and 3f): under
+  CVX_FUSED_W=1 at B (`block_fwd_xz` + `block_encode_y`, the 128^3 encode
+  split at x,z | y, held bit-equal to `block_encode`'s z | x,y and timed
+  beside it), CVX_FUSED_W=0 at B (`tokenize_stripe`, K15's home),
+  CVX_STRIPE=patch at A with 32^3 and 64^3 blocks (`patch_extract` and
+  `block_emit_rows`) and CVX_FUSED_COMPACT=1 at A, A-local and B
+  (`tokenize_compact` and `block_emit_rows`), each kernel against its plain
+  version and the rows emit against the in-place one; each switch through
+  the public API: its kernels launch, the container byte-equal to the
+  default route's where the coefficients are, else the ratio within 1 % of
+  native's and the CI bars; and an 8^3 compress under the caller's
+  set_float32_matmul_precision("high") equal to one under "highest";
 
 it compares every kernel of the path with its plain PyTorch version at the
 path's shapes (also on an N(0,1) noise volume of the same shape, the
@@ -340,10 +352,12 @@ def main():
     print(f"  native library: {rle_host.SO_PATH} {rle_host.build_info or '(prebuilt)'}")
     print(f"  build phase {time.perf_counter() - t:.1f} s (native library included)")
     # the transforms of the other geometries are torch einsums: at TF32 they
-    # would keep ~3 digits and break the 1e-5 transform contract
+    # would keep ~3 digits and break the 1e-5 transform contract, so they set
+    # full f32 themselves (phase 3f holds them under the caller's TF32)
     check(not torch.backends.cuda.matmul.allow_tf32
           and torch.get_float32_matmul_precision() == "highest",
-          "f32 matmuls run in full f32 (allow_tf32 False, precision 'highest')")
+          "the port's import left PyTorch's f32 matmul defaults (allow_tf32 False, "
+          "precision 'highest')")
 
     # -- phase 2: each kernel against its plain version, CI shape ---------
     print(f"  at {time.perf_counter() - t_start:.1f} s", flush=True)
@@ -929,6 +943,274 @@ def main():
             label: {f: r[k][f] for f in ("ms", "plain_ms", "bound_ms")}
             for label, r in generic.items() if k in r}
 
+    # -- phase 2e: the opt-in encode routes' kernels against their plain
+    # versions (the JAX package's CVX_FUSED_W=1, CVX_STRIPE=patch and
+    # CVX_FUSED_COMPACT=1 routes, ops/geometry.py)
+    print(f"  at {time.perf_counter() - t_start:.1f} s", flush=True)
+    print("phase 2e: block_fwd_xz, block_encode_y, patch_extract, tokenize_compact and "
+          "block_emit_rows vs plain versions at", SHAPE, "and", SHAPE_B, flush=True)
+    t_phase = time.perf_counter()
+    optin = {}
+
+    def native_stream(coeffs, mf, stream, label):
+        """The stream against native cvx_encode_payloads on block-major
+        coefficients and their table."""
+        streams, _, nraw = rle_host.encode_payloads(coeffs.cpu().numpy(),
+                                                    mf.cpu().numpy())
+        parts = [st for st, r in zip(streams, nraw) if not r]
+        nat = np.concatenate(parts) if parts else np.zeros(0, np.uint8)
+        check(np.array_equal(nat, stream.cpu().numpy()), f"{label}: stream bit-equal to "
+              "native cvx_encode_payloads on the kernels' coefficients and table")
+
+    def rows_emit(label, rows, drows, ids, mk, cbk, cbase, total, in_place, iters):
+        """The rows emit against its plain version and the in-place emit's
+        stream; returns its report."""
+        stk = pack.emit_rows(rows, drows, ids, mk, cbk, cbase, total)
+        stp = pack.emit_rows_plain(rows, drows, ids, mk, cbk, cbase, total)
+        check(torch.equal(stk, stp) and torch.equal(stk, in_place),
+              f"{label}: block_emit_rows stream ({total} B, {ids.numel()} rows) "
+              "bit-equal to the plain version and to the in-place block_emit's")
+        groups = int(((drows.view(-1, 8) & 7).sum(1) > 0).sum())
+        return stk, dict(
+            max_abs_err=0.0,
+            ms=cuda_ms(lambda: pack.emit_rows(rows, drows, ids, mk, cbk, cbase, total),
+                       iters),
+            plain_ms=cuda_ms(lambda: pack.emit_rows_plain(rows, drows, ids, mk, cbk,
+                                                          cbase, total), 1),
+            # per row its descriptors, id, count and base, the coefficients
+            # of its groups with a token; the table; the stream out
+            **bound(ids.numel() * (512 + 16) + 32 * groups + 4 * mk.numel() + total, 0))
+
+    def fused_w_kernels(label, v, scale, iters):
+        """K16a + K16b at B against their plain versions and against
+        block_encode (z | x,y) on the same volume; the two splits timed in
+        turns (z|xy, xz|y, xz|y, z|xy)."""
+        vtb = torch.from_numpy(v).to(dev)
+        mf = quant.global_mulfac(v, scale)
+        plane = fused_compress.fwd_xz(vtb)
+        pp_ = fused_compress.fwd_xz_plain(vtb)
+        torch.cuda.synchronize()
+        e = rel_rms(plane, pp_)
+        check(e < TRANSFORM_TOL, f"{label}: block_fwd_xz rel RMS {e:.3e} < 1e-5")
+        err_xz = float((plane - pp_).abs().max())
+        del pp_
+        ck, dk, cbk, sk, rk, mk = fused_compress.encode_y(plane, mf)
+        cp = fused_compress.encode_y_plain(plane, mf)[0]
+        torch.cuda.synchronize()
+        e = rel_rms(ck, cp)
+        check(e < TRANSFORM_TOL, f"{label}: block_encode_y coefficients rel RMS {e:.3e} "
+              "< 1e-5")
+        err_y = float((ck - cp).abs().max())
+        del cp
+        plain = tokenize.tokenize_blocks_plain(ck, mf)
+        check(all(torch.equal(a, b) for a, b in zip((dk, cbk, sk, rk), plain)),
+              f"{label}: block_encode_y desc, chunk_bytes, sizes and raw bit-equal to "
+              "the plain tokenize of its coefficients")
+        del plain
+        ref = fused_compress.block_encode(vtb, mf)
+        ndiff = int((ck.view(torch.int32) != ref[0].view(torch.int32)).sum())
+        ddiff = int((dk != ref[1]).sum())
+        same_all = all(torch.equal(a, b) for a, b in zip((cbk, sk, rk, mk), ref[2:]))
+        print(f"  {label}: x,z | y against z | x,y (block_encode): {ndiff} coefficients "
+              f"and {ddiff} descriptors differ of {ck.numel()}")
+        check(ndiff == 0 and ddiff == 0 and same_all, f"{label}: block_fwd_xz + "
+              "block_encode_y coefficients, descriptors, counts, sizes, raw flags and "
+              "table bit-equal to block_encode's (z | x,y)")
+        del ref
+        ncell, nnn = ck.numel(), mk.numel()
+        split_ms = [cuda_ms(lambda: fused_compress.block_encode(vtb, mf), iters),
+                    cuda_ms(lambda: fused_compress.block_encode_w(vtb, mf), iters),
+                    cuda_ms(lambda: fused_compress.block_encode_w(vtb, mf), iters),
+                    cuda_ms(lambda: fused_compress.block_encode(vtb, mf), iters)]
+        print(f"  {label}: whole encode in turns z|xy {split_ms[0]:.4f}, xz|y "
+              f"{split_ms[1]:.4f}, xz|y {split_ms[2]:.4f}, z|xy {split_ms[3]:.4f} ms "
+              f"on {card}")
+        out = {
+            "block_fwd_xz": dict(
+                max_abs_err=err_xz, ms=cuda_ms(lambda: fused_compress.fwd_xz(vtb), iters),
+                plain_ms=cuda_ms(lambda: fused_compress.fwd_xz_plain(vtb), 1),
+                # volume in, plane out; two cascades per cell
+                **bound(8 * ncell, 2 * C128 * ncell)),
+            "block_encode_y": dict(
+                max_abs_err=err_y,
+                ms=cuda_ms(lambda: fused_compress.encode_y(plane, mf), iters),
+                plain_ms=cuda_ms(lambda: fused_compress.encode_y_plain(plane, mf), 1),
+                # plane in; coefficients, descriptors, chunk counts, sizes
+                # and table out; one cascade and the scale per cell
+                **bound(12 * ncell + 4 * cbk.numel() + 8 * nnn, (C128 + 1) * ncell)),
+        }
+        if label == "config B":
+            cb64 = cbk.to(torch.int64)
+            total = int(cb64.sum())
+            stk = pack.emit_chunks(ck, mk, dk, cbk, torch.cumsum(cb64, 0) - cb64, total)
+            native_stream(ck, mk, stk, label)
+            out["split_ms"] = split_ms
+        del plane, ck, dk, cbk, vtb
+        torch.cuda.empty_cache()
+        return out
+
+    rep = fused_w_kernels("config B", vol_b, SCALE, 10)
+    optin["split_ms"] = rep.pop("split_ms")
+    noise_b = np.random.default_rng(0).standard_normal(SHAPE_B, dtype=np.float32)
+    nrep = fused_w_kernels("config B noise", noise_b, NOISE_SCALE, 3)
+    del noise_b
+    for k, r in rep.items():
+        r.update(noise_ms=nrep[k]["ms"], noise_plain_ms=nrep[k]["plain_ms"])
+    optin.update(rep)
+
+    def patch_kernels(label, v, block, iters):
+        """patch_extract and the rows emit on the stripe route's encode of
+        `v` at `block` (the route CVX_STRIPE=patch takes)."""
+        vt = torch.from_numpy(v).to(dev)
+        c, dk, cbk, sk, rk, mk = tokenize.encode(vt, block, quant.global_mulfac(v, SCALE))
+        del vt
+        n = int((cbk > 0).sum())
+        rows, drows, ids = pack.patch_extract(c, dk, cbk, block, n)
+        plain = pack.patch_extract_plain(c, dk, cbk, block, n)
+        check(all(torch.equal(a, b) for a, b in zip((rows, drows, ids), plain)),
+              f"{label}: patch_extract rows, descriptors and ids ({n} live of "
+              f"{cbk.numel()} chunks) bit-equal to the plain version")
+        del plain
+        cb64 = cbk.to(torch.int64)
+        cbase = torch.cumsum(cb64, 0) - cb64
+        total = int(cb64.sum())
+        in_place = pack.emit_chunks(c, mk, dk, cbk, cbase, total, block)
+        stk, erep = rows_emit(label, rows, drows, ids, mk, cbk, cbase, total, in_place,
+                              iters)
+        native_stream(blocks.to_blocks(c, block).view(mk.numel(), -1), mk, stk, label)
+        in_place_ms = cuda_ms(lambda: pack.emit_chunks(c, mk, dk, cbk, cbase, total,
+                                                       block), iters)
+        out = {
+            "patch_extract": dict(
+                max_abs_err=0.0,
+                ms=cuda_ms(lambda: pack.patch_extract(c, dk, cbk, block, n), iters),
+                plain_ms=cuda_ms(lambda: pack.patch_extract_plain(c, dk, cbk, block, n),
+                                 1),
+                # every chunk's count and position; per live chunk 1 KiB in,
+                # 1 KiB and its id out
+                **bound(8 * cbk.numel() + n * (2048 + 4), 0)),
+            "block_emit_rows": erep,
+        }
+        print(f"  {label}: block_emit in place {in_place_ms:.4f} ms, rows mode "
+              f"{erep['ms']:.4f} ms (+ patch_extract {out['patch_extract']['ms']:.4f}) "
+              f"on {card}")
+        out["block_emit_rows"]["in_place_ms"] = in_place_ms
+        del c, dk, cbk, rows, drows, ids, stk, in_place
+        torch.cuda.empty_cache()
+        return out
+
+    def compact_kernels(label, v, block, local, iters):
+        """tokenize_compact and the rows emit on the compact route's encode
+        of `v` at `block`."""
+        vt = torch.from_numpy(v).to(dev)
+        args = dict(scale=SCALE) if local else dict(mulfac=quant.global_mulfac(v, SCALE))
+        (coeffs, mk, cbk, sk, rk, rows, drows, ids, rbytes,
+         nrows) = tokenize.compact_encode(vt, block, **args)
+        del vt
+        plain = tokenize.tokenize_compact_plain(coeffs, mk)
+        n = int(nrows[0])
+        same_rows = all(torch.equal(a[:n], b)
+                        for a, b in zip((rows, drows, ids, rbytes), plain[3:7]))
+        check(n == plain[3].shape[0] and same_rows and all(
+            torch.equal(a, b) for a, b in zip((cbk, sk, rk), plain[:3])),
+              f"{label}: tokenize_compact chunk counts, sizes, raw flags "
+              f"({int(rk.sum())} raw) and {n} live rows (coefficients, descriptors, ids, "
+              "counts, in chunk order) bit-equal to the plain version")
+        del plain
+        cb64 = cbk.to(torch.int64)
+        cbase = torch.cumsum(cb64, 0) - cb64
+        total = int(cb64.sum())
+        desc = tokenize.tokenize_blocks_plain(coeffs, mk)[0]
+        in_place = pack.emit_chunks(coeffs, mk, desc, cbk, cbase, total)
+        in_place_ms = cuda_ms(lambda: pack.emit_chunks(coeffs, mk, desc, cbk, cbase,
+                                                       total), iters)
+        del desc
+        stk, erep = rows_emit(label, rows[:n], drows[:n], ids[:n], mk, cbk, cbase, total,
+                              in_place, iters)
+        native_stream(coeffs, mk, stk, label)
+        ncell, nchunks, nnn = coeffs.numel(), cbk.numel(), mk.numel()
+        out = {
+            "tokenize_compact": dict(
+                max_abs_err=0.0,
+                ms=cuda_ms(lambda: tokenize.tokenize_compact(coeffs, mk), iters),
+                plain_ms=cuda_ms(lambda: tokenize.tokenize_compact_plain(coeffs, mk), 1),
+                # coefficients and table in; chunk counts, sizes, the live
+                # rows (1 KiB, id and count each) out
+                **bound(4 * ncell + 4 * nnn + 4 * nchunks + 4 * nnn + n * (1024 + 8), 0)),
+            "block_emit_rows": erep,
+        }
+        erep["in_place_ms"] = in_place_ms
+        print(f"  {label}: block_emit in place {in_place_ms:.4f} ms, rows mode "
+              f"{erep['ms']:.4f} ms on {card}")
+        del coeffs, rows, drows, ids, stk, in_place
+        torch.cuda.empty_cache()
+        return out
+
+    prep = {}
+    for label, v, block in (("A 32^3", vol, (32, 32, 32)), ("A 64^3", vol, (64, 64, 64)),
+                            ("A 32^3 ramp", ramp(vol, 32), (32, 32, 32))):
+        prep[label] = patch_kernels(f"patch {label}", v, block, 5)
+    crep = {}
+    for label, v, block, local in (("A", vol, (32, 32, 32), False),
+                                   ("A-local", vol, (32, 32, 32), True),
+                                   ("B", vol_b, BLOCK_B, False)):
+        crep[label] = compact_kernels(f"compact {label}", v, block, local, 5)
+    optin["patch_extract"] = dict(prep["A 32^3"]["patch_extract"])
+    optin["block_emit_rows"] = dict(prep["A 32^3"]["block_emit_rows"])
+    optin["tokenize_compact"] = dict(crep["A"]["tokenize_compact"])
+    for k, reps in (("patch_extract", prep), ("tokenize_compact", crep)):
+        optin[k]["inputs"] = {lb: {f: r[k][f] for f in ("ms", "plain_ms", "bound_ms")}
+                              for lb, r in reps.items()}
+    optin["block_emit_rows"]["inputs"] = {
+        f"{route} {lb}": {f: r["block_emit_rows"][f]
+                         for f in ("ms", "in_place_ms", "plain_ms", "bound_ms")}
+        for route, reps in (("patch", prep), ("compact", crep)) for lb, r in reps.items()}
+
+    # K15's home: tokenize_stripe at B, the route CVX_FUSED_W=0 takes
+    vtb = torch.from_numpy(vol_b).to(dev)
+    c, dk, cbk, sk, rk, mk = tokenize.encode(vtb, BLOCK_B,
+                                             quant.global_mulfac(vol_b, SCALE))
+    del vtb
+    check(all(torch.equal(a, b) for a, b in zip(
+        (dk, cbk, sk, rk), tokenize.tokenize_stripe_plain(c, mk, BLOCK_B))),
+          "B under CVX_FUSED_W=0 (K15's home): tokenize_stripe descriptors, chunk bytes, "
+          "sizes and raw flags bit-equal to the plain version")
+    report["tokenize_stripe"]["inputs"]["B (K15)"] = dict(
+        ms=cuda_ms(lambda: tokenize.tokenize_stripe(c, mk, BLOCK_B), 10),
+        plain_ms=cuda_ms(lambda: tokenize.tokenize_stripe_plain(c, mk, BLOCK_B), 1),
+        **bound(8 * c.numel() + 4 * cbk.numel() + 9 * mk.numel(), 0))
+    print(f"  B (K15): tokenize_stripe kernel "
+          f"{report['tokenize_stripe']['inputs']['B (K15)']['ms']:.4f} ms on {card}")
+    del c, dk, cbk, sk, rk, mk
+    torch.cuda.empty_cache()
+    for k, r in optin.items():
+        if k != "split_ms":
+            print(f"  {k} kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.3f} ms, bound "
+                  f"{r['bound_ms']:.4f} ms ({r['bound_by']}) on {card}")
+    split_ms = optin.pop("split_ms")
+    report.update(optin)
+    print(f"  phase 2e {time.perf_counter() - t_phase:.1f} s", flush=True)
+
+    # The native codec is serial here (no OpenMP runtime), so its
+    # references run in worker threads (ctypes releases the GIL), none of
+    # them while a timed path runs; each (input, block, mode) once a run.
+    pool = ThreadPoolExecutor(max_workers=6)
+    natives = {}
+
+    def native_ref(v, prefix, block, local):
+        """A future of native's container of `v` (the input named `prefix`)
+        at `block`, its ratio, its decode, err and SNR; one per key a run."""
+        key = (prefix, tuple(block), local)
+
+        def run():
+            dn, rn = rle_host.host_compress(v, SCALE, block=block, use_local_rms=local)
+            on = rle_host.host_decompress(dn)
+            return dn, rn, on, *err_snr(v, on)
+
+        if key not in natives:
+            natives[key] = pool.submit(run)
+        return natives[key]
+
     # -- phase 3: the main path through the public API, config A ---------
     print(f"  at {time.perf_counter() - t_start:.1f} s", flush=True)
     print("phase 3: main path A, compress -> decompress (default device, engine "
@@ -955,9 +1237,9 @@ def main():
     e = rel_rms(torch.from_numpy(nat), torch.from_numpy(out_h))
     check(e < TRANSFORM_TOL, f"port container decodes under native "
           f"cvx_decompress_outofplace within rel RMS {e:.3e}")
-    dn, rn = rle_host.host_compress(vol, SCALE)
+    dn, rn, on, *_ = native_ref(vol, "A", (32, 32, 32), False).result()
     outn = cvt.decompress(dn, engine="device").cpu()
-    e = rel_rms(outn, torch.from_numpy(rle_host.host_decompress(dn)))
+    e = rel_rms(outn, torch.from_numpy(on))
     check(e < TRANSFORM_TOL, f"native cvx_compress container (ratio {rn:.1f}) "
           f"decodes on the device engine within rel RMS {e:.3e} of native")
     del out, out_host, outn
@@ -1039,7 +1321,7 @@ def main():
     check("cvx.block_fused_inverse" in res_b["spans_ms"], "config B: inverse span ran")
 
     # -- phases 3c and 3d: the local-RMS paths through the public API ------
-    def local_path(tag, v, block, kernels, ref_ratio):
+    def local_path(tag, v, prefix, block, kernels, ref_ratio):
         """compress(use_local_rms=True) -> decompress on the default device,
         held against the native library's local codec run here."""
         print(f"  at {time.perf_counter() - t_start:.1f} s", flush=True)
@@ -1061,12 +1343,9 @@ def main():
         err_l, snr_l = err_snr(v, oh)
         check(err_l < 2e-4 and snr_l > 75.0, f"err {err_l:.4e} < 2e-4, SNR "
               f"{snr_l:.2f} dB > 75")
-        t = time.perf_counter()
-        dn, rn = rle_host.host_compress(v, SCALE, block=block, use_local_rms=True)
-        native_s = time.perf_counter() - t
+        dn, rn, on, *_ = native_ref(v, prefix, block, True).result()
         check(abs(r - rn) / rn < 0.01, f"ratio {r:.1f} within 1% of native "
-              f"cvx_compress_th(use_local_RMS=1) here, {rn:.1f} ({native_s:.2f} s on "
-              f"the host; {ref_ratio} on a CPU)")
+              f"cvx_compress_th(use_local_RMS=1) here, {rn:.1f} ({ref_ratio} on a CPU)")
         hdr, _, mf, _ = cvt.container.unpack(d)
         mfn = cvt.container.unpack(dn)[2]
         rt = float(np.max(np.abs(mf.astype(np.float64) / mfn - 1.0)))
@@ -1079,7 +1358,7 @@ def main():
         check(e < TRANSFORM_TOL, f"port container decodes under native "
               f"cvx_decompress_outofplace within rel RMS {e:.3e}")
         outn = cvt.decompress(dn, engine="device").cpu()
-        e = rel_rms(outn, torch.from_numpy(rle_host.host_decompress(dn)))
+        e = rel_rms(outn, torch.from_numpy(on))
         check(e < TRANSFORM_TOL, f"native local container (ratio {rn:.1f}) decodes "
               f"on the device engine within rel RMS {e:.3e} of native")
         del o, oh, outn
@@ -1089,25 +1368,14 @@ def main():
         return counts, dict(ratio=r, err=err_l, snr_db=snr_l, native_ratio=rn,
                             table_rtol=rt, **res)
 
-    counts_c, res_c = local_path("3c", vol, (32, 32, 32), KERNELS_C, 1104.6)
-    counts_d, res_d = local_path("3d", vol_b, BLOCK_B, KERNELS_D, 21266.9)
+    counts_c, res_c = local_path("3c", vol, "A", (32, 32, 32), KERNELS_C, 1104.6)
+    counts_d, res_d = local_path("3d", vol_b, "B", BLOCK_B, KERNELS_D, 21266.9)
 
     # -- phase 3e: every other geometry through the public API -------------
     print(f"  at {time.perf_counter() - t_start:.1f} s", flush=True)
     print("phase 3e: the other geometries, compress -> decompress (default device, "
           "engine auto = device), held against native run here and the JAX package's "
           "record, on", name, flush=True)
-
-    # The native codec is serial here (no OpenMP runtime), so its
-    # references run in worker threads (ctypes releases the GIL), none of
-    # them while a timed path runs.
-    pool = ThreadPoolExecutor(max_workers=6)
-
-    def native_ref(v, block, local):
-        """native's container of `v` at `block`, its decode, err and SNR."""
-        dn, rn = rle_host.host_compress(v, SCALE, block=block, use_local_rms=local)
-        on = rle_host.host_decompress(dn)
-        return dn, rn, on, *err_snr(v, on)
 
     def steps(v, block, local, dn):
         """The port's quantized coefficients against native's container dn
@@ -1249,9 +1517,11 @@ def main():
             (vol_s, CASES_S, "S", False)):
         cases = [(f"{'x'.join(map(str, b))} {'local' if lo else 'global'}", b, lo)
                  for b, lo in cases]
-        refs = {key: pool.submit(native_ref, v, b, lo) for key, b, lo in cases}
-        if timed:  # every reference made before the first timed path
-            for f in refs.values():
+        refs = {key: native_ref(v, prefix, b, lo) for key, b, lo in cases}
+        if timed:  # every reference made before the first timed path (B's
+            # for phase 3f too)
+            native_ref(vol_b, "B", BLOCK_B, False)
+            for f in (*refs.values(), *natives.values()):
                 f.result()
         print(f"  {prefix}: native references submitted, at "
               f"{time.perf_counter() - t_start:.1f} s", flush=True)
@@ -1260,8 +1530,117 @@ def main():
             counts_e[tag], res_e[tag] = generic_path(
                 tag, v, b, lo, timed, refs.pop(key), REF_S[key] if prefix == "S" else None)
             print(f"  {tag} done at {time.perf_counter() - t_start:.1f} s", flush=True)
-    pool.shutdown()
     del vol_s
+
+    # -- phase 3f: the JAX package's encode switches through the public API
+    print(f"  at {time.perf_counter() - t_start:.1f} s", flush=True)
+    print("phase 3f: the opt-in encode routes (CVX_FUSED_W, CVX_STRIPE=patch, "
+          "CVX_FUSED_COMPACT), compress -> decompress (default device, engine auto = "
+          "device) on", name, flush=True)
+    t_phase = time.perf_counter()
+    switches = ("CVX_FUSED_COMPACT", "CVX_STRIPE", "CVX_FUSED_W")
+    default_encode = ("fused_encode", "fused_encode_local", "emit_payload", "block_fwd_z",
+                      "block_encode_xy", "block_casc_local", "block_scale_tok",
+                      "stripe_fused_encode", "stripe_fused_encode_local", "block_emit")
+
+    def switch_path(tag, env, v, prefix, block, local, kernels, same_as=None,
+                    ref_ratio=None):
+        """compress -> decompress of `v` at `block` under the switch `env`:
+        the route's kernels launch and no default encode kernel; the
+        container equal to `same_as` (the default route's, where the
+        coefficients are the same) or else the ratio within 1 % of native's
+        on the same input (and of `ref_ratio`, the JAX record) and the CI
+        bars; both engines; interop with native."""
+        for k in switches:
+            os.environ.pop(k, None)
+        os.environ.update(env)
+        try:
+            _kernels.reset_counts()
+            d, r = cvt.compress(v, SCALE, block=block, use_local_rms=local)
+            o = cvt.decompress(d)
+            torch.cuda.synchronize()
+            counts = dict(_kernels.launches)
+            vdev = torch.from_numpy(v).to(dev)
+            ms, _ = wall_ms(lambda: (cvt.compress(vdev, SCALE, block=block,
+                                                  use_local_rms=local),
+                                     torch.cuda.synchronize()), 3)
+            del vdev
+        finally:
+            for k in env:
+                os.environ.pop(k)
+        print(f"  {tag}: launches {({k: n for k, n in counts.items() if n})}")
+        check(all(counts[k] > 0 for k in kernels + DECODE_KERNELS)
+              and not any(counts[k] for k in default_encode if k not in kernels),
+              f"{tag}: {', '.join(kernels)} and the decode kernels launched, no other "
+              "encode kernel")
+        oh = o.cpu().numpy()
+        del o
+        check(oh.shape == v.shape and bool(np.isfinite(oh).all()),
+              f"{tag}: decompressed volume finite, shape {v.shape}")
+        err_s, snr_s = err_snr(v, oh)
+        dn, rn, on, err_n, snr_n = native_ref(v, prefix, block, local).result()
+        if same_as is not None:
+            check(np.array_equal(d, same_as), f"{tag}: container ({d.size} B) byte-equal "
+                  "to the default route's")
+        else:
+            check(err_s < 2e-4 and snr_s > 75.0, f"{tag}: err {err_s:.4e} < 2e-4, SNR "
+                  f"{snr_s:.2f} dB > 75")
+            check(abs(r - rn) / rn < 0.01 and (ref_ratio is None
+                                               or abs(r - ref_ratio) / ref_ratio < 0.01),
+                  f"{tag}: ratio {r:.1f} within 1 % of native's {rn:.1f}"
+                  + (f" and of {ref_ratio}" if ref_ratio else ""))
+        e1 = rel_rms(torch.from_numpy(oh), cvt.decompress(d, engine="host").cpu())
+        e2 = rel_rms(torch.from_numpy(rle_host.host_decompress(d)), torch.from_numpy(oh))
+        e3 = rel_rms(cvt.decompress(dn, engine="device").cpu(), torch.from_numpy(on))
+        check(max(e1, e2, e3) < TRANSFORM_TOL, f"{tag}: engine device within rel RMS "
+              f"{e1:.3e} of engine host; the container under native {e2:.3e}; native's "
+              f"on the device engine {e3:.3e}")
+        print(f"  {tag}: ratio {r:.1f}, err {err_s:.4e}, SNR {snr_s:.2f} dB; compress of "
+              f"the volume on the card, median of 3, {ms:.2f} ms on {card}")
+        torch.cuda.empty_cache()
+        return counts, dict(ratio=r, err=err_s, snr_db=snr_s, native_ratio=rn,
+                            compress_resident_ms=ms, **({} if same_as is None else
+                                                        {"container_equal": True}))
+
+    def default_container(v, block):
+        for k in switches:
+            os.environ.pop(k, None)
+        return cvt.compress(v, SCALE, block=block)[0]
+
+    counts_f, res_f = {}, {}
+    for tag, env, v, prefix, block, local, kernels, equal_to, ref in (
+            ("B CVX_FUSED_W=1", {"CVX_FUSED_W": "1"}, vol_b, "B", BLOCK_B, False,
+             ("block_fwd_xz", "block_encode_y", "block_emit"), data_b, None),
+            ("B CVX_FUSED_W=0", {"CVX_FUSED_W": "0"}, vol_b, "B", BLOCK_B, False,
+             ("tokenize_stripe", "block_emit"), None, REF_B["ratio"]),
+            ("A CVX_STRIPE=patch", {"CVX_STRIPE": "patch"}, vol, "A", (32, 32, 32), False,
+             ("tokenize_stripe", "patch_extract", "block_emit_rows"), None, REF_RATIO),
+            ("A-64^3 CVX_STRIPE=patch", {"CVX_STRIPE": "patch"}, vol, "A", (64, 64, 64),
+             False, ("tokenize_stripe", "patch_extract", "block_emit_rows"),
+             default_container(vol, (64, 64, 64)), None),
+            ("A CVX_FUSED_COMPACT=1", {"CVX_FUSED_COMPACT": "1"}, vol, "A", (32, 32, 32),
+             False, ("tokenize_compact", "block_emit_rows"), None, REF_RATIO),
+            ("A-local CVX_FUSED_COMPACT=1", {"CVX_FUSED_COMPACT": "1"}, vol, "A",
+             (32, 32, 32), True, ("tokenize_compact", "block_emit_rows"), None, None),
+            ("B CVX_FUSED_COMPACT=1", {"CVX_FUSED_COMPACT": "1"}, vol_b, "B", BLOCK_B,
+             False, ("tokenize_compact", "block_emit_rows"), None, REF_B["ratio"])):
+        counts_f[tag], res_f[tag] = switch_path(tag, env, v, prefix, block, local,
+                                                kernels, equal_to, ref)
+    pool.shutdown()
+
+    # the caller's TF32: the stripe route's einsums set full f32 themselves
+    d_hi = default_container(vol, (8, 8, 8))
+    torch.set_float32_matmul_precision("high")
+    try:
+        d_tf = cvt.compress(vol, SCALE, block=(8, 8, 8))[0]
+        kept = torch.get_float32_matmul_precision()
+    finally:
+        torch.set_float32_matmul_precision("highest")
+    check(kept == "high" and np.array_equal(d_tf, d_hi),
+          "A-8^3 under the caller's set_float32_matmul_precision('high'): container "
+          "equal to the one made under 'highest', the caller's setting kept")
+    res_f["tf32_container_equal"] = True
+    print(f"  phase 3f {time.perf_counter() - t_phase:.1f} s", flush=True)
 
     for k, r in report.items():
         print(f"  {k}: kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.3f} ms, bound "
@@ -1303,22 +1682,39 @@ def main():
         "tokenize_stripe": ("csrc/tokenize_stripe.cu",
                             "cvxcompress_tpu/ops/tokenize_pallas.py:744",
                             "cvxcompress_tpu/ops/tokenize_pallas.py:437, "
-                            "cvxcompress_tpu/ops/tokenize_pallas.py:391"),
+                            "cvxcompress_tpu/ops/tokenize_pallas.py:391, "
+                            "cvxcompress_tpu/ops/tokenize_pallas.py:1170"),
         "stripe_fused_encode": ("csrc/stripe_fused.cu",
                                 "cvxcompress_tpu/ops/tokenize_pallas.py:939", None),
         "stripe_fused_encode_local": ("csrc/stripe_fused.cu",
                                       "cvxcompress_tpu/ops/tokenize_pallas.py:907", None),
         "stripe_fused_inverse": ("csrc/stripe_fused.cu",
                                  "cvxcompress_tpu/ops/fused_inverse.py:128", None),
+        "block_fwd_xz": ("csrc/block_encode_w.cu",
+                         "cvxcompress_tpu/ops/fused_compress.py:71", None),
+        "block_encode_y": ("csrc/block_encode_w.cu",
+                           "cvxcompress_tpu/ops/fused_compress.py:144", None),
+        "patch_extract": ("csrc/patch_extract.cu",
+                          "cvxcompress_tpu/ops/pack_pallas.py:94", None),
+        "block_emit_rows": ("csrc/block_emit.cu",
+                            "cvxcompress_tpu/ops/pack_pallas.py:515", None),
+        "tokenize_compact": ("csrc/tokenize_compact.cu",
+                             "cvxcompress_tpu/ops/tokenize_pallas.py:1313", None),
     }
     kernels = []
     for k, r in report.items():
         src, rep, also = meta[k]
-        # launches on the path's own drive: the local paths for their
-        # kernels, config B for the other 128^3 kernels, A at 64^3 for the
-        # stripe tokenize, S at 16^3 for the fused stripe kernels, A for the
-        # rest
-        launches = (counts_e["A 64x64x64 global"][k] if k == "tokenize_stripe" else
+        # launches on the path's own drive: the switches' drives for their
+        # kernels (B under CVX_FUSED_W=1, A under CVX_STRIPE=patch and
+        # CVX_FUSED_COMPACT=1), the local paths for theirs, config B for the
+        # other 128^3 kernels, A at 64^3 for the stripe tokenize, S at 16^3
+        # for the fused stripe kernels, A for the rest
+        launches = (counts_f["B CVX_FUSED_W=1"][k]
+                    if k in ("block_fwd_xz", "block_encode_y")
+                    else counts_f["A CVX_STRIPE=patch"][k]
+                    if k in ("patch_extract", "block_emit_rows")
+                    else counts_f["A CVX_FUSED_COMPACT=1"][k] if k == "tokenize_compact"
+                    else counts_e["A 64x64x64 global"][k] if k == "tokenize_stripe" else
                     counts_e["S 16x16x16 local"][k] if k == "stripe_fused_encode_local"
                     else counts_e["S 16x16x16 global"][k] if k.startswith("stripe_fused")
                     else counts_c[k] if k == "fused_encode_local" else
@@ -1330,7 +1726,8 @@ def main():
                "launches": launches, "max_abs_err": r["max_abs_err"],
                "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                "bound_by": r["bound_by"], "library_ms": None}
-        for extra in ("noise_ms", "noise_plain_ms", "ramp_ms", "ramp_plain_ms", "inputs"):
+        for extra in ("noise_ms", "noise_plain_ms", "ramp_ms", "ramp_plain_ms", "inputs",
+                      "in_place_ms"):
             if extra in r:
                 row[extra] = r[extra]
         if also:
@@ -1343,7 +1740,9 @@ def main():
                       "config_b": dict(ratio=ratio_b, err=err_b, snr_db=snr_b,
                                        **res_b),
                       "config_a_local": res_c, "config_b_local": res_d,
-                      "other_geometries": res_e}))
+                      "other_geometries": res_e, "optin_routes": res_f,
+                      "encode_128_split_ms": dict(zip(
+                          ("z|xy", "xz|y", "xz|y again", "z|xy again"), split_ms))}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))
     return 0

@@ -24,6 +24,14 @@
 // STRIPE) the stripe route's volume-order plane, read through the stripe
 // map (stripe_map.cuh): a group of 8 cells is 8 consecutive, aligned floats
 // of one plane row either way.
+// Rows mode (template ROWS, cvx_block_emit_rows): the K7 role inside the
+// JAX package's pack_compacted (rle_device.py:969-1001) and the patch pack
+// (pack_active with K17).  The coefficients and descriptors come as gathered
+// (n, 128) rows, row r holding chunk ids[r] (patch_extract.cu,
+// tokenize_compact.cu); its tokens land at chunk_base[ids[r]] with the
+// mulfac of the chunk's block, ids[r] >> lcpb, and a row whose chunk counts
+// 0 bytes (a raw block's) writes nothing.  The stream equals the in-place
+// modes' byte for byte.
 // What bounds it on an H100: the chunk byte counts (4 B per chunk) and the
 // coefficients and descriptors of the live chunks only; at a high ratio the
 // launch itself.
@@ -35,23 +43,26 @@ namespace cvx {
 
 constexpr int EMIT_WARPS = 8;
 
-template <int LPC, bool STRIPE>
+// `n` counts the chunks, or in ROWS mode the rows.
+template <int LPC, bool STRIPE, bool ROWS>
 __global__ void __launch_bounds__(EMIT_WARPS * 32)
 block_emit_kernel(const float* __restrict__ coeffs,
                   const float* __restrict__ mulfacs,
                   const int32_t* __restrict__ desc,
                   const int32_t* __restrict__ chunk_bytes,
-                  const int64_t* __restrict__ chunk_base, int64_t nchunks,
-                  int lcpb, StripeMap map, uint8_t* __restrict__ out) {
+                  const int64_t* __restrict__ chunk_base,
+                  const int32_t* __restrict__ ids, int64_t n, int lcpb,
+                  StripeMap map, uint8_t* __restrict__ out) {
   constexpr int CW = 8 * LPC;  // cells per chunk
   const int lane = threadIdx.x & 31;
-  const int64_t chunk =
+  const int64_t r =
       ((int64_t)blockIdx.x * EMIT_WARPS + (threadIdx.x >> 5)) * (32 / LPC) +
-      lane / LPC;
-  const bool live = chunk < nchunks && chunk_bytes[chunk] != 0;
+      lane / LPC;  // the chunk, or the row
+  const int64_t chunk = !ROWS ? r : r < n ? ids[r] : 0;
+  const bool live = r < n && chunk_bytes[chunk] != 0;
   if (!__any_sync(0xffffffffu, live)) return;  // uniform over the warp
 
-  const int64_t cell = chunk * CW + (lane % LPC) * 8;
+  const int64_t cell = r * CW + (lane % LPC) * 8;
   int32_t d[8] = {0, 0, 0, 0, 0, 0, 0, 0};
   int mine = 0;
   if (live) {
@@ -71,24 +82,25 @@ block_emit_kernel(const float* __restrict__ coeffs,
   if (mine == 0) return;
   const int64_t blk = chunk >> lcpb;
   const int l = (int)(cell - (blk << (lcpb + (CW == 128 ? 7 : 6))));
-  const float* src =
-      coeffs + map_origin<STRIPE>(map, blk) + map_cell<STRIPE>(map, l);
+  const float* src = ROWS ? coeffs + cell
+                          : coeffs + map_origin<STRIPE>(map, blk) +
+                                map_cell<STRIPE>(map, l);
   const float4 a = *reinterpret_cast<const float4*>(src);
   const float4 b = *reinterpret_cast<const float4*>(src + 4);
   const float cv[8] = {a.x, a.y, a.z, a.w, b.x, b.y, b.z, b.w};
   emit_group(out + chunk_base[chunk] + (inc - mine), cv, d, mulfacs[blk]);
 }
 
-// One CTA of EMIT_WARPS warps per EMIT_WARPS * 32 / LPC chunks.
-template <int LPC, bool STRIPE>
+// One CTA of EMIT_WARPS warps per EMIT_WARPS * 32 / LPC chunks or rows.
+template <int LPC, bool STRIPE, bool ROWS = false>
 static int launch_emit(const float* coeffs, const float* mulfacs,
                        const int32_t* desc, const int32_t* chunk_bytes,
-                       const int64_t* chunk_base, int64_t nchunks, int lcpb,
-                       StripeMap map, uint8_t* out, cudaStream_t st) {
+                       const int64_t* chunk_base, const int32_t* ids, int64_t n,
+                       int lcpb, StripeMap map, uint8_t* out, cudaStream_t st) {
   const int64_t per_cta = EMIT_WARPS * (32 / LPC);
-  block_emit_kernel<LPC, STRIPE>
-      <<<(unsigned)((nchunks + per_cta - 1) / per_cta), EMIT_WARPS * 32, 0, st>>>(
-          coeffs, mulfacs, desc, chunk_bytes, chunk_base, nchunks, lcpb, map, out);
+  block_emit_kernel<LPC, STRIPE, ROWS>
+      <<<(unsigned)((n + per_cta - 1) / per_cta), EMIT_WARPS * 32, 0, st>>>(
+          coeffs, mulfacs, desc, chunk_bytes, chunk_base, ids, n, lcpb, map, out);
   return (int)cudaGetLastError();
 }
 
@@ -113,15 +125,35 @@ extern "C" int cvx_block_emit(const float* coeffs, const float* mulfacs,
     const StripeMap map = make_map(lbx, lby, lbz, nbx, nby, nxp, nyp);
     if (lchunk == 7)
       return launch_emit<16, true>(coeffs, mulfacs, desc, chunk_bytes,
-                                   chunk_base, nchunks, lcpb, map, out, st);
+                                   chunk_base, nullptr, nchunks, lcpb, map, out,
+                                   st);
     if (lchunk == 6)
       return launch_emit<8, true>(coeffs, mulfacs, desc, chunk_bytes,
-                                  chunk_base, nchunks, lcpb, map, out, st);
+                                  chunk_base, nullptr, nchunks, lcpb, map, out,
+                                  st);
   } else {
     const StripeMap map = make_map(lchunk + lcpb, 0, 0, 1, 1, 0, 0);
     if (lchunk == 7)
       return launch_emit<16, false>(coeffs, mulfacs, desc, chunk_bytes,
-                                    chunk_base, nchunks, lcpb, map, out, st);
+                                    chunk_base, nullptr, nchunks, lcpb, map,
+                                    out, st);
   }
   return (int)cudaErrorInvalidValue;
+}
+
+// Rows mode: `nrows` gathered 128-cell chunk rows (coefficients `rows`,
+// descriptors `drows`), row r holding chunk ids[r]; `lcpb` is log2 of the
+// chunks per block.
+extern "C" int cvx_block_emit_rows(const float* rows, const int32_t* drows,
+                                   const int32_t* ids, int64_t nrows,
+                                   const float* mulfacs,
+                                   const int32_t* chunk_bytes,
+                                   const int64_t* chunk_base, int lcpb,
+                                   uint8_t* out, void* stream) {
+  using namespace cvx;
+  if (nrows == 0) return 0;
+  return launch_emit<16, false, true>(rows, mulfacs, drows, chunk_bytes,
+                                      chunk_base, ids, nrows, lcpb,
+                                      make_map(7 + lcpb, 0, 0, 1, 1, 0, 0), out,
+                                      (cudaStream_t)stream);
 }

@@ -85,6 +85,23 @@ _SIGNATURES = {
         ctypes.c_int64, ctypes.c_int64, ctypes.c_int64, ctypes.c_int64, _VP, _VP,
         _VP, _VP, _VP,
     ],
+    "cvx_block_fwd_xz": [_VP, ctypes.c_int, ctypes.c_int, ctypes.c_int, _VP, _VP, _VP],
+    "cvx_block_encode_y": [
+        _VP, ctypes.c_int, ctypes.c_int, _VP, ctypes.c_float, ctypes.c_int64, _VP,
+        _VP, _VP, _VP, _VP, _VP, _VP,
+    ],
+    "cvx_patch_extract": [
+        _VP, _VP, _VP, _VP, ctypes.c_int64, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+        ctypes.c_int64, ctypes.c_int64, ctypes.c_int64, ctypes.c_int64, _VP, _VP, _VP,
+        _VP,
+    ],
+    "cvx_block_emit_rows": [
+        _VP, _VP, _VP, ctypes.c_int64, _VP, _VP, _VP, ctypes.c_int, _VP, _VP,
+    ],
+    "cvx_tokenize_compact": [
+        _VP, _VP, ctypes.c_int64, ctypes.c_int, _VP, _VP, _VP, _VP, _VP, _VP, _VP,
+        _VP, _VP,
+    ],
     "cvx_block_inv_xy": [
         _VP, _VP, ctypes.c_int, ctypes.c_int, ctypes.c_int, _VP, _VP,
     ],

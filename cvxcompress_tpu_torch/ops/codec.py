@@ -13,15 +13,23 @@ ops/geometry.py):
      `block_encode`; "stripe_fused", 16^3, (16, 16, 1), ...: one kernel,
      ops/tokenize.py `stripe_fused_encode`; "stripe", every other block:
      the transform as library products, then the kernel `tokenize_stripe`,
-     ops/tokenize.py `encode`);
-  3. one small read-back of the per-block sizes, raw flags and mulfacs;
+     ops/tokenize.py `encode`); the JAX package's encode switches select
+     three more routes (`encode_route`, ops/geometry.py): "block128_w"
+     (`CVX_FUSED_W=1`: ops/fused_compress.py `block_encode_w`), "patch"
+     (`CVX_STRIPE=patch`: the stripe route's encode) and "compact"
+     (`CVX_FUSED_COMPACT=1`: ops/tokenize.py `compact_encode`);
+  3. one small read-back of the per-block sizes, raw flags and mulfacs (on
+     the patch and compact routes with the number of live chunks);
   4. the exclusive cumsum of the non-raw blocks' sizes (32^3) or chunks'
      byte counts (the rest) gives every block's or chunk's base in the
      stream;
   5. the emit kernel writes a stream of exactly that many bytes, each
      block's tokens from its coefficients and its entry of the table
      (ops/pack.py `emit_payload`, `emit_chunks`; on the stripe route it
-     reads the volume-order coefficients through the stripe map);
+     reads the volume-order coefficients through the stripe map; on the
+     patch route `pack.patch_extract` first gathers the live chunks' rows,
+     and there and on the compact route `pack.emit_rows` writes the stream
+     from the rows);
   6. one device-to-host copy of the stream (plus the raw blocks'
      coefficients, when there are any);
   7. the host assembles the container (ops/rle_device.py, container.py),
@@ -50,12 +58,16 @@ stages.
 
 Everything runs on the CUDA card unless the caller asks for the CPU
 (`device="cpu"`, where the plain PyTorch versions of the kernels run); on
-a machine without a card the default raises.  Every block the reference
-accepts runs, with the global or the local RMS; any other raises
-ValueError.
+a machine without a card the default raises.  `compress` and `decompress`
+run inside `torch.cuda.device` of the volume's or the target's card, so
+every launch and allocation goes to that card and its current stream.
+Every block the reference accepts runs, with the global or the local RMS;
+any other raises ValueError.
 """
 
 from __future__ import annotations
+
+import contextlib
 
 import numpy as np
 import torch
@@ -85,6 +97,37 @@ def route(vol_shape, block):
     return "stripe"
 
 
+def encode_route(vol_shape, block, use_local_rms):
+    """The encode route under the JAX package's switches (ops/geometry.py,
+    `cvxcompress_tpu/ops/codec.py:621-627`, then `:341-421`): "compact"
+    (`CVX_FUSED_COMPACT=1` where `geometry.compact_ok`), "patch"
+    (`CVX_STRIPE=patch` where `geometry.patch_ok`), at aligned 128^3
+    "block128_w" (`CVX_FUSED_W=1`, global RMS) or "stripe" (`CVX_FUSED_W`
+    neither "1" nor "block", or "1" with the local RMS); else `route`."""
+    block = tuple(block)
+    if geometry.fused_compact_on() and geometry.compact_ok(vol_shape, block):
+        return "compact"
+    if geometry.stripe_mode() == "patch" and geometry.patch_ok(block):
+        return "patch"
+    path = route(vol_shape, block)
+    if path == "block128":
+        mode = geometry.fused_w_mode()
+        if mode == "1":
+            return "stripe" if use_local_rms else "block128_w"
+        if mode != "block":
+            return "stripe"
+    return path
+
+
+def device_guard(device):
+    """`torch.cuda.device(device)` for a CUDA device, a null context for the
+    CPU: kernels launch, and tensors are made, on that card."""
+    device = torch.device(device)
+    if device.type == "cuda":
+        return torch.cuda.device(device)
+    return contextlib.nullcontext()
+
+
 def _target(device):
     """The torch device to run on: "cuda" unless the caller names another;
     a CUDA device on a machine without a card raises."""
@@ -97,15 +140,11 @@ def _target(device):
 
 
 def _device_volume(vol, device):
-    """The volume as a contiguous f32 tensor on its device."""
+    """The volume as a contiguous f32 tensor: a tensor on its own device, a
+    numpy volume uploaded to `device`."""
     if isinstance(vol, torch.Tensor):
-        if device is not None and torch.device(device) != vol.device:
-            raise ValueError(
-                f"volume lies on {vol.device}, but device={device!r} was given"
-            )
         t = vol
     else:
-        device = _target(device)
         t = torch.from_numpy(np.ascontiguousarray(vol, dtype=np.float32))
         t = t.to(device)
     if t.dim() != 3:
@@ -123,14 +162,29 @@ def compress(vol, scale, block=BLOCK, use_local_rms=False, device=None):
     of two in [8, 256], bz one too or 1; ValueError otherwise).  With
     `use_local_rms` each block is quantized with 1/(rms*scale) of its own
     wavelet coefficients (the reference's Compress(..., use_local_RMS=true)),
-    and the container carries the per-block table.
+    and the container carries the per-block table.  The JAX package's
+    encode switches select the route (`encode_route`); every route gives a
+    container any decoder reads.
     """
     block = geometry.check_block(block)
+    if isinstance(vol, torch.Tensor):
+        if device is not None and torch.device(device) != vol.device:
+            raise ValueError(
+                f"volume lies on {vol.device}, but device={device!r} was given"
+            )
+        dev = vol.device
+    else:
+        dev = _target(device)
+    with device_guard(dev):
+        return _compress(vol, scale, block, use_local_rms, dev)
+
+
+def _compress(vol, scale, block, use_local_rms, device):
     cells = block[0] * block[1] * block[2]
     with record_function("cvx.volume_h2d"):
         t = _device_volume(vol, device)
     nz, ny, nx = t.shape
-    path = route(t.shape, block)
+    path = encode_route(t.shape, block, use_local_rms)
     if use_local_rms:
         # header mulfac 1.0; each block's comes from the scale
         mulfac, args = np.float32(1.0), dict(scale=scale)
@@ -140,6 +194,7 @@ def compress(vol, scale, block=BLOCK, use_local_rms=False, device=None):
                 t if isinstance(vol, torch.Tensor) else vol, scale
             )
         args = dict(mulfac=mulfac)
+    nlive = None  # the live chunks' count, on the rows routes
     if path == "fused32":
         with record_function("cvx.fused_encode"):
             coeffs, desc, sizes, raw, mulfacs = tokenize.fused_encode(t, **args)
@@ -147,18 +202,30 @@ def compress(vol, scale, block=BLOCK, use_local_rms=False, device=None):
         with record_function("cvx.block_encode"):
             coeffs, desc, chunk_bytes, sizes, raw, mulfacs = (
                 fused_compress.block_encode(t, **args))
+    elif path == "block128_w":
+        with record_function("cvx.block_encode_w"):
+            coeffs, desc, chunk_bytes, sizes, raw, mulfacs = (
+                fused_compress.block_encode_w(t, mulfac))
     elif path == "stripe_fused":
         with record_function("cvx.stripe_fused_encode"):
             coeffs, desc, chunk_bytes, sizes, raw, mulfacs = (
                 tokenize.stripe_fused_encode(t, block, **args))
+    elif path == "compact":
+        with record_function("cvx.compact_encode"):
+            (coeffs, mulfacs, chunk_bytes, sizes, raw, rows, drows, ids, _,
+             nlive) = tokenize.compact_encode(t, block, **args)
     else:
         with record_function("cvx.encode"):
             coeffs, desc, chunk_bytes, sizes, raw, mulfacs = tokenize.encode(
                 t, block, **args)
+        if path == "patch":
+            nlive = (chunk_bytes > 0).sum(dtype=torch.int32).view(1)
     with record_function("cvx.sizes_readback"):
-        sr = torch.stack([sizes, raw.to(torch.int32),
-                          mulfacs.view(torch.int32)]).cpu().numpy()
-    sizes_h, raw_h = sr[0].astype(np.int64), sr[1].astype(bool)
+        parts = [sizes, raw.to(torch.int32), mulfacs.view(torch.int32)]
+        sr = torch.cat(parts + ([] if nlive is None else [nlive])).cpu().numpy()
+    nnn = sizes.numel()
+    sizes_h, raw_h = sr[:nnn].astype(np.int64), sr[nnn:2 * nnn].astype(bool)
+    mulfacs_h = sr[2 * nnn:3 * nnn].view(np.float32)
     total = int(sizes_h[~raw_h].sum())
     if path == "fused32":
         with record_function("cvx.emit_payload"):
@@ -166,17 +233,28 @@ def compress(vol, scale, block=BLOCK, use_local_rms=False, device=None):
             base = torch.cumsum(nr_sizes, 0) - nr_sizes
             stream = pack.emit_payload(coeffs, mulfacs, desc, base, raw, total)
     else:
-        with record_function("cvx.emit_chunks"):
-            cb = chunk_bytes.to(torch.int64)
-            base = torch.cumsum(cb, 0) - cb
-            stream = pack.emit_chunks(coeffs, mulfacs, desc, chunk_bytes, base,
-                                      total, block if path == "stripe" else None)
+        cb = chunk_bytes.to(torch.int64)
+        base = torch.cumsum(cb, 0) - cb
+        if path in ("patch", "compact"):
+            n = int(sr[3 * nnn])
+            if path == "patch":
+                with record_function("cvx.patch_extract"):
+                    rows, drows, ids = pack.patch_extract(coeffs, desc, chunk_bytes,
+                                                          block, n)
+            with record_function("cvx.emit_rows"):
+                stream = pack.emit_rows(rows[:n], drows[:n], ids[:n], mulfacs,
+                                        chunk_bytes, base, total)
+        else:
+            with record_function("cvx.emit_chunks"):
+                stream = pack.emit_chunks(
+                    coeffs, mulfacs, desc, chunk_bytes, base, total,
+                    block if path == "stripe" else None)
     with record_function("cvx.stream_d2h"):
         stream_h = stream.cpu().numpy()
         raw_bytes_h = None
         if raw_h.any():
             # raw blocks store the UNSCALED coefficients (CvxCompress.cpp:359)
-            if path == "stripe":
+            if path in ("stripe", "patch"):
                 rc = geometry.gather_blocks(coeffs, np.flatnonzero(raw_h), t.shape,
                                             block)
             else:
@@ -188,7 +266,7 @@ def compress(vol, scale, block=BLOCK, use_local_rms=False, device=None):
         )
         hdr = ctn.Header(nx, ny, nz, *block, mulfac, use_local_rms)
         data = ctn.pack_stream(hdr, sizes_h, raw_h, payload,
-                               sr[2].view(np.float32) if use_local_rms else None)
+                               mulfacs_h if use_local_rms else None)
     return data, (nx * ny * nz * 4) / data.size
 
 
@@ -304,8 +382,13 @@ def decompress(data, device="cuda", engine="auto"):
     if engine not in ENGINES:
         raise ValueError(f"engine must be one of {ENGINES}, got {engine!r}")
     io.validate(data)
-    hdr, blkoffs, blkmulfac, payload_base = ctn.unpack(data)
     device = _target(device)
+    with device_guard(device):
+        return _decompress(data, device, engine)
+
+
+def _decompress(data, device, engine):
+    hdr, blkoffs, blkmulfac, payload_base = ctn.unpack(data)
     if engine == "device" or (engine == "auto" and device.type == "cuda"):
         out = decompress_device(data, device)
         if out is not None:

@@ -29,6 +29,15 @@ TPU counterpart: `cvxcompress_tpu/ops/fused_compress.py`
 `tokenize_block_fused` (:422): the global branch, kernel `_kernel_block`
 (:291); the local branch, `_kernel_block_casc_local` (:312) and
 `_kernel_scale_tok` (:395), or `_kernel_block_local1` (:361) in one kernel.
+
+`block_encode_w` (csrc/block_encode_w.cu; the encode under
+`CVX_FUSED_W=1`, ops/geometry.py) splits the same encode at x,z | y
+instead of z | x,y, as the JAX package's two-kernel path does: `fwd_xz`
+(kernel `block_fwd_xz`, K16a `forward_xz` :71: the z, then the x cascade,
+into a volume-order (nz, ny, nx) plane) and `encode_y` (`block_encode_y`,
+K16b `tokenize_fused_y` :144: the y cascade and the tokenize of every
+z-slice).  Same axis order, same products, so its coefficients and
+descriptors equal `block_encode`'s bit for bit; the same outputs.
 """
 
 from __future__ import annotations
@@ -97,12 +106,81 @@ def block_encode_plain(vol, mulfac=None, *, scale=None):
     return encode_xy_plain(tmp, mulfac)
 
 
-def fwd_z(vol):
-    """Pass 1 (kernel `block_fwd_z`): the z cascade of every block, into a
-    block-major (nnn, 2^21) f32 buffer.  Dims must be multiples of 128."""
+def fwd_xz_plain(vol):
+    """Plain version of `fwd_xz`: the z, then the x cascade of every block,
+    in volume order."""
+    op = wavelet.operator(B, inverse=False, device=vol.device)
+    nz, ny, nx = vol.shape
+    t = vol.reshape(nz // B, B, ny, nx // B, B)
+    t = torch.einsum("gzyhx,Zz->gZyhx", t, op)
+    t = torch.einsum("gzyhx,Xx->gzyhX", t, op)
+    return t.reshape(nz, ny, nx).contiguous()
+
+
+def encode_y_plain(plane, mulfac):
+    """Plain version of `encode_y`: the y cascade of the x,z plane, block
+    major, then the tokenize."""
+    op = wavelet.operator(B, inverse=False, device=plane.device)
+    t = torch.einsum("nzyx,Yy->nzYx", blocks.to_blocks(plane, BLOCK), op)
+    coeffs = t.reshape(-1, CELLS).contiguous()
+    return (coeffs, *tokenize_blocks_plain(coeffs, mulfac),
+            torch.full((coeffs.shape[0],), mulfac, dtype=torch.float32,
+                       device=coeffs.device))
+
+
+def _check_volume(vol):
     if vol.dim() != 3 or not fused_path_ok(vol.shape, BLOCK):
         raise ValueError(f"the 128^3 encode needs (nz, ny, nx) multiples of {B}, "
                          f"got {tuple(vol.shape)}")
+
+
+def fwd_xz(vol):
+    """K16a (kernel `block_fwd_xz`): the z, then the x cascade of every
+    128^3 block -> the (nz, ny, nx) f32 plane, volume order.  Dims must be
+    multiples of 128."""
+    _check_volume(vol)
+    if vol.device.type == "cpu":
+        return fwd_xz_plain(vol)
+    _kernels.check_cuda(vol, dtypes=(torch.float32,))
+    nz, ny, nx = vol.shape
+    plane = torch.empty_like(vol)
+    op = wavelet.operator(B, inverse=False, device=vol.device)
+    _kernels.launch("block_fwd_xz", vol.data_ptr(), nx, ny, nz, op.data_ptr(),
+                    plane.data_ptr())
+    return plane
+
+
+def encode_y(plane, mulfac):
+    """K16b (kernel `block_encode_y`): the y cascade of every z-slice of the
+    x,z plane, then its tokenize at the global `mulfac` -> (coeffs, desc,
+    chunk_bytes, sizes, raw, mulfacs) as `block_encode`'s."""
+    _check_volume(plane)
+    if plane.device.type == "cpu":
+        return encode_y_plain(plane, mulfac)
+    _kernels.check_cuda(plane, dtypes=(torch.float32,))
+    nz, ny, nx = plane.shape
+    nnn = plane.numel() // CELLS
+    op = wavelet.operator(B, inverse=False, device=plane.device)
+    coeffs = torch.empty((nnn, CELLS), dtype=torch.float32, device=plane.device)
+    scratch, desc, chunk_bytes, sizes, mulfacs = _tokenize_outputs(nnn, plane.device)
+    _kernels.launch(
+        "block_encode_y", plane.data_ptr(), nx, ny, op.data_ptr(), float(mulfac),
+        nnn, scratch.data_ptr(), coeffs.data_ptr(), desc.data_ptr(),
+        chunk_bytes.data_ptr(), sizes.data_ptr(), mulfacs.data_ptr(),
+    )
+    return (coeffs, *raw_fallback(desc, chunk_bytes, sizes), mulfacs)
+
+
+def block_encode_w(vol, mulfac):
+    """The 128^3 encode split at x,z | y (`CVX_FUSED_W=1`, global RMS):
+    `fwd_xz`, then `encode_y`; the outputs of `block_encode`."""
+    return encode_y(fwd_xz(vol), mulfac)
+
+
+def fwd_z(vol):
+    """Pass 1 (kernel `block_fwd_z`): the z cascade of every block, into a
+    block-major (nnn, 2^21) f32 buffer.  Dims must be multiples of 128."""
+    _check_volume(vol)
     if vol.device.type == "cpu":
         return fwd_z_plain(vol)
     _kernels.check_cuda(vol, dtypes=(torch.float32,))

@@ -1,8 +1,10 @@
-"""Block geometry: the gates of the encode routes, and the stripe map.
+"""Block geometry: the gates of the encode routes, the JAX package's encode
+switches, and the stripe map.
 
 Every block the reference accepts (`container.is_valid_block_size`,
 CvxCompress.cpp:54-71: bx, by powers of two in [8, 256], bz one too or 1)
-compresses on one of four routes (ops/codec.py `route`, `compress`):
+compresses on one of four routes by its geometry (ops/codec.py `route`,
+`compress`):
 
 - "fused32": (32, 32, 32) blocks, any volume (ops/tokenize.py `fused_encode`);
 - "block128": (128, 128, 128) blocks over dims that are multiples of 128
@@ -20,9 +22,26 @@ The JAX package's TPU routes (`cvxcompress_tpu/ops/codec.py:328-440`
 `stripe_fused_ok`, K13 where only `stripe_path_ok` holds, K12 on a
 block-major relayout elsewhere; the stripe map makes that relayout needless
 here.  Chunks hold min(128, cells) cells (`rle_device.chunk_cells`).
+
+The JAX package's encode switches, read on every compress with its values
+and precedence (`codec.py:621-627`, then `:341-421`), select three more
+encode routes (ops/codec.py `encode_route`); decompress never reads them:
+
+- `CVX_FUSED_COMPACT=1` where `compact_ok` (first): "compact", the
+  block-major transform, then `tokenize_compact` (K14) and the rows emit;
+- `CVX_STRIPE=patch` where `patch_ok`: "patch", the stripe route's encode,
+  then `patch_extract` (K17) and the rows emit;
+- `CVX_FUSED_W` (`fused_w_mode`) at aligned 128^3: "1" under the global
+  RMS is "block128_w" (K16a `block_fwd_xz` + K16b `block_encode_y`);
+  "block", the default, is "block128"; "1" under the local RMS and any
+  other value are the stripe route (the JAX package's K12, or K15 under
+  `CVX_VOLUME_COMPRESS=1`: `tokenize_stripe` computes both).
 """
 
 from __future__ import annotations
+
+import math
+import os
 
 import torch
 
@@ -54,6 +73,42 @@ def stripe_fused_ok(vol_shape, block):
     k = 128 // bx
     w = -(-blocks.grid_shape(vol_shape, block)[2] // k) * k * bx
     return bz * by * w * 4 <= 3 << 20
+
+
+TR = 1024  # chunk rows per tile of the JAX tokenize kernels (tokenize_pallas.TR)
+
+
+def fused_compact_on():
+    """`CVX_FUSED_COMPACT=1` (`cvxcompress_tpu/ops/codec.py:103-106`)."""
+    return os.environ.get("CVX_FUSED_COMPACT") == "1"
+
+
+def stripe_mode():
+    """`CVX_STRIPE` ("seg" when unset, `codec.py:248`); only "patch"
+    selects a route of its own."""
+    return os.environ.get("CVX_STRIPE", "seg")
+
+
+def fused_w_mode():
+    """`CVX_FUSED_W` ("block" when unset, `codec.py:312`): "1" the two-pass
+    x,z | y encode, "block" the whole-block one, anything else off."""
+    return os.environ.get("CVX_FUSED_W", "block")
+
+
+def compact_ok(vol_shape, block):
+    """The JAX gate of K14 (`codec.py:624-627`): 128-cell chunks and at
+    least 2 * TR of them."""
+    cells = block[0] * block[1] * block[2]
+    nchunks = math.prod(blocks.grid_shape(vol_shape, block)) * cells // 128
+    return cells >= 128 and nchunks >= 2 * TR
+
+
+def patch_ok(block):
+    """The JAX gate `stripe_path_ok` (`tokenize_pallas.py:728-738`), the
+    patch route's: bx < 128, by >= 8 and by a multiple of 128 // bx, so a
+    128-cell chunk is 128 // bx whole x-rows of one block column."""
+    bx, by, _ = block
+    return 8 <= bx < 128 and by >= 8 and by % (128 // bx) == 0
 
 
 def plane_shape(vol_shape, block):

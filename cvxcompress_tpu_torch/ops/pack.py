@@ -20,6 +20,15 @@ route's `encode`), laid out by min(128, cells)-cell chunk: each
 chunk's tokens land at its own base, the exclusive cumsum of the chunk
 byte counts (0 in raw blocks).  TPU counterpart: `pack_pallas.pack_staging`
 (:515) inside `rle_device.pack_active` (:401).
+
+`emit_rows` (the same kernel in its rows mode) writes that stream from
+gathered chunk rows instead, as K7 does in the JAX package's
+`pack_compacted` (`rle_device.py:969`) and patch `pack_active`: row r holds
+chunk ids[r], whose tokens land at its chunk base with its block's mulfac.
+The rows come from `patch_extract` (csrc/patch_extract.cu; K17
+`pack_pallas.patch_extract` :94, under `CVX_STRIPE=patch`), which gathers
+the live chunks of the stripe route's volume-order plane, or from
+ops/tokenize.py `tokenize_compact` (K14, under `CVX_FUSED_COMPACT=1`).
 """
 
 from __future__ import annotations
@@ -134,6 +143,19 @@ def emit_payload(coeffs, mulfacs, desc, base, raw, total):
     return out
 
 
+def _emit_rows_plain(rows, row_mulfacs, drows, row_bytes, row_base, total):
+    """The stream of chunk rows: row r's tokens at row_base[r] unless
+    row_bytes[r] is 0 (a raw block's chunk)."""
+    planes, cost = token_bytes(rows, row_mulfacs, drows)
+    cost = torch.where((row_bytes == 0)[:, None], 0, cost)
+    pos = row_base[:, None] + (torch.cumsum(cost, dim=1) - cost)
+    out = torch.zeros(total, dtype=torch.uint8, device=rows.device)
+    for k, plane in enumerate(planes):
+        m = cost > k
+        out[pos[m] + k] = plane[m].to(torch.uint8)
+    return out
+
+
 def emit_chunks_plain(coeffs, mulfacs, desc, chunk_bytes, chunk_base, total,
                       block=None):
     """Plain PyTorch version of the chunk kernel (same stream)."""
@@ -142,14 +164,8 @@ def emit_chunks_plain(coeffs, mulfacs, desc, chunk_bytes, chunk_base, total,
     chunk = rle_device.chunk_cells(desc.shape[1])
     rows = coeffs.reshape(-1, chunk)
     per_chunk = mulfacs.repeat_interleave(rows.shape[0] // mulfacs.numel())
-    planes, cost = token_bytes(rows, per_chunk, desc.reshape(-1, chunk))
-    cost = torch.where((chunk_bytes == 0)[:, None], 0, cost)
-    pos = chunk_base[:, None] + (torch.cumsum(cost, dim=1) - cost)
-    out = torch.zeros(total, dtype=torch.uint8, device=coeffs.device)
-    for k, plane in enumerate(planes):
-        m = cost > k
-        out[pos[m] + k] = plane[m].to(torch.uint8)
-    return out
+    return _emit_rows_plain(rows, per_chunk, desc.reshape(-1, chunk), chunk_bytes,
+                            chunk_base, total)
 
 
 def emit_chunks(coeffs, mulfacs, desc, chunk_bytes, chunk_base, total,
@@ -191,3 +207,95 @@ def emit_chunks(coeffs, mulfacs, desc, chunk_bytes, chunk_base, total,
         out.data_ptr(),
     )
     return out
+
+
+def _lcpb(nchunks, nnn):
+    """log2 of the chunks per block."""
+    return (nchunks // nnn).bit_length() - 1
+
+
+def emit_rows_plain(rows, drows, ids, mulfacs, chunk_bytes, chunk_base, total):
+    """Plain PyTorch version of `emit_rows` (same stream)."""
+    ids = ids.to(torch.int64)
+    mf = mulfacs[ids >> _lcpb(chunk_bytes.numel(), mulfacs.numel())]
+    return _emit_rows_plain(rows, mf, drows, chunk_bytes[ids], chunk_base[ids], total)
+
+
+def emit_rows(rows, drows, ids, mulfacs, chunk_bytes, chunk_base, total):
+    """Block-ordered payload stream (total,) uint8 from gathered chunk rows.
+
+    rows (n, 128) f32 UNSCALED coefficients and drows (n, 128) int32
+    descriptors of chunks ids (n,) int32 (any order); mulfacs (nnn,) f32,
+    chunk_bytes (nchunks,) int32 (0 for a raw block's chunk: its row writes
+    nothing), chunk_base (nchunks,) int64 their exclusive cumsum, `total`
+    their sum.  Every chunk whose count is not 0 must have one row.  Kernel
+    `block_emit_rows` (csrc/block_emit.cu rows mode); the plain version
+    runs for CPU tensors.
+    """
+    if rows.device.type == "cpu":
+        return emit_rows_plain(rows, drows, ids, mulfacs, chunk_bytes, chunk_base,
+                               total)
+    _kernels.check_cuda(
+        rows, drows, ids, mulfacs, chunk_bytes, chunk_base,
+        dtypes=(torch.float32, torch.int32, torch.int32, torch.float32, torch.int32,
+                torch.int64),
+    )
+    n = ids.numel()
+    nchunks = chunk_bytes.numel()
+    if (rows.shape != (n, 128) or drows.shape != (n, 128)
+            or chunk_base.numel() != nchunks or nchunks % mulfacs.numel()):
+        raise ValueError(f"{n} rows need (n, 128) coefficients and descriptors and "
+                         f"{nchunks} bases, got {tuple(rows.shape)}, "
+                         f"{tuple(drows.shape)}, {chunk_base.numel()}")
+    out = torch.empty(total, dtype=torch.uint8, device=rows.device)
+    _kernels.launch(
+        "block_emit_rows", rows.data_ptr(), drows.data_ptr(), ids.data_ptr(), n,
+        mulfacs.data_ptr(), chunk_bytes.data_ptr(), chunk_base.data_ptr(),
+        _lcpb(nchunks, mulfacs.numel()), out.data_ptr(),
+    )
+    return out
+
+
+def patch_extract_plain(plane, desc, chunk_bytes, block, nlive):
+    """Plain PyTorch version of `patch_extract` (same rows)."""
+    ids = torch.nonzero(chunk_bytes > 0).view(-1)
+    if ids.numel() != nlive:
+        raise ValueError(f"{ids.numel()} live chunks, {nlive} given")
+    cpb = desc.shape[1] // 128
+    cell = (ids % cpb)[:, None] * 128 + torch.arange(128, device=plane.device)
+    rows = plane.reshape(-1)[geometry.stripe_addr(ids[:, None] // cpb, cell,
+                                                  plane.shape, block)]
+    return rows, desc.view(-1, 128)[ids], ids.to(torch.int32)
+
+
+def patch_extract(plane, desc, chunk_bytes, block, nlive):
+    """The live chunks' rows of the stripe route (K17 port, kernel
+    `patch_extract`, csrc/patch_extract.cu): for each chunk whose byte count
+    is not 0, in chunk order, its 128 UNSCALED coefficients gathered from the
+    volume-order (nzp, nyp, nxp) plane (128 // bx x-rows of one block column
+    when `geometry.patch_ok`; any 128-cell chunk through the stripe map) and
+    its 128 descriptors of the block-major desc (nnn, cells).  `nlive` is
+    the number of live chunks (from the codec's one read-back).  Returns
+    rows (nlive, 128) f32, drows (nlive, 128) int32, ids (nlive,) int32.
+    The plain version runs for CPU tensors."""
+    nnn, cells = desc.shape
+    if (cells < 128 or plane.numel() != nnn * cells
+            or chunk_bytes.numel() != nnn * cells // 128):
+        raise ValueError(f"patch_extract takes 128-cell chunks of a whole plane, got "
+                         f"{cells} cells per block, plane {tuple(plane.shape)}, "
+                         f"{chunk_bytes.numel()} chunks")
+    if plane.device.type == "cpu":
+        return patch_extract_plain(plane, desc, chunk_bytes, block, nlive)
+    _kernels.check_cuda(plane, desc, chunk_bytes,
+                        dtypes=(torch.float32, torch.int32, torch.int32))
+    live = (chunk_bytes > 0).to(torch.int32)
+    pos = torch.cumsum(live, 0, dtype=torch.int32) - live  # each live chunk's row
+    rows = torch.empty((nlive, 128), dtype=torch.float32, device=plane.device)
+    drows = torch.empty((nlive, 128), dtype=torch.int32, device=plane.device)
+    ids = torch.empty(nlive, dtype=torch.int32, device=plane.device)
+    _kernels.launch(
+        "patch_extract", plane.data_ptr(), desc.data_ptr(), chunk_bytes.data_ptr(),
+        pos.data_ptr(), chunk_bytes.numel(), *geometry.map_args(plane.shape, block),
+        rows.data_ptr(), drows.data_ptr(), ids.data_ptr(),
+    )
+    return rows, drows, ids

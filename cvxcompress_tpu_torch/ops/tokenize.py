@@ -25,6 +25,11 @@ gate `stripe_fused_ok` holds: the K1 and K9 port at 16^3, (16, 16, 1), ...)
 or `encode`: the transform and the mulfac table as library products, then
 the kernel `tokenize_stripe` (the volume-order plane read through the
 stripe map, csrc/tokenize_stripe.cu: the K13 port, and of K12 and K12').
+
+Under `CVX_FUSED_COMPACT=1` (ops/geometry.py) `compact_encode` runs instead:
+the block-major transform and table as library products, then
+`tokenize_compact` (csrc/tokenize_compact.cu, the K14 port), which also
+compacts the live chunks into rows for `pack.emit_rows`.
 """
 
 from __future__ import annotations
@@ -99,11 +104,16 @@ def raw_fallback(desc, chunk_bytes, sizes):
     tokenize_pallas.py:487-491`, and of the 128^3 path, `fused_compress.py:
     613-617`): a block over 4*cells bytes is stored raw, its chunks count 0
     bytes.  Returns (desc, chunk_bytes, sizes, raw)."""
-    n, cells = desc.shape
+    return (desc, *_raw_decision(chunk_bytes, sizes, desc.shape[1]))
+
+
+def _raw_decision(chunk_bytes, sizes, cells):
+    """(chunk_bytes, sizes, raw) after the raw-fallback decision of blocks
+    of `cells` cells; chunk_bytes is zeroed in place in the raw blocks."""
     raw = sizes > rle_device.RAW_BYTES_PER_CELL * cells
     sizes = torch.where(raw, rle_device.RAW_BYTES_PER_CELL * cells, sizes)
-    chunk_bytes.view(n, -1).masked_fill_(raw[:, None], 0)
-    return desc, chunk_bytes, sizes, raw
+    chunk_bytes.view(sizes.numel(), -1).masked_fill_(raw[:, None], 0)
+    return chunk_bytes, sizes, raw
 
 
 def tokenize_blocks_plain(coeffs, mulfacs):
@@ -230,3 +240,76 @@ def stripe_fused_encode(vol, block, mulfac=None, *, scale=None):
         sizes.data_ptr(), mulfacs.data_ptr(),
     )
     return (coeffs, *raw_fallback(desc, chunk_bytes, sizes), mulfacs)
+
+
+# -- the compacting tokenize (CVX_FUSED_COMPACT=1) ------------------------------
+
+
+def tokenize_compact_plain(coeffs, mulfacs):
+    """Plain PyTorch version of `tokenize_compact` (same outputs; its rows
+    exactly the live ones)."""
+    nnn, cells = coeffs.shape
+    desc, chunk_bytes, sizes, raw = tokenize_blocks_plain(coeffs, mulfacs)
+    # the live rows are those before the raw-fallback decision
+    cb = (desc & 7).view(-1, 128).sum(1, dtype=torch.int32)
+    ids = torch.nonzero(cb > 0).view(-1)
+    nrows = torch.tensor([ids.numel()], dtype=torch.int32, device=coeffs.device)
+    return (chunk_bytes, sizes, raw, coeffs.view(-1, 128)[ids],
+            desc.view(-1, 128)[ids], ids.to(torch.int32), cb[ids], nrows)
+
+
+def tokenize_compact(coeffs, mulfacs):
+    """Tokenize block-major UNSCALED (nnn, cells) f32 coefficients (cells >=
+    128), each block at its entry of the (nnn,) f32 table, and compact the
+    live 128-cell chunks (byte count not 0) into rows, in chunk order
+    (kernel `tokenize_compact`, csrc/tokenize_compact.cu: the K14 port).
+
+    Returns chunk_bytes (nchunks,) int32 and sizes (nnn,) int32 and raw
+    (nnn,) bool after the raw-fallback decision (as `tokenize_stripe`'s),
+    then the rows: coefficients (R, 128) f32, descriptors (R, 128) int32,
+    chunk ids (R,) int32, byte counts (R,) int32, and nrows (1,) int32, the
+    number of live rows n.  The kernel's R is nchunks (rows past n are not
+    written); the plain version, which runs for a CPU tensor, returns n
+    rows.  A raw block's live chunks keep their rows (their chunk_bytes is
+    0).  TPU counterpart: `tokenize_pallas.tokenize_compact_fast` (:1365),
+    whose rows are scaled and padded to 8 per tile."""
+    nnn, cells = coeffs.shape
+    if cells < 128 or cells & (cells - 1) or mulfacs.shape != (nnn,):
+        raise ValueError(f"tokenize_compact takes (nnn, 2^k >= 128) coefficients and "
+                         f"an (nnn,) table, got {tuple(coeffs.shape)} and "
+                         f"{tuple(mulfacs.shape)}")
+    if coeffs.device.type == "cpu":
+        return tokenize_compact_plain(coeffs, mulfacs)
+    _kernels.check_cuda(coeffs, mulfacs, dtypes=(torch.float32, torch.float32))
+    dev = coeffs.device
+    nchunks = coeffs.numel() // 128
+    _, chunk_bytes, sizes = _outputs(nnn, cells, dev)
+    rows = torch.empty((nchunks, 128), dtype=torch.float32, device=dev)
+    drows = torch.empty((nchunks, 128), dtype=torch.int32, device=dev)
+    ids = torch.empty(nchunks, dtype=torch.int32, device=dev)
+    row_bytes = torch.empty(nchunks, dtype=torch.int32, device=dev)
+    nrows = torch.zeros(1, dtype=torch.int32, device=dev)
+    scratch = torch.empty(1 + -(-coeffs.numel() // TILE), dtype=torch.int64,
+                          device=dev)
+    _kernels.launch(
+        "tokenize_compact", coeffs.data_ptr(), mulfacs.data_ptr(), nnn,
+        cells.bit_length() - 1, scratch.data_ptr(), chunk_bytes.data_ptr(),
+        sizes.data_ptr(), rows.data_ptr(), drows.data_ptr(), ids.data_ptr(),
+        row_bytes.data_ptr(), nrows.data_ptr(),
+    )
+    return (*_raw_decision(chunk_bytes, sizes, cells), rows, drows, ids, row_bytes,
+            nrows)
+
+
+def compact_encode(vol, block, mulfac=None, *, scale=None):
+    """The encode under `CVX_FUSED_COMPACT=1` (ops/geometry.py `compact_ok`
+    blocks): the forward transform block-major and the mulfac table as
+    library products (the JAX `_stage_w_pallas`, `cvxcompress_tpu/ops/
+    codec.py:71-100`; the table as the stripe route's, `quant.block_table`),
+    then `tokenize_compact`.  Returns (coeffs (nnn, cells), mulfacs, then
+    `tokenize_compact`'s outputs)."""
+    bx, by, _ = block
+    coeffs = wavelet.forward_blocks(blocks.to_blocks(vol, block))
+    coeffs = coeffs.reshape(coeffs.shape[0], -1)
+    mulfacs = quant.block_table(coeffs.view(-1, by, bx), block, mulfac, scale=scale)
+    return (coeffs, mulfacs, *tokenize_compact(coeffs, mulfacs))

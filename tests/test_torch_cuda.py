@@ -615,3 +615,213 @@ def test_generic_wrappers_reject_bad_inputs(dev):
                                  torch.ones(2, device=dev), (16, 16, 16))
     with pytest.raises(ValueError):
         cvt.compress(np.zeros((8, 8, 8), np.float32), 1e-2, block=(8, 8, 2))
+
+
+# -- the opt-in encode routes (the JAX package's CVX_* switches) ------------
+
+
+def optin_volume(shape, sparse=True, seed=7):
+    """N(0,1) x 40 with 80 % of the cells zero (zero runs across chunks,
+    slices and tiles), or the plain noise."""
+    rng = np.random.default_rng(seed)
+    v = (rng.standard_normal(shape) * 40).astype(np.float32)
+    if sparse:
+        v[rng.random(shape) >= 0.2] = 0.0
+    return v
+
+
+@pytest.mark.parametrize("kind", ["sparse", "noise"])
+def test_block_encode_w_matches_plain_and_block_encode(dev, kind):
+    """K16a + K16b: `block_fwd_xz` within 1e-5 of its plain version,
+    `block_encode_y`'s coefficients within 1e-5 and its tokenize bit-equal
+    to the plain tokenize of them; both launches' coefficients, descriptors,
+    counts and sizes bit-equal to `block_encode`'s (z | x,y) on the same
+    volume."""
+    shape = (128, 128, 256)
+    vol = optin_volume(shape, sparse=kind == "sparse")
+    vt = torch.from_numpy(vol).to(dev)
+    mulfac = 37.5
+    _kernels.reset_counts()
+    plane = fused_compress.fwd_xz(vt)
+    out = fused_compress.encode_y(plane, mulfac)
+    torch.cuda.synchronize()
+    assert _kernels.launches["block_fwd_xz"] == 1
+    assert _kernels.launches["block_encode_y"] == 1
+    assert rel_rms(plane, fused_compress.fwd_xz_plain(vt)) < TRANSFORM_TOL
+    coeffs = out[0]
+    plain = fused_compress.encode_y_plain(plane, mulfac)[0]
+    assert rel_rms(coeffs, plain) < TRANSFORM_TOL
+    for got, ref in zip(out[1:5], tokenize.tokenize_blocks_plain(coeffs, mulfac)):
+        assert torch.equal(got, ref)
+    ref = fused_compress.block_encode(vt, mulfac)
+    for got, want in zip(out, ref):
+        assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("block,shape", [
+    ((16, 16, 16), (40, 50, 70)), ((32, 32, 32), (64, 96, 96)),
+    ((64, 64, 64), (70, 90, 100)), ((8, 16, 8), (20, 40, 60)),
+], ids=lambda v: "x".join(map(str, v)))
+@pytest.mark.parametrize("scale", [1e-2, 1e-12])
+def test_patch_extract_and_emit_rows_match_plain(dev, block, shape, scale):
+    """K17 and the rows emit: `patch_extract`'s rows, descriptors and ids
+    bit-equal to its plain version on the stripe route's plane, and the
+    stream of `emit_rows` bit-equal to its plain version's and to the
+    in-place `emit_chunks` stream (at 1e-12 with raw blocks)."""
+    vol = generic_volume("sine", shape, block)
+    vt = torch.from_numpy(vol).to(dev)
+    c, dk, cbk, sk, rk, mk = tokenize.encode(vt, block, quant.global_mulfac(vol, scale))
+    n = int((cbk > 0).sum())
+    _kernels.reset_counts()
+    rows, drows, ids = pack.patch_extract(c, dk, cbk, block, n)
+    torch.cuda.synchronize()
+    assert _kernels.launches["patch_extract"] == 1
+    plain = pack.patch_extract_plain(c, dk, cbk, block, n)
+    for got, ref in zip((rows, drows, ids), plain):
+        assert torch.equal(got, ref)
+    base = torch.cumsum(cbk.long(), 0) - cbk.long()
+    total = int(cbk.sum())
+    got = pack.emit_rows(rows, drows, ids, mk, cbk, base, total)
+    assert _kernels.launches["block_emit_rows"] == 1
+    assert torch.equal(got, pack.emit_rows_plain(rows, drows, ids, mk, cbk, base, total))
+    assert torch.equal(got, pack.emit_chunks(c, mk, dk, cbk, base, total, block))
+    if scale == 1e-12:
+        assert bool(rk.any())
+
+
+@pytest.mark.parametrize("block,shape", [
+    ((32, 32, 32), (64, 64, 64)), ((128, 128, 128), (128, 128, 256)),
+    ((8, 16, 8), (40, 48, 64)), ((256, 256, 256), (256, 256, 256)),
+], ids=lambda v: "x".join(map(str, v)))
+@pytest.mark.parametrize("mode", ["global", "local", "raw"])
+def test_tokenize_compact_matches_plain(dev, block, shape, mode):
+    """K14: `tokenize_compact`'s chunk counts, sizes, raw flags, live rows
+    (coefficients, descriptors, ids, byte counts, in chunk order) and their
+    number bit-equal to its plain version's, zero runs across tiles (a
+    128^3 block spans 128 tiles, a 256^3 one 1,024) and live rows across
+    tiles; the rows emit's stream bit-equal to the in-place emit's."""
+    vol = optin_volume(shape)
+    vol[: shape[0] // 2, :, : shape[2] // 2] = 0.0  # whole zero tiles
+    vt = torch.from_numpy(vol).to(dev)
+    args = (dict(scale=1e-2) if mode == "local" else
+            dict(mulfac=quant.global_mulfac(vol, 1e-12 if mode == "raw" else 1e-2)))
+    _kernels.reset_counts()
+    coeffs, mk, *out = tokenize.compact_encode(vt, block, **args)
+    torch.cuda.synchronize()
+    assert _kernels.launches["tokenize_compact"] == 1
+    ref = tokenize.tokenize_compact_plain(coeffs, mk)
+    n = int(out[7])
+    assert n == int(ref[7]) == ref[3].shape[0]
+    for got, want in zip(out[:3], ref[:3]):
+        assert torch.equal(got, want)
+    for got, want in zip(out[3:7], ref[3:7]):
+        assert torch.equal(got[:n], want)
+    cbk = out[0]
+    base = torch.cumsum(cbk.long(), 0) - cbk.long()
+    total = int(cbk.sum())
+    got = pack.emit_rows(out[3][:n], out[4][:n], out[5][:n], mk, cbk, base, total)
+    desc = tokenize.tokenize_blocks_plain(coeffs, mk)[0]
+    assert torch.equal(got, pack.emit_chunks(coeffs, mk, desc, cbk, base, total))
+    assert bool(out[2].any()) == (mode == "raw")
+
+
+@pytest.mark.parametrize("env,block,shape,local,kernels", [
+    ({"CVX_FUSED_W": "1"}, (128, 128, 128), (128, 128, 256), False,
+     ("block_fwd_xz", "block_encode_y", "block_emit")),
+    ({"CVX_FUSED_W": "0"}, (128, 128, 128), (128, 128, 256), False,
+     ("tokenize_stripe", "block_emit")),
+    ({"CVX_STRIPE": "patch"}, (32, 32, 32), (64, 96, 96), False,
+     ("tokenize_stripe", "patch_extract", "block_emit_rows")),
+    ({"CVX_STRIPE": "patch"}, (16, 16, 16), (40, 50, 70), True,
+     ("tokenize_stripe", "patch_extract", "block_emit_rows")),
+    ({"CVX_FUSED_COMPACT": "1"}, (32, 32, 32), (64, 64, 64), False,
+     ("tokenize_compact", "block_emit_rows")),
+    ({"CVX_FUSED_COMPACT": "1"}, (32, 32, 32), (64, 64, 64), True,
+     ("tokenize_compact", "block_emit_rows")),
+    ({"CVX_FUSED_COMPACT": "1"}, (128, 128, 128), (128, 128, 256), False,
+     ("tokenize_compact", "block_emit_rows")),
+], ids=["fused_w1", "fused_w0", "patch32", "patch16_local", "compact32",
+        "compact32_local", "compact128"])
+def test_optin_routes_on_the_card(dev, monkeypatch, env, block, shape, local, kernels):
+    """Each switch through the public API on the card: its encode kernels
+    launch once each with the decode kernels, no other; the container's size
+    within 1 % of the plain CPU path's under the same switch, its volume
+    within 1e-5 of the host engine's and native's decode."""
+    vol = generic_volume("sine", shape, block)
+    for k, v in env.items():
+        monkeypatch.setenv(k, v)
+    _kernels.reset_counts()
+    data, _ = cvt.compress(vol, 1e-2, block=block, use_local_rms=local)
+    out = cvt.decompress(data)
+    torch.cuda.synchronize()
+    inverse = {"fused32": ("fused_inverse",), "block128": ("block_inv_xy", "block_inv_z"),
+               "stripe_fused": ("stripe_fused_inverse",), "stripe": ()}
+    want = dict.fromkeys((*kernels, "decode_maps", "decode_chase", "decode_emit",
+                          *inverse[codec.route(shape, block)]), 1)
+    assert {k: v for k, v in _kernels.launches.items() if v} == want
+    ref, _ = cvt.compress(vol, 1e-2, block=block, use_local_rms=local, device="cpu")
+    assert abs(int(data.size) - int(ref.size)) <= max(64, 0.01 * ref.size)
+    assert rel_rms(out, cvt.decompress(data, engine="host")) < TRANSFORM_TOL
+    nat = torch.from_numpy(rle_host.host_decompress(data))
+    assert rel_rms(out.cpu(), nat) < TRANSFORM_TOL
+
+
+def test_fused_w1_and_patch64_containers_equal_default(dev, monkeypatch):
+    """Where the coefficients are the default route's, so is the container:
+    `CVX_FUSED_W=1` at aligned 128^3, `CVX_STRIPE=patch` at 64^3 (the
+    stripe route's encode either way)."""
+    for env, block, shape in (({"CVX_FUSED_W": "1"}, (128,) * 3, (128, 128, 256)),
+                              ({"CVX_STRIPE": "patch"}, (64,) * 3, (70, 90, 100))):
+        vol = generic_volume("sine", shape, block)
+        ref, _ = cvt.compress(vol, 1e-2, block=block)
+        for k, v in env.items():
+            monkeypatch.setenv(k, v)
+        got, _ = cvt.compress(vol, 1e-2, block=block)
+        for k in env:
+            monkeypatch.delenv(k)
+        np.testing.assert_array_equal(got, ref)
+
+
+def test_transform_exact_under_caller_tf32(dev):
+    """Under the caller's `set_float32_matmul_precision("high")` the stripe
+    route's einsums still run in full f32: the 8^3 transform within 1e-5 of
+    the f64 operator product, the container equal to the one made under
+    "highest", and the caller's setting left as it was."""
+    from cvxcompress_tpu_torch.ops import wavelet
+
+    block = (8, 8, 8)
+    vol = np.random.default_rng(64).standard_normal((64, 64, 64)).astype(np.float32)
+    ref, _ = cvt.compress(vol, 1e-2, block=block)
+    w = torch.from_numpy(np.array(wavelet.forward_matrix(8)))
+    want = torch.einsum("nzyx,Zz,Yy,Xx->nZYX",
+                        blocks.to_blocks(torch.from_numpy(vol).double(), block), w, w, w)
+    prev = torch.get_float32_matmul_precision()
+    torch.set_float32_matmul_precision("high")
+    try:
+        plane = wavelet.forward_3d_volume(torch.from_numpy(vol).to(dev), block)
+        got, _ = cvt.compress(vol, 1e-2, block=block)
+        assert torch.get_float32_matmul_precision() == "high"
+    finally:
+        torch.set_float32_matmul_precision(prev)
+    assert rel_rms(blocks.to_blocks(plane.cpu(), block), want) < TRANSFORM_TOL
+    np.testing.assert_array_equal(got, ref)
+
+
+def test_volume_on_another_card(dev):
+    """A volume on the last card compresses and decompresses there while
+    card 0 is current: the kernels launch on the tensor's card (the codec
+    enters its `torch.cuda.device`), and the containers and volumes equal
+    card 0's, on the fused 32^3 route and on the stripe route."""
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two CUDA cards")
+    last = torch.device("cuda", torch.cuda.device_count() - 1)
+    assert torch.cuda.current_device() == 0
+    vol = generic_volume("sine", (64, 96, 96), (32, 32, 32))
+    for block in ((32, 32, 32), (8, 8, 8)):
+        ref, _ = cvt.compress(vol, 1e-2, block=block, device="cuda:0")
+        data, _ = cvt.compress(torch.from_numpy(vol).to(last), 1e-2, block=block)
+        np.testing.assert_array_equal(data, ref)
+        out = cvt.decompress(data, device=last)
+        assert out.device == last and torch.cuda.current_device() == 0
+        want = cvt.decompress(ref, device="cuda:0")
+        assert torch.equal(out.cpu(), want.cpu())
