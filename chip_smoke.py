@@ -42,7 +42,10 @@ Builds the CUDA kernels (csrc/, nvcc for sm_90a) and the native host library
   set_float32_matmul_precision("high") equal to one under "highest";
 
 it compares every kernel of the path with its plain PyTorch version at the
-path's shapes (also on an N(0,1) noise volume of the same shape, the
+path's shapes (the seven 128^3 transform launches bit for bit, on the B
+sinusoid, noise and ramp, and within 1e-5 of the f64 dense operator; the
+card's decompress of B's container bit-equal to native's parity
+decompress) (also on an N(0,1) noise volume of the same shape, the
 decoder's heavy case, and against the native encoder and decoder), then
 drives the path once through the public API on the default device —
 compress on the card, decompress with the device engine (entropy parse,
@@ -190,8 +193,9 @@ def cascade_flops(n, inverse=False):
     an analysis lowpass output takes 4 pair adds, 5 multiplies and 4 adds
     (13 FLOP), a highpass one 3, 4 and 3 (10); synthesis swaps the two, an
     even output 10 and an odd one 13.  The levels are n, n - n//2, ..., 2.
-    The kernels apply the composed dense operator instead; the bound counts
-    the function's work, not theirs."""
+    The 128^3 kernels run this cascade; the other transform kernels apply
+    the composed dense operator instead, and the bound counts the
+    function's work, not theirs."""
     lo, hi = (10, 13) if inverse else (13, 10)
     total, m = 0, n
     while m >= 2:
@@ -211,6 +215,62 @@ def emit_chunks_bytes(desc, chunk_bytes, total):
     chunk = cells * nnn // live.numel()
     return (4 * live.numel() + (4 * chunk + 8) * int(live.sum())
             + 32 * int(groups.sum()) + 4 * nnn + total)
+
+
+def dense_f64(t, dims, inverse, b=128):
+    """The f64 dense operator (`wavelet.forward_matrix` / `inverse_matrix`)
+    along `dims` of a (n, b, b, b) block batch, in f64 on t's device: the
+    level-2 reference of the 128^3 kernels, which run the cascade itself."""
+    import torch
+    from cvxcompress_tpu_torch.ops import wavelet
+
+    m = wavelet.inverse_matrix(b) if inverse else wavelet.forward_matrix(b)
+    op = torch.tensor(m, dtype=torch.float64, device=t.device)
+    out = t.view(-1, b, b, b).double()
+    spec = {1: "nzyx,Zz->nZyx", 2: "nzyx,Yy->nzYx", 3: "nzyx,Xx->nzyX"}
+    for d in dims:
+        out = torch.einsum(spec[d], out, op)
+    return out
+
+
+def rel_rms_finite(got, ref, nnn):
+    """rel_rms over the blocks (nnn equal rows) whose reference is finite
+    (the ramp's NaN block stays NaN in every version); (error, blocks left
+    out)."""
+    g, r = got.reshape(nnn, -1), ref.reshape(nnn, -1)
+    fin = r.isfinite().all(1)
+    return rel_rms(g[fin], r[fin]), int((~fin).sum())
+
+
+def hold(label, name, got, plain, ref64, nnn):
+    """A 128^3 launch bit-equal to its plain version (a NaN matching a NaN)
+    and within 1e-5 of the f64 dense operator on its own input."""
+    check(same(got, plain), f"{label}: {name} bit-equal to its plain version")
+    e, out = rel_rms_finite(got, ref64, nnn)
+    check(e < TRANSFORM_TOL, f"{label}: {name} rel RMS {e:.3e} < 1e-5 of the f64 "
+          f"dense operator ({out} non-finite blocks left out)")
+
+
+def einsum3(t, shape, b, inverse):
+    """One torch.einsum with the three (b, b) f32 operators in full f32 over
+    a (nz, ny, nx) volume of b^3 blocks: the library call timed beside the
+    transform kernels (`library_ms`; the port never calls it).  Forward: the
+    volume in, its coefficients out in volume order; inverse: block-major
+    coefficients in, the volume out."""
+    import torch
+    from cvxcompress_tpu_torch.ops import wavelet
+
+    nz, ny, nx = shape
+    g = (nz // b, ny // b, nx // b)
+    op = wavelet.operator(b, inverse, t.device)
+    with wavelet.full_f32():
+        if inverse:
+            out = torch.einsum("abczyx,Zz,Yy,Xx->aZbYcX", t.view(*g, b, b, b),
+                               op, op, op)
+        else:
+            out = torch.einsum("azbycx,Zz,Yy,Xx->aZbYcX",
+                               t.view(g[0], b, g[1], b, g[2], b), op, op, op)
+    return out.reshape(shape)
 
 
 C32, C128 = cascade_flops(32), cascade_flops(128)
@@ -384,6 +444,9 @@ def main():
         # volume in; coefficients and descriptors out; three cascades and
         # the scale per cell (the tokenize's integer work is not counted)
         **bound(4 * vol.size + 8 * cells + 5 * sk.numel(), (3 * C32 + 1) * cells),
+        library_ms=cuda_ms(lambda: einsum3(vt, SHAPE, 32, False), 20),
+        library_call="one three-operator torch.einsum (full f32): the transform, "
+                     "no tokenize",
     )
     del cp, dp, sp, rp, d2, s2, r2
 
@@ -515,6 +578,8 @@ def main():
         plain_ms=cuda_ms(
             lambda: fused_inverse.fused_inverse_plain(rows, None, SHAPE), 3),
         **bound(4 * rows.numel() + 4 * vol.size, 3 * C32_INV * rows.numel()),
+        library_ms=cuda_ms(lambda: einsum3(rows, SHAPE, 32, True), 20),
+        library_call="one three-operator torch.einsum (full f32)",
     )
     rows_h, invmap_h = codec.sparse_chunks(dense.cpu().numpy())
     srows, sinv = torch.from_numpy(rows_h).to(dev), torch.from_numpy(invmap_h).to(dev)
@@ -542,22 +607,24 @@ def main():
         tk = fused_compress.fwd_z(vtb)
         tp = fused_compress.fwd_z_plain(vtb)
         torch.cuda.synchronize()
-        e = rel_rms(tk, tp)
-        check(e < TRANSFORM_TOL, f"{label}: block_fwd_z rel RMS {e:.3e} < 1e-5")
-        ncell = tk.numel()
+        ncell, nnn = tk.numel(), tk.shape[0]
+        hold(label, "block_fwd_z", tk, tp,
+             dense_f64(blocks.to_blocks(vtb, BLOCK_B), (1,), False), nnn)
         out["block_fwd_z"] = dict(
             max_abs_err=float((tk - tp).abs().max()),
             ms=cuda_ms(lambda: fused_compress.fwd_z(vtb), iters),
             plain_ms=cuda_ms(lambda: fused_compress.fwd_z_plain(vtb), plain_iters),
             **bound(8 * ncell, C128 * ncell))
+        # the library call: one three-operator einsum, the whole forward
+        # transform of both launches (no tokenize)
+        lib_fwd = cuda_ms(lambda: einsum3(vtb, volb.shape, 128, False), iters)
         del tp
         buf = torch.empty_like(tk)
         ck, dk, cbk, sk, rk, mk = fused_compress.encode_xy(tk, mf, out=buf)
         cp = fused_compress.encode_xy_plain(tk, mf)[0]
         torch.cuda.synchronize()
-        e = rel_rms(ck, cp)
-        check(e < TRANSFORM_TOL, f"{label}: block_encode_xy coefficients rel RMS "
-              f"{e:.3e} < 1e-5")
+        hold(label, "block_encode_xy coefficients", ck, cp,
+             dense_f64(tk, (3, 2), False), nnn)
         err_xy = float((ck - cp).abs().max())
         del cp
         d2, cb2, s2, r2 = tokenize.tokenize_blocks_plain(ck, mf)
@@ -607,23 +674,25 @@ def main():
         xk = fused_inverse.block_inv_xy(rows, volb.shape)
         xp = fused_inverse.block_inv_xy_plain(rows, volb.shape)
         torch.cuda.synchronize()
-        e = rel_rms(xk, xp)
-        check(e < TRANSFORM_TOL, f"{label}: block_inv_xy rel RMS {e:.3e} < 1e-5")
+        hold(label, "block_inv_xy", blocks.to_blocks(xk, BLOCK_B),
+             blocks.to_blocks(xp, BLOCK_B), dense_f64(rows, (3, 2), True), nnn)
         out["block_inv_xy"] = dict(
             max_abs_err=float((xk - xp).abs().max()),
             ms=cuda_ms(lambda: fused_inverse.block_inv_xy(rows, volb.shape), iters),
             plain_ms=cuda_ms(lambda: fused_inverse.block_inv_xy_plain(rows, volb.shape),
                              plain_iters),
             **bound(8 * ncell, 2 * C128_INV * ncell))
+        lib_inv = cuda_ms(lambda: einsum3(rows, volb.shape, 128, True), iters)
         del xp
         zp = fused_inverse.block_inv_z_plain(xk)
         zk = fused_inverse.block_inv_z(xk.clone())
         torch.cuda.synchronize()
-        e = rel_rms(zk, zp)
-        check(e < TRANSFORM_TOL, f"{label}: block_inv_z rel RMS {e:.3e} < 1e-5")
-        e = rel_rms(zk, fused_inverse.block_fused_inverse_plain(rows, volb.shape))
-        check(e < TRANSFORM_TOL, f"{label}: block_fused_inverse (both launches) rel "
-              f"RMS {e:.3e} < 1e-5 of block_fused_inverse_plain")
+        hold(label, "block_inv_z", blocks.to_blocks(zk, BLOCK_B),
+             blocks.to_blocks(zp, BLOCK_B),
+             dense_f64(blocks.to_blocks(xk, BLOCK_B), (1,), True), nnn)
+        check(same(zk, fused_inverse.block_fused_inverse_plain(rows, volb.shape)),
+              f"{label}: block_fused_inverse (both launches) bit-equal to "
+              "block_fused_inverse_plain")
         scratch = xk.clone()
         out["block_inv_z"] = dict(
             max_abs_err=float((zk - zp).abs().max()),
@@ -632,6 +701,13 @@ def main():
             **bound(8 * ncell, C128_INV * ncell))
         del xk, zk, zp, scratch, rows, bdense
         torch.cuda.empty_cache()
+        for k, lib in (("block_fwd_z", lib_fwd), ("block_encode_xy", lib_fwd),
+                       ("block_inv_xy", lib_inv), ("block_inv_z", lib_inv)):
+            out[k].update(library_ms=lib, library_call="one three-operator "
+                          "torch.einsum (full f32): the transform of both launches"
+                          + (", no tokenize" if k == "block_encode_xy" else ""))
+        print(f"  {label}: library einsum3 forward {lib_fwd:.4f} ms, inverse "
+              f"{lib_inv:.4f} ms on {card}")
         for k, r in out.items():
             print(f"  {label}: {k} kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.3f} ms,"
                   f" bound {r['bound_ms']:.4f} ms ({r['bound_by']}) on {card}")
@@ -646,6 +722,42 @@ def main():
     del noise_b
     for k, r in nreport.items():
         report[k].update(noise_ms=r["ms"], noise_plain_ms=r["plain_ms"])
+        if "library_ms" in r:
+            report[k].update(noise_library_ms=r["library_ms"])
+
+    def transforms_ramp(label, v):
+        """The four K6/K8 launches on the ramp (block RMS 10^4 apart, an
+        all-zero, a ~1e-38 and a NaN block): each bit-equal to its plain
+        version and within 1e-5 of the f64 operator; the forward's
+        coefficients feed the inverse."""
+        vt = torch.from_numpy(v).to(dev)
+        tk = fused_compress.fwd_z(vt)
+        torch.cuda.synchronize()
+        nnn = tk.shape[0]
+        hold(label, "block_fwd_z", tk, fused_compress.fwd_z_plain(vt),
+             dense_f64(blocks.to_blocks(vt, BLOCK_B), (1,), False), nnn)
+        mf = quant.global_mulfac(v, SCALE)
+        ck = fused_compress.encode_xy(tk, mf, out=torch.empty_like(tk))[0]
+        torch.cuda.synchronize()
+        hold(label, "block_encode_xy coefficients", ck,
+             fused_compress.encode_xy_plain(tk, mf)[0], dense_f64(tk, (3, 2), False),
+             nnn)
+        del tk
+        rows = ck.view(-1, fused_inverse.CHUNK)
+        xk = fused_inverse.block_inv_xy(rows, v.shape)
+        torch.cuda.synchronize()
+        hold(label, "block_inv_xy", blocks.to_blocks(xk, BLOCK_B), blocks.to_blocks(
+             fused_inverse.block_inv_xy_plain(rows, v.shape), BLOCK_B),
+             dense_f64(rows, (3, 2), True), nnn)
+        zk = fused_inverse.block_inv_z(xk.clone())
+        torch.cuda.synchronize()
+        hold(label, "block_inv_z", blocks.to_blocks(zk, BLOCK_B), blocks.to_blocks(
+             fused_inverse.block_inv_z_plain(xk), BLOCK_B),
+             dense_f64(blocks.to_blocks(xk, BLOCK_B), (1,), True), nnn)
+        del vt, ck, rows, xk, zk
+        torch.cuda.empty_cache()
+
+    transforms_ramp("config B ramp", ramp(vol_b, 128))
     print(f"  config B noise container: decode_chase {nbtimes['decode_chase'][0]:.4f}"
           f" ms (one chain per block at cells = 2^21) on {card}")
 
@@ -709,10 +821,9 @@ def main():
         cp, _ = fused_compress.casc_local_plain(tk)
         ck, pk = fused_compress.casc_local(tk.clone())
         torch.cuda.synchronize()
+        hold(label, "block_casc_local coefficients", ck, cp,
+             dense_f64(tk, (3, 2), False), ck.shape[0])
         fin = torch.isfinite(cp).all(1)
-        e = rel_rms(ck[fin], cp[fin])
-        check(e < TRANSFORM_TOL, f"{label}: block_casc_local coefficients rel RMS "
-              f"{e:.3e} < 1e-5 ({int((~fin).sum())} non-finite blocks left out)")
         err_c = float((ck[fin] - cp[fin]).abs().max())
         del cp
         pp = quant.cta_sumsq(ck.view(-1, 128 * 128), 256).view(-1, 128)
@@ -981,26 +1092,30 @@ def main():
             # of its groups with a token; the table; the stream out
             **bound(ids.numel() * (512 + 16) + 32 * groups + 4 * mk.numel() + total, 0))
 
-    def fused_w_kernels(label, v, scale, iters):
+    def fused_w_kernels(label, v, scale, iters, timed=True):
         """K16a + K16b at B against their plain versions and against
-        block_encode (z | x,y) on the same volume; the two splits timed in
-        turns (z|xy, xz|y, xz|y, z|xy)."""
+        block_encode (z | x,y) on the same volume; with `timed`, the two
+        splits timed in turns (z|xy, xz|y, xz|y, z|xy) and the kernels'
+        report returned."""
         vtb = torch.from_numpy(v).to(dev)
         mf = quant.global_mulfac(v, scale)
         plane = fused_compress.fwd_xz(vtb)
         pp_ = fused_compress.fwd_xz_plain(vtb)
         torch.cuda.synchronize()
-        e = rel_rms(plane, pp_)
-        check(e < TRANSFORM_TOL, f"{label}: block_fwd_xz rel RMS {e:.3e} < 1e-5")
-        err_xz = float((plane - pp_).abs().max())
+        nnn = plane.numel() // 128 ** 3
+        hold(label, "block_fwd_xz", blocks.to_blocks(plane, BLOCK_B),
+             blocks.to_blocks(pp_, BLOCK_B),
+             dense_f64(blocks.to_blocks(vtb, BLOCK_B), (1, 3), False), nnn)
+        fin = pp_.isfinite()
+        err_xz = float((plane[fin] - pp_[fin]).abs().max())
         del pp_
         ck, dk, cbk, sk, rk, mk = fused_compress.encode_y(plane, mf)
         cp = fused_compress.encode_y_plain(plane, mf)[0]
         torch.cuda.synchronize()
-        e = rel_rms(ck, cp)
-        check(e < TRANSFORM_TOL, f"{label}: block_encode_y coefficients rel RMS {e:.3e} "
-              "< 1e-5")
-        err_y = float((ck - cp).abs().max())
+        hold(label, "block_encode_y coefficients", ck, cp,
+             dense_f64(blocks.to_blocks(plane, BLOCK_B), (2,), False), nnn)
+        fin = cp.isfinite()
+        err_y = float((ck[fin] - cp[fin]).abs().max())
         del cp
         plain = tokenize.tokenize_blocks_plain(ck, mf)
         check(all(torch.equal(a, b) for a, b in zip((dk, cbk, sk, rk), plain)),
@@ -1008,7 +1123,9 @@ def main():
               "the plain tokenize of its coefficients")
         del plain
         ref = fused_compress.block_encode(vtb, mf)
-        ndiff = int((ck.view(torch.int32) != ref[0].view(torch.int32)).sum())
+        # every bit, but a NaN (the ramp's NaN block) matching a NaN
+        ndiff = int(((ck.view(torch.int32) != ref[0].view(torch.int32))
+                     & ~(ck.isnan() & ref[0].isnan())).sum())
         ddiff = int((dk != ref[1]).sum())
         same_all = all(torch.equal(a, b) for a, b in zip((cbk, sk, rk, mk), ref[2:]))
         print(f"  {label}: x,z | y against z | x,y (block_encode): {ndiff} coefficients "
@@ -1017,7 +1134,9 @@ def main():
               "block_encode_y coefficients, descriptors, counts, sizes, raw flags and "
               "table bit-equal to block_encode's (z | x,y)")
         del ref
-        ncell, nnn = ck.numel(), mk.numel()
+        if not timed:
+            return None
+        ncell = ck.numel()
         split_ms = [cuda_ms(lambda: fused_compress.block_encode(vtb, mf), iters),
                     cuda_ms(lambda: fused_compress.block_encode_w(vtb, mf), iters),
                     cuda_ms(lambda: fused_compress.block_encode_w(vtb, mf), iters),
@@ -1057,6 +1176,7 @@ def main():
     for k, r in rep.items():
         r.update(noise_ms=nrep[k]["ms"], noise_plain_ms=nrep[k]["plain_ms"])
     optin.update(rep)
+    fused_w_kernels("config B ramp", ramp(vol_b, 128), SCALE, 1, timed=False)
 
     def patch_kernels(label, v, block, iters):
         """patch_extract and the rows emit on the stripe route's encode of
@@ -1316,6 +1436,10 @@ def main():
     e = rel_rms(torch.from_numpy(rle_host.host_decompress(data_b)), torch.from_numpy(ob))
     check(e < TRANSFORM_TOL, f"port container decodes under native "
           f"cvx_decompress_outofplace within rel RMS {e:.3e}")
+    nd = int((rle_host.host_decompress_parity(data_b).view(np.uint32)
+              != ob.view(np.uint32)).sum())
+    check(nd == 0, "the card's decompress of B's container bit-equal to native "
+          f"cvx_decompress_inplace_parity_th ({nd} of {ob.size} cells differ)")
     del out_b, ob
     res_b = timed_path("B", vol_b, BLOCK_B, data_b)
     check("cvx.block_fused_inverse" in res_b["spans_ms"], "config B: inverse span ran")
@@ -1720,14 +1844,15 @@ def main():
                     else counts_c[k] if k == "fused_encode_local" else
                     counts_d[k] if k in KERNELS_D and k not in KERNELS_B else
                     counts_b[k] if k in KERNELS_B else counts_a[k])
-        # no single PyTorch call computes any of these functions (PERF.md)
+        # a library call only for the transform kernels (einsum3); no single
+        # PyTorch call computes the others' functions (PERF.md)
         row = {"name": k, "route": "cuda",
                "source": f"cvxcompress_tpu_torch/{src}", "replaces": rep,
                "launches": launches, "max_abs_err": r["max_abs_err"],
                "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
-               "bound_by": r["bound_by"], "library_ms": None}
+               "bound_by": r["bound_by"], "library_ms": r.get("library_ms")}
         for extra in ("noise_ms", "noise_plain_ms", "ramp_ms", "ramp_plain_ms", "inputs",
-                      "in_place_ms"):
+                      "in_place_ms", "library_call", "noise_library_ms"):
             if extra in r:
                 row[extra] = r[extra]
         if also:

@@ -1,16 +1,39 @@
-// Shared pieces of the 128^3 whole-block kernels (block_encode, block_emit,
-// block_inverse).
+// Shared pieces of the 128^3 whole-block kernels (block_encode,
+// block_encode_local, block_encode_w, block_inverse).
 //
 // A 128^3 f32 block is 8 MiB: it fits neither a CTA's shared memory nor a
 // cluster's, so each kernel works on one 128 x 128 slice of a block at a
 // time and the three axis passes split into two launches through device
-// memory.  Inside a CTA one axis pass over the slice is a 128 x 128 x 128
-// f32 product with the operator, written as a register-tiled SIMT product:
-// the operator and the slice sit in shared memory at a padded pitch of 129
-// words, and each of the 256 threads accumulates an 8 x 8 tile of outputs
-// in registers (rows ti + 16r, columns tj + 16c), with one FMA chain per
-// output in ascending k.  The tile goes back to shared memory only after a
-// barrier, so no input is overwritten while another thread still needs it.
+// memory.  The slice sits in shared memory at a padded pitch of 129 words
+// (64.5 KiB), so three CTAs of 256 threads share an SM and one CTA's copies
+// overlap another's cascades.  Rows of 512 B move as float4s
+// (load_slice / store_slice).
+//
+// One axis pass is the multi-level Antonini 7/9 cascade along the 128
+// lines of the slice, rows or columns (cascade_lines): the levels 128, 64,
+// ..., 2 forward, 2, ..., 128 inverse, each output computed operation for
+// operation as the native library's parity cascade does it
+// (native/cvx_host.cpp wav_fwd_axis_parity :141, wav_inv_axis_parity :165):
+// the pair sums first, the taps added from the outside in, every multiply
+// and add rounded on its own (__fmul_rn / __fadd_rn: no FMA contraction).
+// About 23 FLOP per cell and axis against the 256 of a dense 128-tap
+// product.
+//
+// Mapping.  One lane per line, walking along it: a warp holds 32 lines,
+// and the four warps of a group split each of the levels 128, 64 and 32
+// into quarters,
+// each lane computing its quarter's output pairs into registers with a
+// window of taps that slides along the line (two shared-memory reads and
+// two writes per pair).  Every tap is read before any output is written
+// (the level works in place): the group's four warps meet at a named
+// barrier between the reads and the writes.  With the 129-word pitch a
+// word's bank is (line + position) mod 32 in either orientation, so the 32
+// lanes of a warp, on 32 consecutive lines at one position, fall on 32
+// banks for rows and columns alike.  The four outputs at each end of a
+// level read mirrored taps, taken from small tables built once per CTA;
+// which pairs those are is the same across a warp, so nothing diverges.
+// The levels 16 to 2 (30 of a line's 254 outputs) run in one warp's
+// registers, which spares them eight of the group's barriers.
 #pragma once
 
 #include "tokens.cuh"
@@ -21,65 +44,332 @@ constexpr int BB = 128;                  // block edge
 constexpr int BB_CELLS = BB * BB * BB;   // 2^21 cells, 8 MiB of f32
 constexpr int SLICE = BB * BB;           // cells of one 128 x 128 slice
 constexpr int PITCH = BB + 1;            // padded row pitch in shared memory
-constexpr int MAT = BB * PITCH;          // one padded 128 x 128 matrix
-constexpr int BT = 256;                  // threads per CTA (16 x 16 tiles)
-// operator + slice, dynamic shared memory (the launcher raises the limit)
-constexpr size_t BSMEM = 2 * (size_t)MAT * sizeof(float);
+constexpr int MAT = BB * PITCH;          // one padded 128 x 128 slice
+constexpr int BT = 256;                  // threads per CTA (8 warps)
+// one slice, dynamic shared memory (the launcher raises the limit)
+constexpr size_t BSMEM = (size_t)MAT * sizeof(float);
 
-// s[r * PITCH + c] = src[r * stride + c] for the 128 x 128 slice.
+// The analysis (AL, AH) and synthesis (SL, SH) taps, as native/cvx_host.cpp
+// writes them.
+constexpr float AL0 = 8.526986790094000e-001f, AL1 = 3.774028556126500e-001f,
+                AL2 = -1.106244044184200e-001f, AL3 = -2.384946501938001e-002f,
+                AL4 = 3.782845550699501e-002f;
+constexpr float AH0 = 7.884856164056601e-001f, AH1 = -4.180922732222101e-001f,
+                AH2 = -4.068941760955800e-002f, AH3 = 6.453888262893799e-002f;
+constexpr float SL0 = 7.884856164056601e-001f, SL1 = 4.180922732222101e-001f,
+                SL2 = -4.068941760955800e-002f, SL3 = -6.453888262893799e-002f;
+constexpr float SH0 = 8.526986790094000e-001f, SH1 = -3.774028556126500e-001f,
+                SH2 = -1.106244044184200e-001f, SH3 = 2.384946501938001e-002f,
+                SH4 = 3.782845550699501e-002f;
+
+// The symmetric extensions at the ends of a level (native/cvx_host.cpp
+// mirr, mirr_sl, mirr_sh), usable in constant expressions.
+__host__ __device__ constexpr int mirr(int v, int n) {
+  v = v < 0 ? -v : v;
+  v = v >= n ? 2 * n - 2 - v : v;
+  v = v < 0 ? -v : v;
+  return v >= n ? 2 * n - 2 - v : v;
+}
+__host__ __device__ constexpr int mirr_sl(int v, int nl) {
+  for (int r = 0; r < 3; ++r) {
+    v = v < 0 ? -v : v;
+    v = v >= nl ? 2 * nl - 1 - v : v;
+  }
+  return v;
+}
+__host__ __device__ constexpr int mirr_sh(int v, int nl, int nh) {
+  v -= nl;
+  for (int r = 0; r < 3; ++r) {
+    v = v < 0 ? -v - 1 : v;
+    v = v >= nh ? 2 * nh - 2 - v : v;
+  }
+  return nl + v;
+}
+
+// The levels n = 32 << i (i = 0..2) run in shared memory, the levels 16 to
+// 2 in one thread's registers.  The shared-memory levels' mirrored tap
+// positions, indexed by the virtual position v + 4: forward fwd = mirr(v,
+// n) for v in [-4, n + 4); inverse lo = mirr_sl(v, n/2) and hi =
+// mirr_sh(n/2 + v, n/2, n/2) (absolute) for v in [-4, n/2 + 4).
+constexpr int SMALL = 16;  // the largest level held in registers
+struct MirrorTables {
+  unsigned char fwd[3][BB + 8];
+  unsigned char lo[3][BB / 2 + 8];
+  unsigned char hi[3][BB / 2 + 8];
+};
+
+// Every thread fills its share; the caller's next __syncthreads publishes.
+__device__ __forceinline__ void build_tables(MirrorTables* t) {
+  constexpr int NF = 3 * (BB + 8), NI = 3 * (BB / 2 + 8);
+  for (int i = threadIdx.x; i < NF + 2 * NI; i += BT) {
+    if (i < NF) {
+      const int lv = i / (BB + 8), v = i % (BB + 8) - 4;
+      t->fwd[lv][v + 4] = (unsigned char)mirr(v, 2 * SMALL << lv);
+    } else {
+      const int k = (i - NF) % NI, lv = k / (BB / 2 + 8);
+      const int v = k % (BB / 2 + 8) - 4, h = SMALL << lv;
+      if (i - NF < NI)
+        t->lo[lv][v + 4] = (unsigned char)mirr_sl(v, h);
+      else
+        t->hi[lv][v + 4] = (unsigned char)mirr_sh(h + v, h, h);
+    }
+  }
+}
+
+// One forward output pair from its taps x[k] = line[mirr(2j - 4 + k)]:
+// the lowpass and highpass outputs, in wav_fwd_axis_parity's order.
+__device__ __forceinline__ void fwd_pair(const float (&x)[9], float& lo,
+                                         float& hi) {
+  float a = __fmul_rn(AL4, __fadd_rn(x[0], x[8]));
+  a = __fadd_rn(a, __fmul_rn(AL3, __fadd_rn(x[1], x[7])));
+  a = __fadd_rn(a, __fmul_rn(AL2, __fadd_rn(x[2], x[6])));
+  a = __fadd_rn(a, __fmul_rn(AL1, __fadd_rn(x[3], x[5])));
+  lo = __fadd_rn(a, __fmul_rn(AL0, x[4]));
+  float b = __fmul_rn(AH3, __fadd_rn(x[2], x[8]));
+  b = __fadd_rn(b, __fmul_rn(AH2, __fadd_rn(x[3], x[7])));
+  b = __fadd_rn(b, __fmul_rn(AH1, __fadd_rn(x[4], x[6])));
+  hi = __fadd_rn(b, __fmul_rn(AH0, x[5]));
+}
+
+// One inverse output pair from the lowpass taps L[c] (k - 1 + c) and the
+// highpass taps H[c] (n/2 + k - 2 + c): the even and odd outputs, in
+// wav_inv_axis_parity's order.
+__device__ __forceinline__ void inv_pair(const float (&L)[4], const float (&H)[5],
+                                         float& ev, float& od) {
+  float e = __fmul_rn(SH3, __fadd_rn(H[0], H[3]));
+  e = __fadd_rn(e, __fmul_rn(SL2, __fadd_rn(L[0], L[2])));
+  e = __fadd_rn(e, __fmul_rn(SH1, __fadd_rn(H[1], H[2])));
+  ev = __fadd_rn(e, __fmul_rn(SL0, L[1]));
+  float o = __fmul_rn(SH4, __fadd_rn(H[0], H[4]));
+  o = __fadd_rn(o, __fmul_rn(SL3, __fadd_rn(L[0], L[3])));
+  o = __fadd_rn(o, __fmul_rn(SH2, __fadd_rn(H[1], H[3])));
+  o = __fadd_rn(o, __fmul_rn(SL1, __fadd_rn(L[1], L[2])));
+  od = __fadd_rn(o, __fmul_rn(SH0, H[2]));
+}
+
+// The four warps of a line group meet here (named barrier 1 + group, 128
+// threads): a level's reads are done before any of its writes, and its
+// writes before the next level's reads.
+__device__ __forceinline__ void group_sync(int group) {
+  asm volatile("bar.sync %0, 128;\n" ::"r"(1 + group) : "memory");
+}
+
+// One analysis level of length N (32, 64 or 128) in place on the line at
+// `p` (positions at a stride of PS): lowpass outputs to [0, N/2), highpass
+// to [N/2, N).  This thread computes the output pairs j = s * S + m, m < S,
+// of its quarter s with a window of the 9 taps 2j - 4 .. 2j + 4 that slides
+// by 2 a pair.
+template <int N, int PS>
+__device__ __forceinline__ void fwd_level(float* p, int s, int group,
+                                          const unsigned char* tab) {
+  constexpr int P = N / 2, S = P / 4;
+  float lo[S], hi[S], x[9];
+#pragma unroll
+  for (int m = 0; m < S; ++m) {
+    const int j = s * S + m;
+    if (m == 0) {
+      if (j >= 2 && j < P - 2) {
+#pragma unroll
+        for (int k = 0; k < 9; ++k) x[k] = p[(2 * j - 4 + k) * PS];
+      } else {
+#pragma unroll
+        for (int k = 0; k < 9; ++k) x[k] = p[tab[2 * j + k] * PS];
+      }
+    } else {
+#pragma unroll
+      for (int k = 0; k < 7; ++k) x[k] = x[k + 2];
+      if (j < P - 2) {
+        x[7] = p[(2 * j + 3) * PS];
+        x[8] = p[(2 * j + 4) * PS];
+      } else {
+        x[7] = p[tab[2 * j + 7] * PS];
+        x[8] = p[tab[2 * j + 8] * PS];
+      }
+    }
+    fwd_pair(x, lo[m], hi[m]);
+  }
+  group_sync(group);
+#pragma unroll
+  for (int m = 0; m < S; ++m) {
+    p[(s * S + m) * PS] = lo[m];
+    p[(P + s * S + m) * PS] = hi[m];
+  }
+  group_sync(group);
+}
+
+// One synthesis level of length N (32, 64 or 128) in place: the bands
+// [0, N/2) and [N/2, N) interleave into even and odd outputs.  The pairs
+// k = s * S + m of quarter s, with windows of the 4 lowpass taps k - 1 ..
+// k + 2 and the 5 highpass taps N/2 + k - 2 .. N/2 + k + 2, each sliding by
+// 1 a pair.
+template <int N, int PS>
+__device__ __forceinline__ void inv_level(float* p, int s, int group,
+                                          const unsigned char* tlo,
+                                          const unsigned char* thi) {
+  constexpr int P = N / 2, S = P / 4;
+  float ev[S], od[S], L[4], H[5];
+#pragma unroll
+  for (int m = 0; m < S; ++m) {
+    const int k = s * S + m;
+    if (m == 0) {
+      if (k >= 2 && k < P - 2) {
+#pragma unroll
+        for (int c = 0; c < 4; ++c) L[c] = p[(k - 1 + c) * PS];
+#pragma unroll
+        for (int c = 0; c < 5; ++c) H[c] = p[(P + k - 2 + c) * PS];
+      } else {
+#pragma unroll
+        for (int c = 0; c < 4; ++c) L[c] = p[tlo[k + 3 + c] * PS];
+#pragma unroll
+        for (int c = 0; c < 5; ++c) H[c] = p[thi[k + 2 + c] * PS];
+      }
+    } else {
+#pragma unroll
+      for (int c = 0; c < 3; ++c) L[c] = L[c + 1];
+#pragma unroll
+      for (int c = 0; c < 4; ++c) H[c] = H[c + 1];
+      if (k < P - 2) {
+        L[3] = p[(k + 2) * PS];
+        H[4] = p[(P + k + 2) * PS];
+      } else {
+        L[3] = p[tlo[k + 6] * PS];
+        H[4] = p[thi[k + 6] * PS];
+      }
+    }
+    inv_pair(L, H, ev[m], od[m]);
+  }
+  group_sync(group);
+#pragma unroll
+  for (int m = 0; m < S; ++m) {
+    p[2 * (s * S + m) * PS] = ev[m];
+    p[(2 * (s * S + m) + 1) * PS] = od[m];
+  }
+  group_sync(group);
+}
+
+// One level of length N <= 16 in place on a line's first 16 positions,
+// held in registers `v` (every index a constant).
+template <int N, bool INVERSE>
+__device__ __forceinline__ void small_level(float (&v)[SMALL]) {
+  constexpr int H = N / 2;
+  float t[N];
+#pragma unroll
+  for (int i = 0; i < N; ++i) t[i] = v[i];
+#pragma unroll
+  for (int j = 0; j < H; ++j) {
+    if constexpr (INVERSE) {
+      float L[4], Hi[5];
+#pragma unroll
+      for (int c = 0; c < 4; ++c) L[c] = t[mirr_sl(j - 1 + c, H)];
+#pragma unroll
+      for (int c = 0; c < 5; ++c) Hi[c] = t[mirr_sh(H + j - 2 + c, H, H)];
+      inv_pair(L, Hi, v[2 * j], v[2 * j + 1]);
+    } else {
+      float x[9];
+#pragma unroll
+      for (int k = 0; k < 9; ++k) x[k] = t[mirr(2 * j - 4 + k, N)];
+      fwd_pair(x, v[j], v[H + j]);
+    }
+  }
+}
+
+// The levels 16, 8, 4, 2 forward (or 2 .. 16 inverse) of one line in one
+// thread's registers.
+template <int PS, bool INVERSE>
+__device__ __forceinline__ void small_levels(float* p) {
+  float v[SMALL];
+#pragma unroll
+  for (int i = 0; i < SMALL; ++i) v[i] = p[i * PS];
+  if constexpr (INVERSE) {
+    small_level<2, true>(v);
+    small_level<4, true>(v);
+    small_level<8, true>(v);
+    small_level<16, true>(v);
+  } else {
+    small_level<16, false>(v);
+    small_level<8, false>(v);
+    small_level<4, false>(v);
+    small_level<2, false>(v);
+  }
+#pragma unroll
+  for (int i = 0; i < SMALL; ++i) p[i * PS] = v[i];
+}
+
+// The whole multi-level cascade along every line of the slice `s`: line i
+// starts at s + i * LS, its positions at a stride of PS (rows: <PITCH, 1>,
+// columns: <1, PITCH>).  Warps 4g .. 4g + 3 own lines 64g .. 64g + 63, 32
+// at a time, lane l line 64g + 32r + l, warp 4g + q its quarter q of each
+// shared-memory level's outputs; warp 4g alone runs the levels in
+// registers.  The caller synchronises the CTA before (the slice is loaded)
+// and after.
+template <int LS, int PS, bool INVERSE>
+__device__ __forceinline__ void cascade_lines(float* s, const MirrorTables& t) {
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int group = warp >> 2, q = warp & 3;
+#pragma unroll 1
+  for (int r = 0; r < 2; ++r) {
+    float* p = s + (64 * group + 32 * r + lane) * LS;
+    if constexpr (INVERSE) {
+      if (q == 0) small_levels<PS, true>(p);
+      group_sync(group);
+      inv_level<32, PS>(p, q, group, t.lo[0], t.hi[0]);
+      inv_level<64, PS>(p, q, group, t.lo[1], t.hi[1]);
+      inv_level<128, PS>(p, q, group, t.lo[2], t.hi[2]);
+    } else {
+      fwd_level<128, PS>(p, q, group, t.fwd[2]);
+      fwd_level<64, PS>(p, q, group, t.fwd[1]);
+      fwd_level<32, PS>(p, q, group, t.fwd[0]);
+      if (q == 0) small_levels<PS, false>(p);
+    }
+  }
+}
+
+// Lane l of warp w moves, at step i, the float4 at row
+// 4 * ((w + 8i) >> 2) + (l & 3), column 32 * ((w + 8i) & 3) + 4 * (l >> 2):
+// 8 lanes cover 128 contiguous bytes of a row, and the four scalar
+// shared-memory accesses of each float4 fall on 32 banks per warp.
+__device__ __forceinline__ int slice_step(int i, int& c) {
+  const int w = threadIdx.x >> 5, l = threadIdx.x & 31, step = w + 8 * i;
+  c = 32 * (step & 3) + 4 * (l >> 2);
+  return 4 * (step >> 2) + (l & 3);
+}
+
+// s[r * PITCH + c] = src[r * stride + c] for the 128 x 128 slice (src and
+// stride 16-byte aligned), eight float4 loads in flight per thread.
 __device__ __forceinline__ void load_slice(float* s, const float* src,
                                            int64_t stride) {
-  for (int i = threadIdx.x; i < SLICE; i += BT) {
-    const int r = i >> 7, c = i & (BB - 1);
-    s[r * PITCH + c] = src[r * stride + c];
+#pragma unroll 1
+  for (int h = 0; h < 2; ++h) {
+    float4 v[8];
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      int c;
+      const int r = slice_step(8 * h + i, c);
+      v[i] = __ldg(reinterpret_cast<const float4*>(src + r * stride + c));
+    }
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      int c;
+      float* d = s + slice_step(8 * h + i, c) * PITCH;
+      d[c] = v[i].x;
+      d[c + 1] = v[i].y;
+      d[c + 2] = v[i].z;
+      d[c + 3] = v[i].w;
+    }
   }
 }
 
-// acc[r][c] = sum_k A(i, k) * B(k, j) for i = ti + 16r, j = tj + 16c, where
-// A(i, k) = a[i * AI + k * AK] and B(k, j) = b[k * BK + j * BJ] in shared
-// memory.  With the 129-word pitch both the row- and the column-wise
-// operand reads of a warp fall on distinct banks (or broadcast).
-template <int AI, int AK, int BK, int BJ>
-__device__ __forceinline__ void mm128(const float* a, const float* b,
-                                      float (&acc)[8][8]) {
-  const int ti = threadIdx.x >> 4, tj = threadIdx.x & 15;
-#pragma unroll
-  for (int r = 0; r < 8; ++r)
-#pragma unroll
-    for (int c = 0; c < 8; ++c) acc[r][c] = 0.0f;
-#pragma unroll 2
-  for (int k = 0; k < BB; ++k) {
-    float av[8], bv[8];
-#pragma unroll
-    for (int r = 0; r < 8; ++r) av[r] = a[(ti + 16 * r) * AI + k * AK];
-#pragma unroll
-    for (int c = 0; c < 8; ++c) bv[c] = b[k * BK + (tj + 16 * c) * BJ];
-#pragma unroll
-    for (int r = 0; r < 8; ++r)
-#pragma unroll
-      for (int c = 0; c < 8; ++c) acc[r][c] = fmaf(av[r], bv[c], acc[r][c]);
+// dst[r * stride + c] = s[r * PITCH + c], float4 stores.
+__device__ __forceinline__ void store_slice(float* dst, int64_t stride,
+                                            const float* s) {
+#pragma unroll 4
+  for (int i = 0; i < 16; ++i) {
+    int c;
+    const int r = slice_step(i, c);
+    const float* q = s + r * PITCH + c;
+    *reinterpret_cast<float4*>(dst + r * stride + c) =
+        make_float4(q[0], q[1], q[2], q[3]);
   }
-}
-
-// The 8 x 8 tile into shared memory, s[i * PITCH + j].
-__device__ __forceinline__ void store_tile(float* s, const float (&acc)[8][8]) {
-  const int ti = threadIdx.x >> 4, tj = threadIdx.x & 15;
-#pragma unroll
-  for (int r = 0; r < 8; ++r)
-#pragma unroll
-    for (int c = 0; c < 8; ++c)
-      s[(ti + 16 * r) * PITCH + tj + 16 * c] = acc[r][c];
-}
-
-// The 8 x 8 tile into device memory, g[i * stride + j].
-__device__ __forceinline__ void store_tile(float* g, int64_t stride,
-                                           const float (&acc)[8][8]) {
-  const int ti = threadIdx.x >> 4, tj = threadIdx.x & 15;
-#pragma unroll
-  for (int r = 0; r < 8; ++r)
-#pragma unroll
-    for (int c = 0; c < 8; ++c)
-      g[(ti + 16 * r) * stride + tj + 16 * c] = acc[r][c];
 }
 
 // The block's volume origin from its raster index (nx, ny multiples of 128).
@@ -92,23 +382,17 @@ __device__ __forceinline__ BlockOrigin block_origin(int64_t blk, int nx,
   return {(blk % nbx) * BB, ((blk / nbx) % nby) * BB, (blk / (nbx * nby)) * BB};
 }
 
-// The x, then y cascade of one z-slice: the operator into `op`, the slice
-// of `src` (16,384 contiguous cells) into `s` at the padded pitch, the two
-// products; the slice's coefficients are left in `s`.
+// The x, then y forward cascade of one z-slice: the slice of `src` (16,384
+// contiguous cells) into `s` at the padded pitch, the two passes; the
+// slice's coefficients are left in `s`.  `t` is built and published by the
+// __syncthreads after the load.
 __device__ __forceinline__ void slice_xy(const float* src,
-                                         const float* __restrict__ op_g,
-                                         float* op, float* s) {
-  load_slice(op, op_g, BB);
+                                         const MirrorTables& t, float* s) {
   load_slice(s, src, BB);
   __syncthreads();
-  float acc[8][8];
-  mm128<PITCH, 1, 1, PITCH>(s, op, acc);  // x: out[y][x'] = sum_x s[y][x] W[x'][x]
+  cascade_lines<PITCH, 1, false>(s, t);  // x: along each row y
   __syncthreads();
-  store_tile(s, acc);
-  __syncthreads();
-  mm128<PITCH, 1, PITCH, 1>(op, s, acc);  // y: out[y'][x] = sum_y W[y'][y] s[y][x]
-  __syncthreads();
-  store_tile(s, acc);
+  cascade_lines<1, PITCH, false>(s, t);  // y: along each column x
   __syncthreads();
 }
 

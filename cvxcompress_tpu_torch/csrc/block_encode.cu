@@ -20,54 +20,54 @@
 //      on an atomic ticket).  The raw-fallback decision (size > 4 * cells)
 //      follows in the wrapper.
 //
-// What bounds it on an H100: the three 128-tap dot products per cell
-// (768 FLOP per cell) on the CUDA cores; one CTA of 132 KiB per SM runs
-// each slice's load, two products and tokenize back to back.
+// What bounds it on an H100: device-memory bytes.  Each pass runs the
+// multi-level 7/9 cascade itself (cascade_lines in block_common.cuh, ~23
+// FLOP per cell and axis in the native parity cascade's operation order);
+// a CTA holds one 64.5 KiB slice, so three CTAs share an SM and one CTA's
+// float4 copies overlap another's cascades.  block_encode_xy's tokenize
+// (the look-back and the descriptors, 4 B per cell) is the larger half.
 
 #include "block_common.cuh"
 
 namespace cvx {
 
-__global__ void __launch_bounds__(BT, 1)
+__global__ void __launch_bounds__(BT, 3)
 block_fwd_z_kernel(const float* __restrict__ vol, int nx, int ny,
-                   const float* __restrict__ op_g, float* __restrict__ tmp) {
-  extern __shared__ __align__(16) float smem[];
-  float* op = smem;
-  float* s = smem + MAT;
+                   float* __restrict__ tmp) {
+  extern __shared__ __align__(16) float s[];
+  __shared__ MirrorTables tabs;
   const int64_t blk = blockIdx.x >> 7;
   const int y = blockIdx.x & (BB - 1);
   const BlockOrigin o = block_origin(blk, nx, ny);
 
-  load_slice(op, op_g, BB);
+  build_tables(&tabs);
   const int64_t zstride = (int64_t)ny * nx;
   load_slice(s, vol + o.z0 * zstride + (o.y0 + y) * nx + o.x0, zstride);
   __syncthreads();
-  float acc[8][8];
-  mm128<PITCH, 1, PITCH, 1>(op, s, acc);  // out[z'][x] = sum_z W[z'][z] s[z][x]
-  store_tile(tmp + blk * BB_CELLS + y * BB, SLICE, acc);
+  cascade_lines<1, PITCH, false>(s, tabs);  // z: along each column x
+  __syncthreads();
+  store_slice(tmp + blk * BB_CELLS + y * BB, SLICE, s);
 }
 
-__global__ void __launch_bounds__(BT, 1)
-block_encode_xy_kernel(const float* src, const float* __restrict__ op_g,
-                       float mulfac, int* __restrict__ ticket,
-                       int* __restrict__ status, float* coeffs,
-                       int32_t* __restrict__ desc,
+__global__ void __launch_bounds__(BT, 3)
+block_encode_xy_kernel(const float* src, float mulfac,
+                       int* __restrict__ ticket, int* __restrict__ status,
+                       float* coeffs, int32_t* __restrict__ desc,
                        int32_t* __restrict__ chunk_bytes,
                        int32_t* __restrict__ sizes,
                        float* __restrict__ mulfacs) {
-  extern __shared__ __align__(16) float smem[];
-  float* op = smem;
-  float* s = smem + MAT;
+  extern __shared__ __align__(16) float s[];
+  __shared__ MirrorTables tabs;
   __shared__ int s_tile, s_carry, scan_buf[32];
 
   if (threadIdx.x == 0) s_tile = atomicAdd(ticket, 1);
+  build_tables(&tabs);
   __syncthreads();
   const int tile = s_tile;  // (block, z) in block-major, z-ascending order
   const int64_t off = (int64_t)tile * SLICE;
 
-  slice_xy(src + off, op_g, op, s);
-  for (int i = threadIdx.x; i < SLICE; i += BT)
-    coeffs[off + i] = s[(i >> 7) * PITCH + (i & (BB - 1))];
+  slice_xy(src + off, tabs, s);
+  store_slice(coeffs + off, BB, s);
   slice_tokenize(s, mulfac, tile, status, desc, chunk_bytes, sizes, mulfacs,
                  scan_buf, &s_carry);
 }
@@ -75,7 +75,7 @@ block_encode_xy_kernel(const float* src, const float* __restrict__ op_g,
 }  // namespace cvx
 
 extern "C" int cvx_block_fwd_z(const float* vol, int nx, int ny, int nz,
-                               const float* op, float* tmp, void* stream) {
+                               float* tmp, void* stream) {
   using namespace cvx;
   cudaError_t e = cudaFuncSetAttribute(
       block_fwd_z_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -83,14 +83,13 @@ extern "C" int cvx_block_fwd_z(const float* vol, int nx, int ny, int nz,
   if (e != cudaSuccess) return (int)e;
   const int64_t nnn = (int64_t)(nx / BB) * (ny / BB) * (nz / BB);
   block_fwd_z_kernel<<<(unsigned)(nnn * BB), BT, BSMEM,
-                       (cudaStream_t)stream>>>(vol, nx, ny, op, tmp);
+                       (cudaStream_t)stream>>>(vol, nx, ny, tmp);
   return (int)cudaGetLastError();
 }
 
 // `scratch` holds 1 + nnn * 128 ints: the ticket and the slices' status.
-extern "C" int cvx_block_encode_xy(const float* src, const float* op,
-                                   float mulfac, int64_t nnn, int* scratch,
-                                   float* coeffs, int32_t* desc,
+extern "C" int cvx_block_encode_xy(const float* src, float mulfac, int64_t nnn,
+                                   int* scratch, float* coeffs, int32_t* desc,
                                    int32_t* chunk_bytes, int32_t* sizes,
                                    float* mulfacs, void* stream) {
   using namespace cvx;
@@ -102,7 +101,7 @@ extern "C" int cvx_block_encode_xy(const float* src, const float* op,
     e = reset_encode_counters(scratch, chunk_bytes, sizes, nnn, st);
   if (e != cudaSuccess) return (int)e;
   block_encode_xy_kernel<<<(unsigned)(nnn * BB), BT, BSMEM, st>>>(
-      src, op, mulfac, scratch, scratch + 1, coeffs, desc, chunk_bytes,
-      sizes, mulfacs);
+      src, mulfac, scratch, scratch + 1, coeffs, desc, chunk_bytes, sizes,
+      mulfacs);
   return (int)cudaGetLastError();
 }

@@ -24,28 +24,27 @@
 //      next-tile mulfac lookahead is not needed.
 // No float atomics: the table is the same on every run and equals the
 // plain version's (ops/quant.py local_rms) bit for bit.
-// What bounds it on an H100: block_casc_local, the two 128-tap products per
-// cell (512 FLOP per cell) on the CUDA cores, as block_encode_xy;
-// block_scale_tok, reading the coefficients and writing the descriptors
-// (8 bytes per cell) and the chunk counts.
+// What bounds it on an H100: device-memory bytes.  block_casc_local, the
+// slice in and the coefficients out (the two cascades of block_common.cuh
+// cascade_lines, as block_encode_xy); block_scale_tok, reading the
+// coefficients and writing the descriptors (8 bytes per cell) and the chunk
+// counts.
 
 #include "block_common.cuh"
 
 namespace cvx {
 
-__global__ void __launch_bounds__(BT, 1)
-block_casc_local_kernel(float* buf, const float* __restrict__ op_g,
-                        double* __restrict__ partials) {
-  extern __shared__ __align__(16) float smem[];
-  float* op = smem;
-  float* s = smem + MAT;
+__global__ void __launch_bounds__(BT, 3)
+block_casc_local_kernel(float* buf, double* __restrict__ partials) {
+  extern __shared__ __align__(16) float s[];
+  __shared__ MirrorTables tabs;
   __shared__ double sum_buf[32];
   const int64_t tile = blockIdx.x;  // block * 128 + z
   const int64_t off = tile * SLICE;
 
-  slice_xy(buf + off, op_g, op, s);
-  for (int i = threadIdx.x; i < SLICE; i += BT)
-    buf[off + i] = s[(i >> 7) * PITCH + (i & (BB - 1))];
+  build_tables(&tabs);
+  slice_xy(buf + off, tabs, s);
+  store_slice(buf + off, BB, s);
   constexpr int PER = SLICE / BT;
   const int c0 = threadIdx.x * PER;
   double ss = 0.0;
@@ -89,15 +88,15 @@ block_scale_tok_kernel(const float* __restrict__ coeffs,
 
 // `buf` (nnn, 2^21) f32 holds block_fwd_z's output and receives the
 // coefficients; `partials` (nnn, 128) f64.
-extern "C" int cvx_block_casc_local(float* buf, const float* op, int64_t nnn,
-                                    double* partials, void* stream) {
+extern "C" int cvx_block_casc_local(float* buf, int64_t nnn, double* partials,
+                                    void* stream) {
   using namespace cvx;
   cudaError_t e = cudaFuncSetAttribute(
       block_casc_local_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)BSMEM);
   if (e != cudaSuccess) return (int)e;
   block_casc_local_kernel<<<(unsigned)(nnn * BB), BT, BSMEM,
-                            (cudaStream_t)stream>>>(buf, op, partials);
+                            (cudaStream_t)stream>>>(buf, partials);
   return (int)cudaGetLastError();
 }
 

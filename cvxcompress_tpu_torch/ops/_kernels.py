@@ -54,12 +54,11 @@ _SIGNATURES = {
         _VP, _VP, _VP, _VP, _VP, ctypes.c_int64, _VP, ctypes.c_int,
         ctypes.c_int64, _VP, _VP,
     ],
-    "cvx_block_fwd_z": [_VP, ctypes.c_int, ctypes.c_int, ctypes.c_int, _VP, _VP, _VP],
+    "cvx_block_fwd_z": [_VP, ctypes.c_int, ctypes.c_int, ctypes.c_int, _VP, _VP],
     "cvx_block_encode_xy": [
-        _VP, _VP, ctypes.c_float, ctypes.c_int64, _VP, _VP, _VP, _VP, _VP, _VP,
-        _VP,
+        _VP, ctypes.c_float, ctypes.c_int64, _VP, _VP, _VP, _VP, _VP, _VP, _VP,
     ],
-    "cvx_block_casc_local": [_VP, _VP, ctypes.c_int64, _VP, _VP],
+    "cvx_block_casc_local": [_VP, ctypes.c_int64, _VP, _VP],
     "cvx_block_scale_tok": [
         _VP, _VP, ctypes.c_float, ctypes.c_int64, _VP, _VP, _VP, _VP, _VP, _VP,
     ],
@@ -85,10 +84,10 @@ _SIGNATURES = {
         ctypes.c_int64, ctypes.c_int64, ctypes.c_int64, ctypes.c_int64, _VP, _VP,
         _VP, _VP, _VP,
     ],
-    "cvx_block_fwd_xz": [_VP, ctypes.c_int, ctypes.c_int, ctypes.c_int, _VP, _VP, _VP],
+    "cvx_block_fwd_xz": [_VP, ctypes.c_int, ctypes.c_int, ctypes.c_int, _VP, _VP],
     "cvx_block_encode_y": [
-        _VP, ctypes.c_int, ctypes.c_int, _VP, ctypes.c_float, ctypes.c_int64, _VP,
-        _VP, _VP, _VP, _VP, _VP, _VP,
+        _VP, ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_int64, _VP, _VP,
+        _VP, _VP, _VP, _VP, _VP,
     ],
     "cvx_patch_extract": [
         _VP, _VP, _VP, _VP, ctypes.c_int64, ctypes.c_int, ctypes.c_int, ctypes.c_int,
@@ -102,10 +101,8 @@ _SIGNATURES = {
         _VP, _VP, ctypes.c_int64, ctypes.c_int, _VP, _VP, _VP, _VP, _VP, _VP, _VP,
         _VP, _VP,
     ],
-    "cvx_block_inv_xy": [
-        _VP, _VP, ctypes.c_int, ctypes.c_int, ctypes.c_int, _VP, _VP,
-    ],
-    "cvx_block_inv_z": [_VP, ctypes.c_int, ctypes.c_int, ctypes.c_int, _VP, _VP],
+    "cvx_block_inv_xy": [_VP, ctypes.c_int, ctypes.c_int, ctypes.c_int, _VP, _VP],
+    "cvx_block_inv_z": [ctypes.c_int, ctypes.c_int, ctypes.c_int, _VP, _VP],
 }
 
 # one counter per launched kernel (the 128^3 encode and inverse are two
@@ -230,3 +227,12 @@ def check_cuda(*tensors, dtypes):
                 f"kernel input must be a contiguous CUDA {dt} tensor, got "
                 f"{t.dtype} on {t.device} (contiguous={t.is_contiguous()})"
             )
+
+
+def check_aligned(*tensors):
+    """Raise unless every tensor's data starts on a 16-byte boundary (the
+    128^3 kernels move 512-byte rows as float4s)."""
+    for t in tensors:
+        if t.data_ptr() % 16:
+            raise ValueError("kernel input must start on a 16-byte boundary (a view "
+                             f"at storage offset {t.storage_offset()})")

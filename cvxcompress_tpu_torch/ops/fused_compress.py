@@ -36,8 +36,13 @@ instead of z | x,y, as the JAX package's two-kernel path does: `fwd_xz`
 (kernel `block_fwd_xz`, K16a `forward_xz` :71: the z, then the x cascade,
 into a volume-order (nz, ny, nx) plane) and `encode_y` (`block_encode_y`,
 K16b `tokenize_fused_y` :144: the y cascade and the tokenize of every
-z-slice).  Same axis order, same products, so its coefficients and
-descriptors equal `block_encode`'s bit for bit; the same outputs.
+z-slice).  Same axis order, same per-line cascades, so its coefficients
+and descriptors equal `block_encode`'s bit for bit; the same outputs.
+
+Every pass runs the multi-level 7/9 cascade along its axis, on the card
+(csrc/block_common.cuh `cascade_lines`) and in the plain versions
+(`wavelet.cascade`) with the same f32 operations in the same order, so
+kernel and plain version agree bit for bit.
 """
 
 from __future__ import annotations
@@ -62,15 +67,13 @@ def fused_path_ok(vol_shape, block):
 
 def fwd_z_plain(vol):
     """Plain version of pass 1: the z cascade of every block, block-major."""
-    op = wavelet.operator(B, inverse=False, device=vol.device)
-    t = torch.einsum("nzyx,Zz->nZyx", blocks.to_blocks(vol, BLOCK), op)
-    return t.reshape(-1, CELLS).contiguous()
+    t = wavelet.cascade(blocks.to_blocks(vol, BLOCK), 1, inverse=False)
+    return t.reshape(-1, CELLS)
 
 
 def _xy_plain(tmp):
-    op = wavelet.operator(B, inverse=False, device=tmp.device)
-    t = torch.einsum("nzyx,Xx->nzyX", tmp.view(-1, B, B, B), op)
-    return torch.einsum("nzyx,Yy->nzYx", t, op).reshape(-1, CELLS).contiguous()
+    t = wavelet.cascade(tmp.view(-1, B, B, B), 3, inverse=False)
+    return wavelet.cascade(t, 2, inverse=False).reshape(-1, CELLS)
 
 
 def encode_xy_plain(tmp, mulfac):
@@ -109,20 +112,16 @@ def block_encode_plain(vol, mulfac=None, *, scale=None):
 def fwd_xz_plain(vol):
     """Plain version of `fwd_xz`: the z, then the x cascade of every block,
     in volume order."""
-    op = wavelet.operator(B, inverse=False, device=vol.device)
     nz, ny, nx = vol.shape
-    t = vol.reshape(nz // B, B, ny, nx // B, B)
-    t = torch.einsum("gzyhx,Zz->gZyhx", t, op)
-    t = torch.einsum("gzyhx,Xx->gzyhX", t, op)
-    return t.reshape(nz, ny, nx).contiguous()
+    t = wavelet.cascade(vol.reshape(nz // B, B, ny, nx), 1, inverse=False)
+    return wavelet.cascade(t.view(nz, ny, nx // B, B), 3, inverse=False).view(nz, ny, nx)
 
 
 def encode_y_plain(plane, mulfac):
     """Plain version of `encode_y`: the y cascade of the x,z plane, block
     major, then the tokenize."""
-    op = wavelet.operator(B, inverse=False, device=plane.device)
-    t = torch.einsum("nzyx,Yy->nzYx", blocks.to_blocks(plane, BLOCK), op)
-    coeffs = t.reshape(-1, CELLS).contiguous()
+    t = wavelet.cascade(blocks.to_blocks(plane, BLOCK), 2, inverse=False)
+    coeffs = t.reshape(-1, CELLS)
     return (coeffs, *tokenize_blocks_plain(coeffs, mulfac),
             torch.full((coeffs.shape[0],), mulfac, dtype=torch.float32,
                        device=coeffs.device))
@@ -142,11 +141,10 @@ def fwd_xz(vol):
     if vol.device.type == "cpu":
         return fwd_xz_plain(vol)
     _kernels.check_cuda(vol, dtypes=(torch.float32,))
+    _kernels.check_aligned(vol)
     nz, ny, nx = vol.shape
     plane = torch.empty_like(vol)
-    op = wavelet.operator(B, inverse=False, device=vol.device)
-    _kernels.launch("block_fwd_xz", vol.data_ptr(), nx, ny, nz, op.data_ptr(),
-                    plane.data_ptr())
+    _kernels.launch("block_fwd_xz", vol.data_ptr(), nx, ny, nz, plane.data_ptr())
     return plane
 
 
@@ -158,13 +156,13 @@ def encode_y(plane, mulfac):
     if plane.device.type == "cpu":
         return encode_y_plain(plane, mulfac)
     _kernels.check_cuda(plane, dtypes=(torch.float32,))
+    _kernels.check_aligned(plane)
     nz, ny, nx = plane.shape
     nnn = plane.numel() // CELLS
-    op = wavelet.operator(B, inverse=False, device=plane.device)
     coeffs = torch.empty((nnn, CELLS), dtype=torch.float32, device=plane.device)
     scratch, desc, chunk_bytes, sizes, mulfacs = _tokenize_outputs(nnn, plane.device)
     _kernels.launch(
-        "block_encode_y", plane.data_ptr(), nx, ny, op.data_ptr(), float(mulfac),
+        "block_encode_y", plane.data_ptr(), nx, ny, float(mulfac),
         nnn, scratch.data_ptr(), coeffs.data_ptr(), desc.data_ptr(),
         chunk_bytes.data_ptr(), sizes.data_ptr(), mulfacs.data_ptr(),
     )
@@ -184,17 +182,17 @@ def fwd_z(vol):
     if vol.device.type == "cpu":
         return fwd_z_plain(vol)
     _kernels.check_cuda(vol, dtypes=(torch.float32,))
+    _kernels.check_aligned(vol)
     nz, ny, nx = vol.shape
     nnn = (nz // B) * (ny // B) * (nx // B)
     tmp = torch.empty((nnn, CELLS), dtype=torch.float32, device=vol.device)
-    op = wavelet.operator(B, inverse=False, device=vol.device)
-    _kernels.launch("block_fwd_z", vol.data_ptr(), nx, ny, nz, op.data_ptr(),
-                    tmp.data_ptr())
+    _kernels.launch("block_fwd_z", vol.data_ptr(), nx, ny, nz, tmp.data_ptr())
     return tmp
 
 
 def _check_slices(tmp, out):
     _kernels.check_cuda(tmp, out, dtypes=(torch.float32, torch.float32))
+    _kernels.check_aligned(tmp, out)
     if tmp.dim() != 2 or tmp.shape[1] != CELLS or out.shape != tmp.shape:
         raise ValueError(f"the 128^3 passes take (nnn, {CELLS}) buffers, got "
                          f"{tuple(tmp.shape)} and {tuple(out.shape)}")
@@ -213,10 +211,9 @@ def encode_xy(tmp, mulfac, out=None):
     coeffs = tmp if out is None else out
     _check_slices(tmp, coeffs)
     nnn = tmp.shape[0]
-    op = wavelet.operator(B, inverse=False, device=tmp.device)
     scratch, desc, chunk_bytes, sizes, mulfacs = _tokenize_outputs(nnn, tmp.device)
     _kernels.launch(
-        "block_encode_xy", tmp.data_ptr(), op.data_ptr(), float(mulfac), nnn,
+        "block_encode_xy", tmp.data_ptr(), float(mulfac), nnn,
         scratch.data_ptr(), coeffs.data_ptr(), desc.data_ptr(),
         chunk_bytes.data_ptr(), sizes.data_ptr(), mulfacs.data_ptr(),
     )
@@ -242,10 +239,8 @@ def casc_local(tmp):
         return casc_local_plain(tmp)
     _check_slices(tmp, tmp)
     nnn = tmp.shape[0]
-    op = wavelet.operator(B, inverse=False, device=tmp.device)
     partials = torch.empty((nnn, SLICES), dtype=torch.float64, device=tmp.device)
-    _kernels.launch("block_casc_local", tmp.data_ptr(), op.data_ptr(), nnn,
-                    partials.data_ptr())
+    _kernels.launch("block_casc_local", tmp.data_ptr(), nnn, partials.data_ptr())
     return tmp, partials
 
 

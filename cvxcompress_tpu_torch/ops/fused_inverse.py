@@ -18,7 +18,10 @@ TPU counterpart: `cvxcompress_tpu/ops/fused_inverse.py`
 `block_fused_inverse_plain`) is the 128^3 inverse (K8 port, counterpart of
 `block_fused_inverse` :65): the dense block-major (nnn*16384, 128) buffer
 the device entropy decoder writes -> the (nz, ny, nx) volume, dims
-multiples of 128.
+multiples of 128.  Kernel and plain version run the multi-level inverse
+cascade in the native library's order (x, y, then z; `wavelet.cascade`),
+so the volume equals native's parity decompress
+(`cvx_decompress_inplace_parity_th`) bit for bit.
 
 `stripe_fused_inverse` (csrc/stripe_fused.cu, plain version
 `stripe_fused_inverse_plain`) is K5 at the other blocks of the JAX gate
@@ -83,16 +86,14 @@ def fused_inverse(rows, invmap, vol_shape):
 def block_inv_xy_plain(dense, vol_shape):
     """Plain version of pass 1: the x, then y inverse of every block, laid
     out as the volume."""
-    op = wavelet.operator(B128, inverse=True, device=dense.device)
-    t = torch.einsum("nzyx,Xx->nzyX", dense.reshape(-1, B128, B128, B128), op)
-    t = torch.einsum("nzyx,Yy->nzYx", t, op)
+    t = wavelet.cascade(dense.reshape(-1, B128, B128, B128), 3, inverse=True)
+    t = wavelet.cascade(t, 2, inverse=True)
     return blocks.from_blocks(t, vol_shape, (B128,) * 3)
 
 
 def block_inv_z_plain(vol):
     """Plain version of pass 2: the z inverse of every block."""
-    op = wavelet.operator(B128, inverse=True, device=vol.device)
-    t = torch.einsum("nzyx,Zz->nZyx", blocks.to_blocks(vol, (B128,) * 3), op)
+    t = wavelet.cascade(blocks.to_blocks(vol, (B128,) * 3), 1, inverse=True)
     return blocks.from_blocks(t, vol.shape, (B128,) * 3)
 
 
@@ -118,10 +119,9 @@ def block_inv_xy(dense, vol_shape):
     if dense.device.type == "cpu":
         return block_inv_xy_plain(dense, vol_shape)
     _kernels.check_cuda(dense, dtypes=(torch.float32,))
+    _kernels.check_aligned(dense)
     vol = torch.empty(vol_shape, dtype=torch.float32, device=dense.device)
-    op = wavelet.operator(B128, inverse=True, device=dense.device)
-    _kernels.launch("block_inv_xy", dense.data_ptr(), op.data_ptr(), nx, ny, nz,
-                    vol.data_ptr())
+    _kernels.launch("block_inv_xy", dense.data_ptr(), nx, ny, nz, vol.data_ptr())
     return vol
 
 
@@ -132,9 +132,9 @@ def block_inv_z(vol):
     if vol.device.type == "cpu":
         return block_inv_z_plain(vol)
     _kernels.check_cuda(vol, dtypes=(torch.float32,))
+    _kernels.check_aligned(vol)
     nz, ny, nx = vol.shape
-    op = wavelet.operator(B128, inverse=True, device=vol.device)
-    _kernels.launch("block_inv_z", op.data_ptr(), nx, ny, nz, vol.data_ptr())
+    _kernels.launch("block_inv_z", nx, ny, nz, vol.data_ptr())
     return vol
 
 

@@ -99,6 +99,13 @@ def lib():
                 ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_bool, _VP,
                 ctypes.c_int, ctypes.POINTER(ctypes.c_long),
             ]
+            h.cvx_compress_parity_th.restype = ctypes.c_float
+            h.cvx_compress_parity_th.argtypes = h.cvx_compress_th.argtypes
+            h.cvx_decompress_inplace_parity_th.restype = None
+            h.cvx_decompress_inplace_parity_th.argtypes = [
+                _VP, ctypes.c_int, ctypes.c_int, ctypes.c_int, _VP, ctypes.c_int,
+                ctypes.c_long,
+            ]
             h.cvx_decompress_outofplace.restype = ctypes.POINTER(ctypes.c_float)
             h.cvx_decompress_outofplace.argtypes = [
                 ctypes.POINTER(ctypes.c_int), ctypes.POINTER(ctypes.c_int),
@@ -209,6 +216,32 @@ def host_compress(vol, scale, block=(32, 32, 32), use_local_rms=False):
         ratio = lib().cvx_compress(float(scale), _p(vol), nx, ny, nz, bx, by, bz,
                                    _p(out), ctypes.byref(length))
     return out[: length.value].copy(), float(ratio)
+
+
+def host_compress_parity(vol, scale, block=(32, 32, 32), use_local_rms=False):
+    """`cvx_compress_parity_th`: native's codec with the parity cascade (the
+    reference's plain-AVX build order, x, y, then z); (container, ratio)."""
+    vol = np.ascontiguousarray(vol, dtype=F32)
+    nz, ny, nx = vol.shape
+    bx, by, bz = block
+    nnn = (-(-nx // bx)) * (-(-ny // by)) * (-(-nz // bz))
+    out = np.zeros(32 + 12 * nnn + nnn * 4 * bx * by * bz + 64, dtype=np.uint8)
+    length = ctypes.c_long(0)
+    ratio = lib().cvx_compress_parity_th(
+        float(scale), _p(vol), nx, ny, nz, bx, by, bz, bool(use_local_rms), _p(out),
+        os.cpu_count() or 1, ctypes.byref(length))
+    return out[: length.value].copy(), float(ratio)
+
+
+def host_decompress_parity(data):
+    """`cvx_decompress_inplace_parity_th`: native's decode and the parity
+    inverse cascade (x, y, then z) -> the (nz, ny, nx) f32 volume."""
+    data = np.ascontiguousarray(data, dtype=np.uint8)
+    nx, ny, nz = (int(v) for v in data[:12].view(np.uint32))
+    vol = np.empty((nz, ny, nx), dtype=F32)
+    lib().cvx_decompress_inplace_parity_th(_p(vol), nx, ny, nz, _p(data),
+                                           os.cpu_count() or 1, data.size)
+    return vol
 
 
 def host_decompress(data):

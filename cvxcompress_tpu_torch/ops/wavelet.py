@@ -13,7 +13,11 @@ tests/test_torch_wavelet.py holds the operators bit-equal to those.
 order x -> y -> z.  They are the specification the CUDA kernels in
 ops/tokenize.py and ops/fused_inverse.py are compared with, and the
 transforms themselves on the stripe route (with `forward_3d_volume`), where
-the JAX package runs them as XLA products too.  The matmuls
+the JAX package runs them as XLA products too.  The 128^3 kernels
+(csrc/block_common.cuh) run the multi-level cascade itself instead, and
+`cascade_axis` / `cascade` are their plain versions: the native library's
+parity cascade (`native/cvx_host.cpp` `wav_fwd_axis_parity`,
+`wav_inv_axis_parity`) one f32 multiply or add per op.  The matmuls
 must run in full f32: a TF32 contraction keeps ~3 decimal digits and breaks
 the 1e-5 transform contract (CvxCompress.cpp:597), so each runs inside
 `full_f32`, which restores the caller's setting on exit (the JAX package
@@ -273,3 +277,95 @@ def forward_3d_volume(vol, block):
             a = torch.einsum("hzr,Zz->hZr", a.reshape(nbz, bz, nyp * nxp),
                              operator(bz, False, dev))
     return a.reshape(nzp, nyp, nxp).contiguous()
+
+
+# The cascade's taps as f32 per device: 0-dim tensors keep every product in
+# f32 (a Python float would leave the promotion to the backend).
+@functools.lru_cache(maxsize=None)
+def _taps(device):
+    dev = torch.device(device)
+    return tuple(tuple(torch.tensor(c, device=dev) for c in f)
+                 for f in (AL, AH, SL, SH))
+
+
+@functools.lru_cache(maxsize=None)
+def _level_index(n, inverse, device):
+    """The mirrored tap indices of one level of length n, per tap offset:
+    forward {lo: {k: mirr(2i + k)}, hi: {k: mirr(2i + 1 + k)}}; inverse
+    {sl: {c: mirr_sl(k + c)}, sh: {c: mirr_sh(nl + k + c)}}, k the output
+    pair (nl pairs; the odd outputs take the first nh)."""
+    nh = n // 2
+    nl = n - nh
+    dev = torch.device(device)
+
+    def t(a):
+        return torch.as_tensor(np.asarray(a, dtype=np.int64), device=dev)
+
+    if not inverse:
+        lo, hi = 2 * np.arange(nl), 2 * np.arange(nh) + 1
+        return ({k: t(mirr(lo + k, n)) for k in range(-4, 5)},
+                {k: t(mirr(hi + k, n)) for k in range(-3, 4)})
+    k = np.arange(nl)
+    return ({c: t(mirr_sl(k + c, nl)) for c in range(-1, 3)},
+            {c: t(mirr_sh(nl + k + c, nl, nh)) for c in range(-2, 3)})
+
+
+def _fwd_level(x, n):
+    """One analysis level over x[..., :n] in place: [lowpass | highpass] in
+    wav_fwd_axis_parity's order (pair sum first, then the outer taps in)."""
+    (al, ah, _, _), (lo, hi) = _taps(x.device), _level_index(n, False, x.device)
+    t = x[..., :n]
+
+    def pair(ix, k):
+        return t.index_select(-1, ix[-k]) + t.index_select(-1, ix[k])
+
+    a = pair(lo, 4) * al[4]
+    for k in (3, 2, 1):
+        a = a + pair(lo, k) * al[k]
+    a = a + t.index_select(-1, lo[0]) * al[0]
+    b = pair(hi, 3) * ah[3]
+    for k in (2, 1):
+        b = b + pair(hi, k) * ah[k]
+    b = b + t.index_select(-1, hi[0]) * ah[0]
+    x[..., :n] = torch.cat([a, b], -1)
+
+
+def _inv_level(x, n):
+    """One synthesis level over x[..., :n] in place, interleaving the bands
+    in wav_inv_axis_parity's order."""
+    (_, _, sl, sh), (L, H) = _taps(x.device), _level_index(n, True, x.device)
+    nh = n // 2
+    t = x[..., :n]
+
+    def g(ix, c, m):
+        return t.index_select(-1, ix[c][:m])
+
+    nl = n - nh
+    ev = (g(H, -2, nl) + g(H, 1, nl)) * sh[3]
+    ev = ev + (g(L, -1, nl) + g(L, 1, nl)) * sl[2]
+    ev = ev + (g(H, -1, nl) + g(H, 0, nl)) * sh[1]
+    ev = ev + g(L, 0, nl) * sl[0]
+    od = (g(H, -2, nh) + g(H, 2, nh)) * sh[4]
+    od = od + (g(L, -1, nh) + g(L, 2, nh)) * sl[3]
+    od = od + (g(H, -1, nh) + g(H, 1, nh)) * sh[2]
+    od = od + (g(L, 0, nh) + g(L, 1, nh)) * sl[1]
+    od = od + g(H, 0, nh) * sh[0]
+    x[..., 0:n:2] = ev
+    x[..., 1:n:2] = od
+
+
+def cascade_axis(t, inverse):
+    """The multi-level 7/9 cascade along the last axis of an f32 tensor
+    (levels `level_schedule`, forward n down to 2, inverse 2 up to n): the
+    plain version of the 128^3 kernels' cascade, operation for operation the
+    native library's parity cascade.  Returns a new tensor."""
+    x = t.contiguous().clone()
+    levels = level_schedule(x.shape[-1])
+    for n in reversed(levels) if inverse else levels:
+        (_inv_level if inverse else _fwd_level)(x, n)
+    return x
+
+
+def cascade(t, dim, inverse):
+    """`cascade_axis` along `dim` of `t`; a contiguous tensor of t's shape."""
+    return cascade_axis(t.movedim(dim, -1), inverse).movedim(-1, dim).contiguous()

@@ -153,9 +153,9 @@ def test_k16_plain_matches_jax(jax_k16):
 
 
 def test_block_encode_w_agrees_with_block_encode(jax_k16):
-    """x,z | y and z | x,y (plain versions, einsums) give the same outputs'
-    shapes and coefficients within 1e-5 (the kernels' bit-identity is held
-    on the card, tests/test_torch_cuda.py)."""
+    """x,z | y and z | x,y (plain versions) give the same outputs' shapes
+    and coefficients within 1e-5 (bit-identity is held on the CPU by
+    tests/test_torch_cascade.py and on the card by tests/test_torch_cuda.py)."""
     vol = torch.from_numpy(jax_k16[0])
     a = fused_compress.block_encode_w(vol, MULFAC)
     b = fused_compress.block_encode(vol, MULFAC)
