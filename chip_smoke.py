@@ -42,10 +42,14 @@ Builds the CUDA kernels (csrc/, nvcc for sm_90a) and the native host library
   set_float32_matmul_precision("high") equal to one under "highest";
 
 it compares every kernel of the path with its plain PyTorch version at the
-path's shapes (the seven 128^3 transform launches bit for bit, on the B
-sinusoid, noise and ramp, and within 1e-5 of the f64 dense operator; the
-card's decompress of B's container bit-equal to native's parity
-decompress) (also on an N(0,1) noise volume of the same shape, the
+path's shapes (`fused_encode`, `fused_encode_local` and `fused_inverse`,
+dense and chunk-sparse, bit for bit on A's sinusoid, noise, the ramp and a
+(100, 130, 75) volume whose nx % 4 != 0 takes the encode's 4-byte copy
+route; the seven 128^3 transform launches bit for bit, on the B sinusoid,
+noise and ramp; each transform within 1e-5 of the f64 dense operator; the
+card's decompress of A's and B's containers bit-equal to native's parity
+decompress, and A's container against native's parity codec's) (also on
+an N(0,1) noise volume of the same shape, the
 decoder's heavy case, and against the native encoder and decoder), then
 drives the path once through the public API on the default device —
 compress on the card, decompress with the device engine (entropy parse,
@@ -84,6 +88,8 @@ TRANSFORM_TOL = 1e-5  # relative RMS, the reference's fast-vs-slow bar
 NOISE_SCALE = 1e-1  # N(0,1) at this scale: ~4:1, the decoder's heavy case
 DECODE_SPANS = ("cvx.plan", "cvx.plan_h2d", "cvx.decode_maps", "cvx.decode_chase",
                 "cvx.decode_emit", "cvx.overlay_raw")
+BLOCK_A = (32, 32, 32)
+SHAPE_U = (100, 130, 75)  # nx % 4 != 0: the 32^3 encode's 4-byte copy route
 SHAPE_B = (384, 384, 384)  # bench config B (bench.py:589, :595)
 BLOCK_B = (128, 128, 128)
 # the JAX package's record on config B (BENCH_dev_r05.json, B_north_star_128c)
@@ -193,8 +199,8 @@ def cascade_flops(n, inverse=False):
     an analysis lowpass output takes 4 pair adds, 5 multiplies and 4 adds
     (13 FLOP), a highpass one 3, 4 and 3 (10); synthesis swaps the two, an
     even output 10 and an odd one 13.  The levels are n, n - n//2, ..., 2.
-    The 128^3 kernels run this cascade; the other transform kernels apply
-    the composed dense operator instead, and the bound counts the
+    The 32^3 and 128^3 kernels run this cascade; the fused stripe kernels
+    apply the composed dense operator instead, and the bound counts the
     function's work, not theirs."""
     lo, hi = (10, 13) if inverse else (13, 10)
     total, m = 0, n
@@ -251,25 +257,83 @@ def hold(label, name, got, plain, ref64, nnn):
           f"dense operator ({out} non-finite blocks left out)")
 
 
-def einsum3(t, shape, b, inverse):
-    """One torch.einsum with the three (b, b) f32 operators in full f32 over
-    a (nz, ny, nx) volume of b^3 blocks: the library call timed beside the
-    transform kernels (`library_ms`; the port never calls it).  Forward: the
-    volume in, its coefficients out in volume order; inverse: block-major
-    coefficients in, the volume out."""
+def u32_differ(a, b):
+    """Cells whose f32 bits differ (NaN payloads included)."""
+    import torch
+
+    return int((a.contiguous().view(torch.int32) != b.contiguous().view(torch.int32)).sum())
+
+
+def block32(label, v, scale, local):
+    """`fused_encode` (or `fused_encode_local`) and `fused_inverse` (dense
+    and chunk-sparse, on the encode's coefficients) on the volume `v`,
+    each bit-equal to its plain version (coefficients and volumes as
+    uint32; descriptors, sizes, raw flags and the table equal) and within
+    1e-5 of the f64 dense operator (`dense_f64`, the non-finite blocks or
+    cells left out)."""
+    import torch
+    from cvxcompress_tpu_torch.ops import blocks, codec, fused_inverse, quant, tokenize
+
+    vt = torch.from_numpy(v).cuda()
+    args = dict(scale=scale) if local else dict(mulfac=quant.global_mulfac(v, scale))
+    name = "fused_encode_local" if local else "fused_encode"
+    k = tokenize.fused_encode(vt, **args)
+    p = tokenize.fused_encode_plain(vt, **args)
+    torch.cuda.synchronize()
+    nnn = k[0].shape[0]
+    nd = u32_differ(k[0], p[0])
+    check(nd == 0, f"{label}: {name} coefficients uint32-equal to its plain version "
+          f"({nd} of {k[0].numel()} cells differ)")
+    check(all(torch.equal(a, b) for a, b in zip(k[1:], p[1:])),
+          f"{label}: {name} descriptors, sizes, raw flags ({int(k[3].sum())} raw of {nnn})"
+          f" and table (mulfacs {float(k[4].min()):.4g} to {float(k[4].max()):.4g}) "
+          "equal to its plain version's")
+    del p
+    e, out = rel_rms_finite(
+        k[0], dense_f64(blocks.to_blocks(vt, BLOCK_A), (3, 2, 1), False, 32), nnn)
+    check(e < TRANSFORM_TOL, f"{label}: {name} rel RMS {e:.3e} < 1e-5 of the f64 dense "
+          f"operator ({out} non-finite blocks left out)")
+    del vt
+    rows = k[0].view(-1, fused_inverse.CHUNK)
+    rows_h, invmap_h = codec.sparse_chunks(k[0].cpu().numpy())
+    srows, sinv = torch.from_numpy(rows_h).cuda(), torch.from_numpy(invmap_h).cuda()
+    vp = fused_inverse.fused_inverse_plain(rows, None, v.shape)
+    for mode, vk in (("dense", fused_inverse.fused_inverse(rows, None, v.shape)),
+                     (f"chunk-sparse, {rows_h.shape[0]} of {invmap_h.size} chunks",
+                      fused_inverse.fused_inverse(srows, sinv, v.shape))):
+        torch.cuda.synchronize()
+        nd = u32_differ(vk, vp)
+        check(nd == 0, f"{label}: fused_inverse ({mode}) volume uint32-equal to its "
+              f"plain version ({nd} of {vk.numel()} cells differ)")
+    ref = blocks.from_blocks(dense_f64(rows, (3, 2, 1), True, 32), v.shape, BLOCK_A)
+    fin = ref.isfinite()
+    e = rel_rms(vk[fin], ref[fin])
+    check(e < TRANSFORM_TOL, f"{label}: fused_inverse rel RMS {e:.3e} < 1e-5 of the f64 "
+          f"dense operator ({int((~fin).sum())} non-finite cells left out)")
+    del k, rows, srows, sinv, vp, vk, ref
+    torch.cuda.empty_cache()
+
+
+def einsum3(t, shape, block, inverse):
+    """One torch.einsum with the three f32 operators of `block` = (bx, by,
+    bz) in full f32 over a (nz, ny, nx) volume of whole blocks: the library
+    call timed beside the transform kernels (`library_ms`; the port never
+    calls it).  Forward: the volume in, its coefficients out in volume
+    order; inverse: block-major coefficients in, the volume out."""
     import torch
     from cvxcompress_tpu_torch.ops import wavelet
 
+    bx, by, bz = block
     nz, ny, nx = shape
-    g = (nz // b, ny // b, nx // b)
-    op = wavelet.operator(b, inverse, t.device)
+    g = (nz // bz, ny // by, nx // bx)
+    ox, oy, oz = (wavelet.operator(n, inverse, t.device) for n in block)
     with wavelet.full_f32():
         if inverse:
-            out = torch.einsum("abczyx,Zz,Yy,Xx->aZbYcX", t.view(*g, b, b, b),
-                               op, op, op)
+            out = torch.einsum("abczyx,Zz,Yy,Xx->aZbYcX", t.view(*g, bz, by, bx),
+                               oz, oy, ox)
         else:
             out = torch.einsum("azbycx,Zz,Yy,Xx->aZbYcX",
-                               t.view(g[0], b, g[1], b, g[2], b), op, op, op)
+                               t.view(g[0], bz, g[1], by, g[2], bx), oz, oy, ox)
     return out.reshape(shape)
 
 
@@ -427,15 +491,22 @@ def main():
     mulfac = quant.global_mulfac(vol, SCALE)
     report = {}
 
+    # the 32^3 kernels bit-equal to their plain versions on A's sinusoid,
+    # noise, the ramp and a volume with nx % 4 != 0 (the encode's 4-byte
+    # copy route); the local-RMS encode in phase 2c
+    vol_u = np.random.default_rng(1).standard_normal(SHAPE_U, dtype=np.float32)
+    inputs32 = (("A", vol, SCALE), ("A noise", np.random.default_rng(2).standard_normal(
+        SHAPE, dtype=np.float32), NOISE_SCALE), ("A ramp", ramp(vol, 32), SCALE),
+        (f"unaligned {SHAPE_U} noise", vol_u, NOISE_SCALE))
+    for label, v, sc in inputs32:
+        block32(label, v, sc, local=False)
     ck, dk, sk, rk, mk = tokenize.fused_encode(vt, mulfac)
-    cp, dp, sp, rp, _ = tokenize.fused_encode_plain(vt, mulfac)
+    cp = tokenize.fused_encode_plain(vt, mulfac)[0]
     torch.cuda.synchronize()
-    e = rel_rms(ck, cp)
-    check(e < TRANSFORM_TOL, f"fused_encode coefficients rel RMS {e:.3e} < 1e-5")
     d2, s2, r2 = rle_device.tokenize(tokenize.scaled(ck, mulfac))
-    check(torch.equal(sk, s2) and torch.equal(rk, r2),
-          "fused_encode sizes/raw bit-equal to the plain tokenize of its coefficients")
-    check(torch.equal(dk, d2), "fused_encode descriptors bit-equal likewise")
+    check(torch.equal(sk, s2) and torch.equal(rk, r2) and torch.equal(dk, d2),
+          "fused_encode descriptors, sizes and raw flags bit-equal to the plain "
+          "tokenize of its coefficients")
     cells = ck.numel()
     report["fused_encode"] = dict(
         max_abs_err=float((ck - cp).abs().max()),
@@ -444,11 +515,11 @@ def main():
         # volume in; coefficients and descriptors out; three cascades and
         # the scale per cell (the tokenize's integer work is not counted)
         **bound(4 * vol.size + 8 * cells + 5 * sk.numel(), (3 * C32 + 1) * cells),
-        library_ms=cuda_ms(lambda: einsum3(vt, SHAPE, 32, False), 20),
+        library_ms=cuda_ms(lambda: einsum3(vt, SHAPE, BLOCK_A, False), 20),
         library_call="one three-operator torch.einsum (full f32): the transform, "
                      "no tokenize",
     )
-    del cp, dp, sp, rp, d2, s2, r2
+    del cp, d2, s2, r2
 
     nr = torch.where(rk, 0, sk).to(torch.int64)
     base = torch.cumsum(nr, 0) - nr
@@ -570,26 +641,31 @@ def main():
     vk = fused_inverse.fused_inverse(rows, None, SHAPE)
     vp = fused_inverse.fused_inverse_plain(rows, None, SHAPE)
     torch.cuda.synchronize()
-    e = rel_rms(vk, vp)
-    check(e < TRANSFORM_TOL, f"fused_inverse (dense) rel RMS {e:.3e} < 1e-5")
+    nd = u32_differ(vk, vp)
+    check(nd == 0, f"fused_inverse (dense) on the CI container's coefficients uint32-equal "
+          f"to its plain version ({nd} cells differ)")
     report["fused_inverse"] = dict(
         max_abs_err=float((vk - vp).abs().max()),
         ms=cuda_ms(lambda: fused_inverse.fused_inverse(rows, None, SHAPE), 20),
         plain_ms=cuda_ms(
             lambda: fused_inverse.fused_inverse_plain(rows, None, SHAPE), 3),
         **bound(4 * rows.numel() + 4 * vol.size, 3 * C32_INV * rows.numel()),
-        library_ms=cuda_ms(lambda: einsum3(rows, SHAPE, 32, True), 20),
+        library_ms=cuda_ms(lambda: einsum3(rows, SHAPE, BLOCK_A, True), 20),
         library_call="one three-operator torch.einsum (full f32)",
     )
     rows_h, invmap_h = codec.sparse_chunks(dense.cpu().numpy())
     srows, sinv = torch.from_numpy(rows_h).to(dev), torch.from_numpy(invmap_h).to(dev)
     vs = fused_inverse.fused_inverse(srows, sinv, SHAPE)
-    e = rel_rms(vs, vp)
-    check(e < TRANSFORM_TOL, f"fused_inverse (chunk-sparse, {rows_h.shape[0]} of "
-          f"{invmap_h.size} chunks) rel RMS {e:.3e} < 1e-5 of the dense plain")
-    print(f"  fused_inverse chunk-sparse kernel "
-          f"{cuda_ms(lambda: fused_inverse.fused_inverse(srows, sinv, SHAPE), 20):.3f}"
-          f" ms on {card}")
+    nd = u32_differ(vs, vp)
+    check(nd == 0, f"fused_inverse (chunk-sparse, {rows_h.shape[0]} of {invmap_h.size} "
+          f"chunks) uint32-equal to the dense plain version ({nd} cells differ)")
+    # the host engine's mode: the live chunks and the map in, the volume out
+    report["fused_inverse"].update(
+        chunk_sparse_ms=cuda_ms(lambda: fused_inverse.fused_inverse(srows, sinv, SHAPE), 20),
+        chunk_sparse_bound_ms=bound(4 * srows.numel() + 4 * sinv.numel() + 4 * vol.size,
+                                    3 * C32_INV * rows.numel())["bound_ms"])
+    print(f"  fused_inverse chunk-sparse kernel {report['fused_inverse']['chunk_sparse_ms']:.4f}"
+          f" ms, bound {report['fused_inverse']['chunk_sparse_bound_ms']:.4f} ms on {card}")
     del vk, vp, vs, dense, rows, srows, sinv
     torch.cuda.empty_cache()
 
@@ -617,7 +693,7 @@ def main():
             **bound(8 * ncell, C128 * ncell))
         # the library call: one three-operator einsum, the whole forward
         # transform of both launches (no tokenize)
-        lib_fwd = cuda_ms(lambda: einsum3(vtb, volb.shape, 128, False), iters)
+        lib_fwd = cuda_ms(lambda: einsum3(vtb, volb.shape, BLOCK_B, False), iters)
         del tp
         buf = torch.empty_like(tk)
         ck, dk, cbk, sk, rk, mk = fused_compress.encode_xy(tk, mf, out=buf)
@@ -682,7 +758,7 @@ def main():
             plain_ms=cuda_ms(lambda: fused_inverse.block_inv_xy_plain(rows, volb.shape),
                              plain_iters),
             **bound(8 * ncell, 2 * C128_INV * ncell))
-        lib_inv = cuda_ms(lambda: einsum3(rows, volb.shape, 128, True), iters)
+        lib_inv = cuda_ms(lambda: einsum3(rows, volb.shape, BLOCK_B, True), iters)
         del xp
         zp = fused_inverse.block_inv_z_plain(xk)
         zk = fused_inverse.block_inv_z(xk.clone())
@@ -774,9 +850,6 @@ def main():
         cp = tokenize.fused_encode_plain(vt, scale=SCALE)[0]
         torch.cuda.synchronize()
         fin = torch.isfinite(cp).all(1)
-        e = rel_rms(ck[fin], cp[fin])
-        check(e < TRANSFORM_TOL, f"{label}: fused_encode_local coefficients rel RMS "
-              f"{e:.3e} < 1e-5 ({int((~fin).sum())} non-finite blocks left out)")
         err = float((ck[fin] - cp[fin]).abs().max())
         del cp
         mp = quant.mulfac_from_rms(quant.local_rms(ck), SCALE)
@@ -810,7 +883,10 @@ def main():
             # fused_encode's bytes and FLOP, the table out, the f64 square
             # and add of every coefficient
             **bound(4 * v.size + 8 * cells + 9 * sk.numel(), (3 * C32 + 1) * cells,
-                    2 * cells))
+                    2 * cells),
+            library_ms=cuda_ms(lambda: einsum3(vt, v.shape, BLOCK_A, False), iters),
+            library_call="one three-operator torch.einsum (full f32): the transform, "
+                         "no table, no tokenize")
 
     def local_b(label, v, iters, plain_iters):
         """block_casc_local, block_scale_tok and emit_chunks at the table on
@@ -875,6 +951,9 @@ def main():
         torch.cuda.empty_cache()
         return out
 
+    for label, v, sc in inputs32:
+        block32(label, v, sc, local=True)
+    del inputs32, vol_u
     lrep = {"fused_encode_local": local_a("config A local", vol, 20, 3)}
     rep_ramp = local_a("config A local ramp", ramp(vol, 32), 3, 1)
     lrep["fused_encode_local"].update(ramp_ms=rep_ramp["ms"],
@@ -974,10 +1053,15 @@ def main():
                               (casc + 1) * ncell, 2 * ncell if local else 0)
         else:  # coefficients and the table in; descriptors, counts out
             enc_bound = bound(8 * ncell + 4 * nchunks + 9 * nnn, 0)
+        lib = {}
+        if fused:  # the transform alone, as one library call
+            lib = dict(library_ms=cuda_ms(lambda: einsum3(vt, v.shape, block, False), iters),
+                       library_call="one three-operator torch.einsum (full f32): the "
+                                    "transform, no table, no tokenize")
         out = {
             kname: dict(
                 max_abs_err=err_c, ms=cuda_ms(enc, iters),
-                plain_ms=cuda_ms(enc_plain, plain_iters), **enc_bound),
+                plain_ms=cuda_ms(enc_plain, plain_iters), **enc_bound, **lib),
             "block_emit": dict(
                 max_abs_err=float((stk.int() - stp.int()).abs().max()) if total else 0.0,
                 ms=cuda_ms(lambda: pack.emit_chunks(c, mk, dk, cbk, cbase, total, sb),
@@ -1009,7 +1093,9 @@ def main():
                 plain_ms=cuda_ms(lambda: fused_inverse.stripe_fused_inverse_plain(
                     dense, v.shape, block), plain_iters),
                 # coefficients in, volume out
-                **bound(4 * dense.numel() + 4 * v.size, casc_inv * dense.numel()))
+                **bound(4 * dense.numel() + 4 * v.size, casc_inv * dense.numel()),
+                library_ms=cuda_ms(lambda: einsum3(dense, v.shape, block, True), iters),
+                library_call="one three-operator torch.einsum (full f32)")
             del vk, vp
         del dense
         torch.cuda.empty_cache()
@@ -1051,7 +1137,8 @@ def main():
     for k in ("tokenize_stripe", "stripe_fused_encode", "stripe_fused_encode_local",
               "stripe_fused_inverse", "block_emit"):
         report[k]["inputs"] = {
-            label: {f: r[k][f] for f in ("ms", "plain_ms", "bound_ms")}
+            label: {f: r[k][f] for f in ("ms", "plain_ms", "bound_ms", "library_ms")
+                    if f in r[k]}
             for label, r in generic.items() if k in r}
 
     # -- phase 2e: the opt-in encode routes' kernels against their plain
@@ -1331,6 +1418,9 @@ def main():
             natives[key] = pool.submit(run)
         return natives[key]
 
+    # native's parity codec at A (the 32^3 path's arithmetic), off the timed paths
+    native_parity_a = pool.submit(rle_host.host_compress_parity, vol, SCALE)
+
     # -- phase 3: the main path through the public API, config A ---------
     print(f"  at {time.perf_counter() - t_start:.1f} s", flush=True)
     print("phase 3: main path A, compress -> decompress (default device, engine "
@@ -1353,6 +1443,23 @@ def main():
     out_host = cvt.decompress(data, engine="host")
     e = rel_rms(out.cpu(), out_host.cpu())
     check(e < TRANSFORM_TOL, f"engine device within rel RMS {e:.3e} of engine host")
+    # the 32^3 path runs the native parity cascade (x, y, z): both engines'
+    # volumes are native's parity decompress, bit for bit
+    par = rle_host.host_decompress_parity(data)
+    for eng, o in (("device", out_h), ("host", out_host.cpu().numpy())):
+        nd = int((o.view(np.uint32) != par.view(np.uint32)).sum())
+        check(nd == 0, f"engine {eng}: A's decompress bit-equal to native "
+              f"cvx_decompress_inplace_parity_th ({nd} of {o.size} cells differ)")
+    dpar, rpar = native_parity_a.result()
+    mf_port = cvt.container.unpack(data)[0].glob_mulfac
+    mf_nat = cvt.container.unpack(dpar)[0].glob_mulfac
+    nb = int((dpar[:min(dpar.size, data.size)] != data[:min(dpar.size, data.size)]).sum())
+    print(f"  A's container {data.size} B against native cvx_compress_parity_th's "
+          f"{dpar.size} B (ratio {rpar:.1f}): {nb} bytes differ; mulfac {mf_port!r} "
+          f"(port, host f64 sum) and {mf_nat!r} (native)")
+    if mf_port == mf_nat:
+        check(np.array_equal(data, dpar), "with equal mulfacs, A's container equals "
+              "native cvx_compress_parity_th's byte for byte")
     nat = rle_host.host_decompress(data)
     e = rel_rms(torch.from_numpy(nat), torch.from_numpy(out_h))
     check(e < TRANSFORM_TOL, f"port container decodes under native "
@@ -1852,7 +1959,8 @@ def main():
                "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                "bound_by": r["bound_by"], "library_ms": r.get("library_ms")}
         for extra in ("noise_ms", "noise_plain_ms", "ramp_ms", "ramp_plain_ms", "inputs",
-                      "in_place_ms", "library_call", "noise_library_ms"):
+                      "in_place_ms", "library_call", "noise_library_ms",
+                      "chunk_sparse_ms", "chunk_sparse_bound_ms"):
             if extra in r:
                 row[extra] = r[extra]
         if also:

@@ -11,13 +11,10 @@
 //
 // One axis pass is the multi-level Antonini 7/9 cascade along the 128
 // lines of the slice, rows or columns (cascade_lines): the levels 128, 64,
-// ..., 2 forward, 2, ..., 128 inverse, each output computed operation for
-// operation as the native library's parity cascade does it
-// (native/cvx_host.cpp wav_fwd_axis_parity :141, wav_inv_axis_parity :165):
-// the pair sums first, the taps added from the outside in, every multiply
-// and add rounded on its own (__fmul_rn / __fadd_rn: no FMA contraction).
-// About 23 FLOP per cell and axis against the 256 of a dense 128-tap
-// product.
+// ..., 2 forward, 2, ..., 128 inverse, each output pair computed by
+// cascade.cuh's `fwd_pair` / `inv_pair` as the native library's parity
+// cascade does it.  About 23 FLOP per cell and axis against the 256 of a
+// dense 128-tap product.
 //
 // Mapping.  One lane per line, walking along it: a warp holds 32 lines,
 // and the four warps of a group split each of the levels 128, 64 and 32
@@ -36,6 +33,7 @@
 // registers, which spares them eight of the group's barriers.
 #pragma once
 
+#include "cascade.cuh"
 #include "tokens.cuh"
 
 namespace cvx {
@@ -48,43 +46,6 @@ constexpr int MAT = BB * PITCH;          // one padded 128 x 128 slice
 constexpr int BT = 256;                  // threads per CTA (8 warps)
 // one slice, dynamic shared memory (the launcher raises the limit)
 constexpr size_t BSMEM = (size_t)MAT * sizeof(float);
-
-// The analysis (AL, AH) and synthesis (SL, SH) taps, as native/cvx_host.cpp
-// writes them.
-constexpr float AL0 = 8.526986790094000e-001f, AL1 = 3.774028556126500e-001f,
-                AL2 = -1.106244044184200e-001f, AL3 = -2.384946501938001e-002f,
-                AL4 = 3.782845550699501e-002f;
-constexpr float AH0 = 7.884856164056601e-001f, AH1 = -4.180922732222101e-001f,
-                AH2 = -4.068941760955800e-002f, AH3 = 6.453888262893799e-002f;
-constexpr float SL0 = 7.884856164056601e-001f, SL1 = 4.180922732222101e-001f,
-                SL2 = -4.068941760955800e-002f, SL3 = -6.453888262893799e-002f;
-constexpr float SH0 = 8.526986790094000e-001f, SH1 = -3.774028556126500e-001f,
-                SH2 = -1.106244044184200e-001f, SH3 = 2.384946501938001e-002f,
-                SH4 = 3.782845550699501e-002f;
-
-// The symmetric extensions at the ends of a level (native/cvx_host.cpp
-// mirr, mirr_sl, mirr_sh), usable in constant expressions.
-__host__ __device__ constexpr int mirr(int v, int n) {
-  v = v < 0 ? -v : v;
-  v = v >= n ? 2 * n - 2 - v : v;
-  v = v < 0 ? -v : v;
-  return v >= n ? 2 * n - 2 - v : v;
-}
-__host__ __device__ constexpr int mirr_sl(int v, int nl) {
-  for (int r = 0; r < 3; ++r) {
-    v = v < 0 ? -v : v;
-    v = v >= nl ? 2 * nl - 1 - v : v;
-  }
-  return v;
-}
-__host__ __device__ constexpr int mirr_sh(int v, int nl, int nh) {
-  v -= nl;
-  for (int r = 0; r < 3; ++r) {
-    v = v < 0 ? -v - 1 : v;
-    v = v >= nh ? 2 * nh - 2 - v : v;
-  }
-  return nl + v;
-}
 
 // The levels n = 32 << i (i = 0..2) run in shared memory, the levels 16 to
 // 2 in one thread's registers.  The shared-memory levels' mirrored tap
@@ -114,37 +75,6 @@ __device__ __forceinline__ void build_tables(MirrorTables* t) {
         t->hi[lv][v + 4] = (unsigned char)mirr_sh(h + v, h, h);
     }
   }
-}
-
-// One forward output pair from its taps x[k] = line[mirr(2j - 4 + k)]:
-// the lowpass and highpass outputs, in wav_fwd_axis_parity's order.
-__device__ __forceinline__ void fwd_pair(const float (&x)[9], float& lo,
-                                         float& hi) {
-  float a = __fmul_rn(AL4, __fadd_rn(x[0], x[8]));
-  a = __fadd_rn(a, __fmul_rn(AL3, __fadd_rn(x[1], x[7])));
-  a = __fadd_rn(a, __fmul_rn(AL2, __fadd_rn(x[2], x[6])));
-  a = __fadd_rn(a, __fmul_rn(AL1, __fadd_rn(x[3], x[5])));
-  lo = __fadd_rn(a, __fmul_rn(AL0, x[4]));
-  float b = __fmul_rn(AH3, __fadd_rn(x[2], x[8]));
-  b = __fadd_rn(b, __fmul_rn(AH2, __fadd_rn(x[3], x[7])));
-  b = __fadd_rn(b, __fmul_rn(AH1, __fadd_rn(x[4], x[6])));
-  hi = __fadd_rn(b, __fmul_rn(AH0, x[5]));
-}
-
-// One inverse output pair from the lowpass taps L[c] (k - 1 + c) and the
-// highpass taps H[c] (n/2 + k - 2 + c): the even and odd outputs, in
-// wav_inv_axis_parity's order.
-__device__ __forceinline__ void inv_pair(const float (&L)[4], const float (&H)[5],
-                                         float& ev, float& od) {
-  float e = __fmul_rn(SH3, __fadd_rn(H[0], H[3]));
-  e = __fadd_rn(e, __fmul_rn(SL2, __fadd_rn(L[0], L[2])));
-  e = __fadd_rn(e, __fmul_rn(SH1, __fadd_rn(H[1], H[2])));
-  ev = __fadd_rn(e, __fmul_rn(SL0, L[1]));
-  float o = __fmul_rn(SH4, __fadd_rn(H[0], H[4]));
-  o = __fadd_rn(o, __fmul_rn(SL3, __fadd_rn(L[0], L[3])));
-  o = __fadd_rn(o, __fmul_rn(SH2, __fadd_rn(H[1], H[3])));
-  o = __fadd_rn(o, __fmul_rn(SL1, __fadd_rn(L[1], L[2])));
-  od = __fadd_rn(o, __fmul_rn(SH0, H[2]));
 }
 
 // The four warps of a line group meet here (named barrier 1 + group, 128
@@ -247,32 +177,6 @@ __device__ __forceinline__ void inv_level(float* p, int s, int group,
   group_sync(group);
 }
 
-// One level of length N <= 16 in place on a line's first 16 positions,
-// held in registers `v` (every index a constant).
-template <int N, bool INVERSE>
-__device__ __forceinline__ void small_level(float (&v)[SMALL]) {
-  constexpr int H = N / 2;
-  float t[N];
-#pragma unroll
-  for (int i = 0; i < N; ++i) t[i] = v[i];
-#pragma unroll
-  for (int j = 0; j < H; ++j) {
-    if constexpr (INVERSE) {
-      float L[4], Hi[5];
-#pragma unroll
-      for (int c = 0; c < 4; ++c) L[c] = t[mirr_sl(j - 1 + c, H)];
-#pragma unroll
-      for (int c = 0; c < 5; ++c) Hi[c] = t[mirr_sh(H + j - 2 + c, H, H)];
-      inv_pair(L, Hi, v[2 * j], v[2 * j + 1]);
-    } else {
-      float x[9];
-#pragma unroll
-      for (int k = 0; k < 9; ++k) x[k] = t[mirr(2 * j - 4 + k, N)];
-      fwd_pair(x, v[j], v[H + j]);
-    }
-  }
-}
-
 // The levels 16, 8, 4, 2 forward (or 2 .. 16 inverse) of one line in one
 // thread's registers.
 template <int PS, bool INVERSE>
@@ -280,17 +184,7 @@ __device__ __forceinline__ void small_levels(float* p) {
   float v[SMALL];
 #pragma unroll
   for (int i = 0; i < SMALL; ++i) v[i] = p[i * PS];
-  if constexpr (INVERSE) {
-    small_level<2, true>(v);
-    small_level<4, true>(v);
-    small_level<8, true>(v);
-    small_level<16, true>(v);
-  } else {
-    small_level<16, false>(v);
-    small_level<8, false>(v);
-    small_level<4, false>(v);
-    small_level<2, false>(v);
-  }
+  reg_cascade<INVERSE>(v);
 #pragma unroll
   for (int i = 0; i < SMALL; ++i) p[i * PS] = v[i];
 }

@@ -21,7 +21,16 @@ __device__ __forceinline__ bool is_i3(int32_t v) { return v >= -8388608 && v <= 
 
 // Group-of-8 mode: 0 mixed, 1 eight plain bytes, 2 VLESC2_8x, 3 VLESC3_8x,
 // with the reference's selection guards (Run_Length_Encode_Slow.cpp:216,
-// 231, 246).
+// 231, 246), from the group's counts of zeros, bytes, shorts and 24-bit
+// values.
+__device__ __forceinline__ int group_mode_counts(int nzero, int nb, int ns, int n3) {
+  if (nzero != 0) return 0;
+  if (nb == 8) return 1;
+  if (ns == 8 && nb + (8 - nb) * 3 > 17) return 2;
+  if (n3 == 8 && nb + (ns - nb) * 3 + (8 - ns) * 4 > 25) return 3;
+  return 0;
+}
+
 __device__ __forceinline__ int group_mode(const int32_t iv[8]) {
   int nzero = 0, nb = 0, ns = 0, n3 = 0;
 #pragma unroll
@@ -31,11 +40,7 @@ __device__ __forceinline__ int group_mode(const int32_t iv[8]) {
     ns += is_short(iv[l]);
     n3 += is_i3(iv[l]);
   }
-  if (nzero != 0) return 0;
-  if (nb == 8) return 1;
-  if (ns == 8 && nb + (8 - nb) * 3 > 17) return 2;
-  if (n3 == 8 && nb + (ns - nb) * 3 + (8 - ns) * 4 > 25) return 3;
-  return 0;
+  return group_mode_counts(nzero, nb, ns, n3);
 }
 
 constexpr int32_t MAX_RUN24 = (1 << 24) - 1;

@@ -34,17 +34,16 @@ ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
 _VP = ctypes.c_void_p
 _SIGNATURES = {
     "cvx_fused_encode": [
-        _VP, ctypes.c_int, ctypes.c_int, ctypes.c_int, _VP, ctypes.c_float,
+        _VP, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_float,
         _VP, _VP, _VP, _VP, _VP, _VP,
     ],
     "cvx_fused_encode_local": [
-        _VP, ctypes.c_int, ctypes.c_int, ctypes.c_int, _VP, ctypes.c_float,
+        _VP, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_float,
         _VP, _VP, _VP, _VP, _VP, _VP,
     ],
     "cvx_emit_payload": [_VP, _VP, _VP, _VP, _VP, ctypes.c_int64, _VP, _VP],
     "cvx_fused_inverse": [
-        _VP, ctypes.c_int64, _VP, _VP, ctypes.c_int, ctypes.c_int,
-        ctypes.c_int, _VP, _VP,
+        _VP, ctypes.c_int64, _VP, ctypes.c_int, ctypes.c_int, ctypes.c_int, _VP, _VP,
     ],
     "cvx_decode_maps": [_VP, ctypes.c_int64, ctypes.c_int, _VP, _VP, _VP],
     "cvx_decode_chase": [
@@ -231,7 +230,8 @@ def check_cuda(*tensors, dtypes):
 
 def check_aligned(*tensors):
     """Raise unless every tensor's data starts on a 16-byte boundary (the
-    128^3 kernels move 512-byte rows as float4s)."""
+    128^3 kernels move 512-byte rows as float4s, `fused_inverse` its chunk
+    rows by 16-byte asynchronous copies)."""
     for t in tensors:
         if t.data_ptr() % 16:
             raise ValueError("kernel input must start on a 16-byte boundary (a view "

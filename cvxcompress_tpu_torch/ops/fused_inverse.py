@@ -12,7 +12,9 @@ coefficients as 128-cell rows (nrows, 128) f32, in one of two modes:
 
 TPU counterpart: `cvxcompress_tpu/ops/fused_inverse.py`
 `stripe_fused_inverse` (:128), fed by `ops/codec.py:1068`
-`_decompress_sparse`.
+`_decompress_sparse`.  Kernel and plain version run the inverse cascade
+in the native library's order (x, y, z; `wavelet.cascade_3d`), so the
+volume equals native's parity decompress bit for bit.
 
 `block_fused_inverse` (csrc/block_inverse.cu, plain version
 `block_fused_inverse_plain`) is the 128^3 inverse (K8 port, counterpart of
@@ -46,13 +48,13 @@ def fused_inverse_plain(rows, invmap, vol_shape):
     """Plain PyTorch version of the kernel (same volume)."""
     if invmap is None:
         coeffs = rows.reshape(-1, 32, 32, 32)
-        return blocks.from_blocks(wavelet.inverse_blocks(coeffs), vol_shape, BLOCK)
-    padded = torch.cat([rows, rows.new_zeros((1, CHUNK))])
-    n = rows.shape[0]
-    idx = invmap.to(torch.int64)
-    idx = torch.where((idx < 0) | (idx > n), n, idx)
-    coeffs = padded[idx].reshape(-1, 32, 32, 32)
-    return blocks.from_blocks(wavelet.inverse_blocks(coeffs), vol_shape, BLOCK)
+    else:
+        padded = torch.cat([rows, rows.new_zeros((1, CHUNK))])
+        n = rows.shape[0]
+        idx = invmap.to(torch.int64)
+        idx = torch.where((idx < 0) | (idx > n), n, idx)
+        coeffs = padded[idx].reshape(-1, 32, 32, 32)
+    return blocks.from_blocks(wavelet.cascade_3d(coeffs, inverse=True), vol_shape, BLOCK)
 
 
 def fused_inverse(rows, invmap, vol_shape):
@@ -73,12 +75,11 @@ def fused_inverse(rows, invmap, vol_shape):
         _kernels.check_cuda(rows, invmap, dtypes=(torch.float32, torch.int32))
         if invmap.numel() != nchunks:
             raise ValueError(f"invmap has {invmap.numel()} chunks for {vol_shape}")
-    op = wavelet.operator(32, inverse=True, device=rows.device)
+    _kernels.check_aligned(rows)  # 16-byte asynchronous copies
     vol = torch.empty(vol_shape, dtype=torch.float32, device=rows.device)
     _kernels.launch(
         "fused_inverse", rows.data_ptr(), rows.shape[0],
-        None if invmap is None else invmap.data_ptr(),
-        op.data_ptr(), nx, ny, nz, vol.data_ptr(),
+        None if invmap is None else invmap.data_ptr(), nx, ny, nz, vol.data_ptr(),
     )
     return vol
 

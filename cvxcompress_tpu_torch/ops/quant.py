@@ -12,13 +12,17 @@ library's bit for bit; f64 adds cost the card nothing beside the
 transforms, and a float32 sum over 2^21 cells would drift from native's by
 many ulps.  The order of the sum is fixed, with no atomics, and `local_rms`
 repeats it exactly, so a kernel's table and its plain version's agree bit
-for bit: a CTA's thread t adds the squares of its 64 consecutive cells in
-turn; the threads' sums meet in a halving tree over each warp's 32 lanes
-(lane i + lane i+16, then i + i+8, ...) and the warps' sums in the same
-tree; at 128^3 one CTA reduces each z-slice and the 128 slice sums add in
-slice order; at the other fused stripe blocks each run of 64 cells adds in
-turn, then the runs (`run_rms`).  The JAX package sums in float32 trees;
-the tables agree to its own contract between paths, rtol 1e-5.
+for bit: a CTA's thread t adds the squares of its 64 cells in turn; the
+threads' sums meet in a halving tree over each warp's 32 lanes (lane i +
+lane i+16, then i + i+8, ...) and the warps' sums in the same tree.  At
+32^3 one CTA of 512 threads reduces the block, thread t = 32 w + x the
+z-lines (y, x) of y = 2w and 2w + 1 from z = 0 up (`zline_order`, the
+cells its registers hold after the z cascade); at 128^3 one CTA of 256
+threads reduces each z-slice, thread t its 64 consecutive cells, and the
+128 slice sums add in slice order; at the other fused stripe blocks each
+run of 64 cells adds in turn, then the runs (`run_rms`).  The JAX package
+sums in float32 trees; the tables agree to its own contract between paths,
+rtol 1e-5.
 
 Quantization (Run_Length_Encode_Slow.cpp:203-207): i = trunc(mulfac * c)
 toward zero with x86 cvttps semantics — NaN and values outside the int32
@@ -68,6 +72,15 @@ def global_mulfac(vol, scale):
 SUMSQ_ORDER = {32 ** 3: (1, 512), 128 ** 3: (128, 256)}
 
 
+def zline_order(coeffs):
+    """Block-major (n, 32768) coefficients of 32^3 blocks in the order the
+    32^3 encode kernel's threads hold them (csrc/fused_encode.cu): thread
+    t = 32 w + x its z-lines (y, x) of y = 2w, then 2w + 1, each from z = 0
+    up, 64 cells a thread, thread after thread."""
+    n = coeffs.shape[0]
+    return coeffs.view(n, 32, 16, 2, 32).permute(0, 2, 4, 3, 1).reshape(n, -1)
+
+
 def _halve(x):
     """Pairwise halving tree over the last dim (a power of two)."""
     while x.shape[-1] > 1:
@@ -101,6 +114,8 @@ def local_rms(coeffs):
     encode kernels' order of summation (module doc): (n,) f32."""
     n, cells = coeffs.shape
     slices, threads = SUMSQ_ORDER[cells]
+    if cells == 32 ** 3:
+        coeffs = zline_order(coeffs)
     partials = cta_sumsq(coeffs.reshape(n * slices, -1), threads)
     return rms_of_partials(partials.view(n, slices), cells)
 

@@ -13,7 +13,10 @@ blocks in raster order:
 
 Under the global RMS every block has the given mulfac; under the local RMS
 each block's comes from its own coefficients (ops/quant.py `local_rms`),
-and the kernel launches as `fused_encode_local`.
+and the kernel launches as `fused_encode_local`.  Kernel and plain version
+run the multi-level 7/9 cascade in the native library's order (x, y, z;
+`wavelet.cascade_3d`), so they agree bit for bit and the coefficients are
+those of native's parity codec (`cvx_compress_parity_th`).
 
 TPU counterpart: `cvxcompress_tpu/ops/tokenize_pallas.py`
 `stripe_fused_encode` (:1056), whose kernel is `stripe_fused_tiles` (:939;
@@ -54,7 +57,7 @@ def scaled(coeffs, mulfac):
 def fused_encode_plain(vol, mulfac=None, *, scale=None):
     """Plain PyTorch version of the kernel (same outputs)."""
     local = quant.is_local(mulfac, scale)
-    coeffs = wavelet.forward_blocks(blocks.to_blocks(vol, BLOCK))
+    coeffs = wavelet.cascade_3d(blocks.to_blocks(vol, BLOCK), inverse=False)
     coeffs = coeffs.reshape(-1, CELLS)
     if local:
         mulfacs = quant.mulfac_from_rms(quant.local_rms(coeffs), scale)
@@ -78,7 +81,6 @@ def fused_encode(vol, mulfac=None, *, scale=None):
     nbz, nby, nbx = blocks.grid_shape(vol.shape, BLOCK)
     nnn = nbz * nby * nbx
     dev = vol.device
-    op = wavelet.operator(32, inverse=False, device=dev)
     coeffs = torch.empty((nnn, CELLS), dtype=torch.float32, device=dev)
     desc = torch.empty((nnn, CELLS), dtype=torch.int32, device=dev)
     sizes = torch.empty((nnn,), dtype=torch.int32, device=dev)
@@ -86,7 +88,7 @@ def fused_encode(vol, mulfac=None, *, scale=None):
     mulfacs = torch.empty((nnn,), dtype=torch.float32, device=dev)
     _kernels.launch(
         "fused_encode_local" if local else "fused_encode",
-        vol.data_ptr(), nx, ny, nz, op.data_ptr(), float(scale if local else mulfac),
+        vol.data_ptr(), nx, ny, nz, float(scale if local else mulfac),
         coeffs.data_ptr(), desc.data_ptr(), sizes.data_ptr(), raw.data_ptr(),
         mulfacs.data_ptr(),
     )

@@ -10,13 +10,13 @@ tests/test_torch_wavelet.py holds the operators bit-equal to those.
 
 `forward_blocks` / `inverse_blocks` are the plain PyTorch transforms of a
 (n, bz, by, bx) block batch, three f32 contractions in the reference's axis
-order x -> y -> z.  They are the specification the CUDA kernels in
-ops/tokenize.py and ops/fused_inverse.py are compared with, and the
-transforms themselves on the stripe route (with `forward_3d_volume`), where
-the JAX package runs them as XLA products too.  The 128^3 kernels
-(csrc/block_common.cuh) run the multi-level cascade itself instead, and
-`cascade_axis` / `cascade` are their plain versions: the native library's
-parity cascade (`native/cvx_host.cpp` `wav_fwd_axis_parity`,
+order x -> y -> z.  They are the specification the fused stripe kernels
+(csrc/stripe_fused.cu) are compared with, and the transforms themselves on
+the stripe route (with `forward_3d_volume`), where the JAX package runs
+them as XLA products too.  The 32^3 and 128^3 kernels (csrc/cascade.cuh)
+run the multi-level cascade itself instead, and `cascade_axis` / `cascade`
+/ `cascade_3d` are their plain versions: the native library's parity
+cascade (`native/cvx_host.cpp` `wav_fwd_axis_parity`,
 `wav_inv_axis_parity`) one f32 multiply or add per op.  The matmuls
 must run in full f32: a TF32 contraction keeps ~3 decimal digits and breaks
 the 1e-5 transform contract (CvxCompress.cpp:597), so each runs inside
@@ -369,3 +369,13 @@ def cascade_axis(t, inverse):
 def cascade(t, dim, inverse):
     """`cascade_axis` along `dim` of `t`; a contiguous tensor of t's shape."""
     return cascade_axis(t.movedim(dim, -1), inverse).movedim(-1, dim).contiguous()
+
+
+def cascade_3d(t, inverse):
+    """The x, then y, then z cascade of a (n, bz, by, bx) f32 block batch, in
+    both directions the native library's axis order (`wav_fwd_block_ex`,
+    `wav_inv_block_ex`, native/cvx_host.cpp:197-221): the plain version of
+    the 32^3 kernels."""
+    for d in (3, 2, 1):
+        t = cascade(t, d, inverse)
+    return t

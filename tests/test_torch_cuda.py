@@ -61,6 +61,7 @@ def test_fused_encode_matches_plain(dev, rng, shape, scale):
     cp, _, _, _, _ = tokenize.fused_encode_plain(vt, mulfac)
     torch.cuda.synchronize()
     assert rel_rms(ck, cp) < TRANSFORM_TOL
+    assert torch.equal(ck.view(torch.int32), cp.view(torch.int32))  # the same cascade
     d2, s2, r2 = rle_device.tokenize(tokenize.scaled(ck, mulfac))
     assert torch.equal(dk, d2) and torch.equal(sk, s2) and torch.equal(rk, r2)
     assert bool(rk.any()) == (scale < 1e-6)
@@ -68,9 +69,11 @@ def test_fused_encode_matches_plain(dev, rng, shape, scale):
 
 
 def test_fused_encode_nonfinite_volume(dev, rng):
-    """NaN and inf in the volume make their blocks' coefficients non-finite
-    (VLESC4, raw fallback); kernel and plain version agree on every token
-    and the stream still equals the native encoder's."""
+    """NaN and inf in the volume make part of their blocks' coefficients
+    non-finite (the native parity cascade's spread: VLESC4 tokens carry
+    them, and the blocks stay under their raw size, as in native's codec);
+    kernel and plain version agree on every token and the stream still
+    equals the native encoder's."""
     vol = volume(rng, (40, 50, 70))
     vol[3, 3, 3] = np.nan
     vol[35, 45, 65] = np.inf
@@ -78,7 +81,8 @@ def test_fused_encode_nonfinite_volume(dev, rng):
     ck, dk, sk, rk, mk = tokenize.fused_encode(torch.from_numpy(vol).to(dev), mulfac)
     d2, s2, r2 = rle_device.tokenize(tokenize.scaled(ck, mulfac))
     assert torch.equal(dk, d2) and torch.equal(sk, s2) and torch.equal(rk, r2)
-    assert bool(rk[0]) and bool(rk[-1])
+    bad = (~torch.isfinite(ck)).sum(1)
+    assert bool(bad[0] > 0) and bool(bad[-1] > 0) and not bool(rk.any())
     nr = torch.where(rk, 0, sk).to(torch.int64)
     base = torch.cumsum(nr, 0) - nr
     got = pack.emit_payload(ck, mk, dk, base, rk, int(nr.sum()))
@@ -105,6 +109,36 @@ def test_emit_payload_matches_plain_and_native(dev, rng, scale):
     np.testing.assert_array_equal(got.cpu().numpy(), native)
 
 
+@pytest.mark.parametrize("route", ["tma", "view_at_offset_1", "nx_75"])
+def test_fused_encode_copy_routes_bit_equal(dev, rng, route):
+    """The encode's two copy routes (a TMA tile where the volume is 16-byte
+    aligned with nx % 4 == 0, else 4-byte cp.async) give the plain
+    version's coefficients and tokens bit for bit, edges included."""
+    shape = (40, 50, 75) if route == "nx_75" else (40, 50, 72)
+    vol = volume(rng, shape)
+    if route == "view_at_offset_1":
+        flat = torch.zeros(vol.size + 1, device=dev)
+        vt = flat[1:].view(shape)
+        vt.copy_(torch.from_numpy(vol))
+    else:
+        vt = torch.from_numpy(vol).to(dev)
+    mulfac = quant.global_mulfac(vol, 1e-2)
+    got = tokenize.fused_encode(vt, mulfac)
+    want = tokenize.fused_encode_plain(torch.from_numpy(vol).to(dev), mulfac)
+    torch.cuda.synchronize()
+    assert torch.equal(got[0].view(torch.int32), want[0].view(torch.int32))
+    for a, b in zip(got[1:], want[1:]):
+        assert torch.equal(a, b)
+
+
+def test_fused_inverse_rejects_misaligned_rows(dev):
+    """fused_inverse copies its chunk rows 16 bytes at a time: a view that
+    does not start on a 16-byte boundary raises instead of launching."""
+    flat = torch.zeros(12 * 256 * 128 + 1, device=dev)
+    with pytest.raises(ValueError, match="16-byte"):
+        fused_inverse.fused_inverse(flat[1:].view(-1, 128), None, (40, 50, 70))
+
+
 def test_fused_inverse_matches_plain(dev, rng):
     shape = (60, 90, 90)
     nnn = 2 * 3 * 3
@@ -116,6 +150,7 @@ def test_fused_inverse_matches_plain(dev, rng):
     ref = fused_inverse.fused_inverse_plain(rows, invmap, shape)
     torch.cuda.synchronize()
     assert rel_rms(got, ref) < TRANSFORM_TOL
+    assert torch.equal(got.view(torch.int32), ref.view(torch.int32))  # the same cascade
 
 
 def test_main_path_counts_and_agrees_with_cpu(dev, rng):
@@ -335,7 +370,7 @@ def test_block128_wrappers_reject_bad_inputs(dev):
 def ramp(shape, b):
     """`volume` with its b^3 blocks scaled by 1 and 1e-4 in turn (block RMS
     10^4 apart) and, at 32^3, the guard blocks: all-zero, ~1e-38 and NaN
-    (each gets mulfac 1.0; the NaN block falls back to raw)."""
+    (each gets mulfac 1.0)."""
     v = volume(np.random.default_rng(4), shape)
     nb = tuple(n // b for n in shape)
     f = np.where(np.arange(np.prod(nb)) % 2 == 1, 1e-4, 1.0).astype(np.float32)
@@ -349,10 +384,12 @@ def ramp(shape, b):
 
 
 def test_fused_encode_local_matches_plain(dev):
-    """fused_encode_local: coefficients within 1e-5 of the plain version;
+    """fused_encode_local: coefficients bit-equal to the plain version;
     the table, descriptors, sizes and raw flags bit-equal to the plain
-    local RMS and tokenize of the kernel's coefficients; emit_payload at the
-    table bit-equal to its plain version and to the native encoder."""
+    local RMS and tokenize of the kernel's coefficients (the NaN block's
+    NaN coefficients code as VLESC4 tokens in less than its raw size, as in
+    native's codec); emit_payload at the table bit-equal to its plain
+    version and to the native encoder."""
     vol = ramp((64, 96, 96), 32)
     vt = torch.from_numpy(vol).to(dev)
     _kernels.reset_counts()
@@ -363,9 +400,11 @@ def test_fused_encode_local_matches_plain(dev):
     torch.cuda.synchronize()
     fin = torch.isfinite(cp).all(1)
     assert rel_rms(ck[fin], cp[fin]) < TRANSFORM_TOL
+    assert torch.equal(ck.view(torch.int32), cp.view(torch.int32))
     assert torch.equal(mk, quant.mulfac_from_rms(quant.local_rms(ck), 1e-2))
     assert float(mk.max() / mk[fin & (mk != 1.0)].min()) > 5e3
-    assert mk[1] == mk[3] == mk[17] == 1.0 and rk.tolist() == [b == 17 for b in range(18)]
+    assert mk[1] == mk[3] == mk[17] == 1.0 and not bool(fin[17])
+    assert rk.tolist() == [False] * 18
     d2, s2, r2 = rle_device.tokenize(tokenize.scaled(ck, mk))
     assert torch.equal(dk, d2) and torch.equal(sk, s2) and torch.equal(rk, r2)
     nr = torch.where(rk, 0, sk).to(torch.int64)

@@ -77,10 +77,12 @@ def odd_volume(nan=True):
     """The ramp volume at 32^3 with the guard cases in three blocks: an
     all-zero block (rms 0: mulfac 1.0), a block of ~1e-38 values (1/(rms *
     scale) overflows: 1.0) and, with `nan`, a block holding a NaN (rms NaN:
-    mulfac 1.0; the port's dense transform makes every coefficient of the
-    block NaN, cvttps gives INT32_MIN, the block falls back to raw).  The
-    other decoders' transforms spread a NaN less far, so the interop tests
-    take the volume without it."""
+    mulfac 1.0; the port's cascade, native's parity cascade, spreads the NaN
+    to part of the block's coefficients, each quantized to INT32_MIN and
+    coded as the scaled NaN itself, and every decoder's inverse spreads it
+    over the block).  The oracle's and the JAX package's dense transforms
+    spread a NaN to every coefficient, so the interop tests take the volume
+    without it."""
     v = ramp_volume(SHAPE32, 32)
     v[0:32, 0:32, 32:64] = 0.0
     v[0:32, 32:64, 0:32] = np.float32(1e-38) * (1.0 + v[0:32, 32:64, 0:32])
@@ -366,16 +368,19 @@ def device_dense(data):
 
 def test_local_container_layout_and_quality():
     """Header mulfac 1.0 and the local flag; the table holds the guards'
-    1.0 for the zero, ~1e-38 and NaN blocks, and the NaN block falls back to
-    raw; the other blocks decode at the CI bars within the loud and within
-    the quiet blocks apart, on both engines and under native, and through
-    the class surface."""
+    1.0 for the zero, ~1e-38 and NaN blocks, and the raw flags are native's
+    codec's: the NaN block's tokens carry its NaN coefficients and fit in
+    far less than its raw bytes, as in native's container; the NaN fills
+    the NaN block and no other after every decoder; the other blocks decode
+    at the CI bars within the loud and within the quiet blocks apart, on
+    both engines and under native, and through the class surface."""
     vol = odd_volume()
     data, ratio = cvt.compress(vol, SCALE, use_local_rms=True, device="cpu")
     hdr, blkoffs, blkmf, _ = ctn.unpack(data)
     assert hdr.use_local_rms and hdr.glob_mulfac == 1.0
     assert blkmf[1] == blkmf[3] == blkmf[17] == 1.0
-    assert (blkoffs < 0).tolist() == [b == 17 for b in range(18)]
+    theirs, _ = rle_host.host_compress(vol, SCALE, use_local_rms=True)
+    assert (blkoffs < 0).tolist() == (ctn.unpack(theirs)[1] < 0).tolist() == [False] * 18
     assert ratio == pytest.approx(vol.size * 4 / data.size)
     nan = np.kron(np.arange(18).reshape(2, 3, 3) == 17, np.ones((32, 32, 32), bool))
     outs = [cvt.decompress(data, device="cpu", engine=e).numpy() for e in ("host", "device")]

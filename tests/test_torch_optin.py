@@ -356,12 +356,20 @@ def test_jax_switch_containers_decode_in_port(clean_env, name):
 def test_raw_blocks_on_rows_routes(clean_env):
     """A raw-fallback block on the patch and compact routes: its chunks
     are skipped by the rows emit and its coefficients stored; the
-    containers equal the default route's."""
+    containers equal the in-place emit's on the same transform, the
+    stripe route's einsums, and have the default route's raw blocks (the
+    default 32^3 route runs native's parity cascade, whose coefficients
+    differ from the einsums' in their last bits)."""
     rng = np.random.default_rng(5)
     vol = (rng.standard_normal((64, 64, 64)) * 1000).astype(np.float32)
     vol[:, :, 32:] *= 1e-6  # x1000 noise at 1e-8 beside quiet blocks
-    ref, _ = cvt.compress(vol, 1e-8, block=(32, 32, 32), device="cpu")
-    assert (cvt.container.unpack(ref)[1] < 0).sum() == 4
+    default, _ = cvt.compress(vol, 1e-8, block=(32, 32, 32), device="cpu")
+    raw = cvt.container.unpack(default)[1] < 0
+    assert raw.sum() == 4
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(codec, "route", lambda shape, block: "stripe")
+        ref, _ = cvt.compress(vol, 1e-8, block=(32, 32, 32), device="cpu")
+    np.testing.assert_array_equal(cvt.container.unpack(ref)[1] < 0, raw)
     for env in ({"CVX_STRIPE": "patch"}, {"CVX_FUSED_COMPACT": "1"}):
         for k, v in env.items():
             clean_env.setenv(k, v)
