@@ -112,7 +112,7 @@ KERNELS_D = ("block_fwd_z", "block_casc_local", "block_scale_tok", "block_emit",
 # the bench's volume S at the sweep's blocks (bench.py:422-445)
 SHAPE_HALF = (512, 256, 256)
 SHAPE_S = (256, 256, 256)
-BLOCKS_A = ((8, 8, 8), (64, 64, 64), (256, 256, 256))
+BLOCKS_A = ((8, 8, 8), (64, 64, 64), (256, 256, 256), (64, 32, 32))
 # S at the sweep's blocks: both RMS modes at the blocks A does not take;
 # at 8^3, 64^3, 256^3 (A's routes) the local RMS only
 CASES_S = tuple((b, lo) for b in ((16, 16, 16), (128, 8, 8), (16, 16, 1), (8, 8, 1))
@@ -154,6 +154,16 @@ def same(a, b):
     """Bit-equal float tensors, a NaN matching a NaN (a NaN block's sums)."""
     na = a.isnan()
     return bool((na == b.isnan()).all()) and bool((a[~na] == b[~na]).all())
+
+
+def bits_same(a, b):
+    """f32 tensors equal bit for bit outside their NaNs, NaN where the other
+    is NaN (a NaN's payload is the card's)."""
+    import torch
+
+    na = a.isnan()
+    return bool(torch.equal(na, b.isnan())) and bool(torch.equal(
+        a[~na].view(torch.int32), b[~na].view(torch.int32)))
 
 
 def rel_rms(a, b):
@@ -344,8 +354,9 @@ C32_INV, C128_INV = cascade_flops(32, inverse=True), cascade_flops(128, inverse=
 def ramp(vol, b):
     """`vol` with its b^3 blocks scaled by 10^-(block index mod 5) (block RMS
     10^4 apart) and the guard cases in three blocks: all-zero (rms 0), ~1e-38
-    (1/(rms * scale) overflows) and one NaN (rms NaN); each gets mulfac 1.0,
-    and the NaN block's coefficients are all NaN: raw fallback."""
+    (1/(rms * scale) overflows) and one NaN (rms NaN); each gets mulfac 1.0
+    (the NaN spreads through its block as the cascade or the einsums carry
+    it)."""
     nz, ny, nx = vol.shape
     nb = (-(-nz // b), -(-ny // b), -(-nx // b))
     k = np.arange(np.prod(nb)) % 5
@@ -972,15 +983,23 @@ def main():
           "and block_emit vs plain versions at", SHAPE, SHAPE_HALF, "and", SHAPE_S,
           flush=True)
 
-    def generic_kernels(label, v, block, local, iters, plain_iters, half=False):
+    def generic_kernels(label, v, block, local, iters, plain_iters, half=False,
+                        parity=False, view=False):
         """The route's encode kernel (`stripe_fused_encode(_local)` or
         `tokenize_stripe`) and block_emit against their plain versions on
         `v` at `block` (the tokenize and the emit on the encode's own
         coefficients and table), the stream against the native encoder, the
         decode kernels on the container and, on the fused stripe route,
-        `stripe_fused_inverse` on its decoded coefficients; returns the
+        `stripe_fused_inverse` on its decoded coefficients, each fused
+        stripe launch bit-equal to its plain version; with `parity` the
+        card's container byte-equal to native `cvx_compress_parity_th`'s and
+        its decompress to `cvx_decompress_inplace_parity_th`'s; with `view`
+        the volume at a misaligned view (the 4-byte copy route); returns the
         kernels' reports."""
         vt = torch.from_numpy(v).to(dev)
+        if view:
+            vt = torch.zeros(v.size + 1, device=dev)[1:].view(v.shape)
+            vt.copy_(torch.from_numpy(v))
         args = dict(scale=SCALE) if local else dict(mulfac=quant.global_mulfac(v, SCALE))
         fused = codec.route(v.shape, block) == "stripe_fused"
         bx, by, bz = block
@@ -988,19 +1007,17 @@ def main():
         if fused:
             kname = "stripe_fused_encode_local" if local else "stripe_fused_encode"
             c, dk, cbk, sk, rk, mk = tokenize.stripe_fused_encode(vt, block, **args)
-            cp = tokenize.stripe_fused_encode_plain(vt, block, **args)[0]
+            cp, *_, mp = tokenize.stripe_fused_encode_plain(vt, block, **args)
             torch.cuda.synchronize()
-            fin = torch.isfinite(cp).all(1)
-            e = rel_rms(c[fin], cp[fin])
-            check(e < TRANSFORM_TOL, f"{label}: {kname} coefficients rel RMS {e:.3e} < "
-                  f"1e-5 ({int((~fin).sum())} non-finite blocks left out)")
+            check(bits_same(c, cp), f"{label}: {kname} coefficients bit-equal to the "
+                  f"plain version's, native's parity cascade ({int(c.isnan().sum())} NaN "
+                  "cells, where the plain version's are)")
+            fin = torch.isfinite(cp)
             err_c = float((c[fin] - cp[fin]).abs().max())
-            del cp
-            want = (quant.mulfac_from_rms(quant.run_rms(c), SCALE) if local
-                    else torch.full_like(mk, float(args["mulfac"])))
-            check(torch.equal(mk, want), f"{label}: {kname} table (mulfacs "
+            del cp, fin
+            check(torch.equal(mk, mp), f"{label}: {kname} table (mulfacs "
                   f"{float(mk.min()):.4g} to {float(mk.max()):.4g}) bit-equal to the "
-                  "plain table of its coefficients")
+                  "plain version's (`quant.stripe_rms` of the same coefficients)")
             plain = tokenize.tokenize_blocks_plain(c, mk)
             cbm, sb = c, None
 
@@ -1054,7 +1071,10 @@ def main():
         else:  # coefficients and the table in; descriptors, counts out
             enc_bound = bound(8 * ncell + 4 * nchunks + 9 * nnn, 0)
         lib = {}
-        if fused:  # the transform alone, as one library call
+        whole = all(n % b == 0 for n, b in zip(v.shape, block[::-1]))
+        if fused and not whole:
+            lib = dict(library_ms=None, library_call="none: the volume is not whole blocks")
+        elif fused:  # the transform alone, as one library call
             lib = dict(library_ms=cuda_ms(lambda: einsum3(vt, v.shape, block, False), iters),
                        library_call="one three-operator torch.einsum (full f32): the "
                                     "transform, no table, no tokenize")
@@ -1074,17 +1094,25 @@ def main():
         torch.cuda.empty_cache()
         d, r = cvt.compress(v, SCALE, block=block, use_local_rms=local)
         print(f"  {label}: container {d.size} B, ratio {r:.1f}")
+        if parity:
+            nd, _ = rle_host.host_compress_parity(v, SCALE, block=block)
+            check(np.array_equal(np.asarray(d), nd), f"{label}: the card's container "
+                  f"({d.size} B) byte-equal to native cvx_compress_parity_th's ({nd.size} B)")
+            out_v = cvt.decompress(d).cpu().numpy()
+            nv = rle_host.host_decompress_parity(nd)
+            ndiff = int((out_v.view(np.uint32) != nv.view(np.uint32)).sum())
+            check(ndiff == 0, f"{label}: the card's decompress equal to native "
+                  f"cvx_decompress_inplace_parity_th's ({ndiff} of {nv.size} cells differ)")
+            del nd, out_v, nv
         dense = decode_stages(f"{label} container", d, 3, 1)[0]
         if fused:
             vk = fused_inverse.stripe_fused_inverse(dense, v.shape, block)
             vp = fused_inverse.stripe_fused_inverse_plain(dense, v.shape, block)
             torch.cuda.synchronize()
             fin = torch.isfinite(vp)
-            e = rel_rms(vk[fin], vp[fin])
-            check(e < TRANSFORM_TOL and torch.equal(fin, torch.isfinite(vk)),
-                  f"{label}: stripe_fused_inverse rel RMS {e:.3e} < 1e-5 on the decoded "
-                  f"coefficients ({int((~fin).sum())} non-finite cells, where the "
-                  "plain version's are)")
+            check(bits_same(vk, vp), f"{label}: stripe_fused_inverse bit-equal to its "
+                  f"plain version on the decoded coefficients ({int((~fin).sum())} "
+                  "non-finite cells, where the plain version's are)")
             casc_inv = sum(cascade_flops(n, inverse=True) for n in block if n > 1)
             out["stripe_fused_inverse"] = dict(
                 max_abs_err=float((vk[fin] - vp[fin]).abs().max()),
@@ -1094,8 +1122,10 @@ def main():
                     dense, v.shape, block), plain_iters),
                 # coefficients in, volume out
                 **bound(4 * dense.numel() + 4 * v.size, casc_inv * dense.numel()),
-                library_ms=cuda_ms(lambda: einsum3(dense, v.shape, block, True), iters),
-                library_call="one three-operator torch.einsum (full f32)")
+                library_ms=cuda_ms(lambda: einsum3(dense, v.shape, block, True), iters)
+                if whole else None,
+                library_call="one three-operator torch.einsum (full f32)" if whole
+                else "none: the volume is not whole blocks")
             del vk, vp
         del dense
         torch.cuda.empty_cache()
@@ -1107,27 +1137,41 @@ def main():
     vol_half = sinusoid(*SHAPE_HALF, PERIODS)
     vol_half[SHAPE_HALF[0] // 2:] = 0.0
     vol_s = sinusoid(*SHAPE_S, PERIODS)
+    noise_u = np.random.default_rng(3).standard_normal(SHAPE_U, dtype=np.float32)
+    vol_mib = sinusoid(64, 128, 128, PERIODS)  # one cluster of 8 CTAs a block
     generic = {}
-    for label, v, block, local, half in (
-            ("A 8^3", vol, (8, 8, 8), False, False),
-            ("A 8^3 local ramp", ramp(vol, 8), (8, 8, 8), True, False),
-            ("A 256^3", vol, (256, 256, 256), False, False),
-            ("A 256^3 local ramp", ramp(vol, 256), (256, 256, 256), True, False),
-            ("half-zero 256^3", vol_half, (256, 256, 256), False, True),
-            ("A 64^3", vol, (64, 64, 64), False, False),
-            ("A 64^3 local ramp", ramp(vol, 64), (64, 64, 64), True, False),
-            ("A 64x32x32", vol, (64, 32, 32), False, False),
-            ("A 64x32x32 local ramp", ramp(vol, 64), (64, 32, 32), True, False),
-            ("S 16^3", vol_s, (16, 16, 16), False, False),
-            ("S 16^3 local", vol_s, (16, 16, 16), True, False),
-            ("S 16^3 local ramp", ramp(vol_s, 16), (16, 16, 16), True, False),
-            ("S 16x16x1", vol_s, (16, 16, 1), False, False),
-            ("S 16x16x1 local ramp", ramp(vol_s, 16), (16, 16, 1), True, False),
-            ("S 8x8x1", vol_s, (8, 8, 1), False, False),
-            ("S 128x8x8", vol_s, (128, 8, 8), False, False)):
-        generic[label] = generic_kernels(label, v, block, local, 5, 1, half)
+    for label, v, block, local, half, extra in (
+            ("A 8^3", vol, (8, 8, 8), False, False, {}),
+            ("A 8^3 local ramp", ramp(vol, 8), (8, 8, 8), True, False, {}),
+            ("A 256^3", vol, (256, 256, 256), False, False, {}),
+            ("A 256^3 local ramp", ramp(vol, 256), (256, 256, 256), True, False, {}),
+            ("half-zero 256^3", vol_half, (256, 256, 256), False, True, {}),
+            ("A 64^3", vol, (64, 64, 64), False, False, {}),
+            ("A 64^3 local ramp", ramp(vol, 64), (64, 64, 64), True, False, {}),
+            ("A 64x32x32", vol, (64, 32, 32), False, False, dict(parity=True)),
+            ("A 64x32x32 local ramp", ramp(vol, 64), (64, 32, 32), True, False, {}),
+            ("A 64x32x32 noise", np.random.default_rng(4).standard_normal(
+                SHAPE, dtype=np.float32) * np.float32(NOISE_SCALE), (64, 32, 32), False,
+             False, {}),
+            ("A 64x32x32 misaligned view", vol, (64, 32, 32), False, False,
+             dict(view=True)),
+            (f"unaligned {SHAPE_U} noise 16^3", noise_u, (16, 16, 16), True, False, {}),
+            (f"unaligned {SHAPE_U} noise 64x32x32", noise_u, (64, 32, 32), False, False,
+             {}),
+            ("1 MiB 64^3 on (64, 128, 128)", vol_mib, (64, 64, 64), False, False, {}),
+            ("1 MiB 64^3 on (64, 128, 128) local ramp", ramp(vol_mib, 64), (64, 64, 64),
+             True, False, {}),
+            ("S 16^3", vol_s, (16, 16, 16), False, False, dict(parity=True)),
+            ("S 16^3 local", vol_s, (16, 16, 16), True, False, {}),
+            ("S 16^3 local ramp", ramp(vol_s, 16), (16, 16, 16), True, False, {}),
+            ("S 16^3 misaligned view", vol_s, (16, 16, 16), False, False, dict(view=True)),
+            ("S 16x16x1", vol_s, (16, 16, 1), False, False, {}),
+            ("S 16x16x1 local ramp", ramp(vol_s, 16), (16, 16, 1), True, False, {}),
+            ("S 8x8x1", vol_s, (8, 8, 1), False, False, {}),
+            ("S 128x8x8", vol_s, (128, 8, 8), False, False, {})):
+        generic[label] = generic_kernels(label, v, block, local, 5, 1, half, **extra)
         print(f"  {label} done at {time.perf_counter() - t_start:.1f} s", flush=True)
-    del vol_half
+    del vol_half, noise_u, vol_mib
     # each kernel's row at its cell (K13 at A-64^3, K1 at S-16^3), every
     # input's numbers beside it (B for block_emit)
     for k, cell in (("tokenize_stripe", "A 64^3"), ("stripe_fused_encode", "S 16^3"),
@@ -1743,14 +1787,15 @@ def main():
         return counts, res
 
     counts_e, res_e = {}, {}
+    # timed: every A case; at S the fused stripe route's 16^3 under the global RMS
     for v, cases, prefix, timed in (
-            (vol, tuple((b, lo) for b in BLOCKS_A for lo in (False, True)), "A", True),
-            (vol_s, CASES_S, "S", False)):
+            (vol, tuple((b, lo) for b in BLOCKS_A for lo in (False, True)), "A", None),
+            (vol_s, CASES_S, "S", ("16x16x16 global",))):
         cases = [(f"{'x'.join(map(str, b))} {'local' if lo else 'global'}", b, lo)
                  for b, lo in cases]
         refs = {key: native_ref(v, prefix, b, lo) for key, b, lo in cases}
-        if timed:  # every reference made before the first timed path (B's
-            # for phase 3f too)
+        if timed is None:  # every reference made before the first timed path
+            # (B's for phase 3f too)
             native_ref(vol_b, "B", BLOCK_B, False)
             for f in (*refs.values(), *natives.values()):
                 f.result()
@@ -1759,7 +1804,8 @@ def main():
         for key, b, lo in cases:
             tag = f"{prefix} {key}"
             counts_e[tag], res_e[tag] = generic_path(
-                tag, v, b, lo, timed, refs.pop(key), REF_S[key] if prefix == "S" else None)
+                tag, v, b, lo, timed is None or key in timed, refs.pop(key),
+                REF_S[key] if prefix == "S" else None)
             print(f"  {tag} done at {time.perf_counter() - t_start:.1f} s", flush=True)
     del vol_s
 

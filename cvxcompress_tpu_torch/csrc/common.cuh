@@ -13,6 +13,8 @@
 // lane per x) the 32 words of a row position land on 32 banks.
 #pragma once
 
+#include <cuda.h>  // CUtensorMap and its enums (types only: no link to libcuda)
+
 #include "cascade.cuh"
 #include "tokens.cuh"
 
@@ -187,6 +189,29 @@ __device__ __forceinline__ void store_lines(const float (&v)[LINES][B], float* d
     for (int z = 0; z < B; ++z) dst[(z * B + y0 + i) * B + x] = v[i][z];
 }
 
+// The descriptor of lane `lane`'s cell of a segment of 32 consecutive
+// block-order cells, one cell a lane: q its quantized value, m the
+// segment's ballot of non-zero cells (warp-uniform), c the cell's
+// block-local index, carry the block-local index of the last non-zero
+// cell before the segment (-1: none), end_last whether a zero run in the
+// segment's last cell ends there (the block's end, or a non-zero cell
+// next).  A group of 8 cells is 8 lanes, its mode from ballots of the four
+// classes; a segment of zeros skips those.
+__device__ __forceinline__ int32_t seg_desc(int32_t q, unsigned m, int lane, int c,
+                                            int carry, bool end_last) {
+  if (m == 0) return zero_desc(lane == 31 && end_last, c - carry);
+  const unsigned grp = 0xffu << (lane & 24), below = (1u << lane) - 1u;
+  const unsigned mb = __ballot_sync(~0u, is_byte(q));
+  const unsigned ms = __ballot_sync(~0u, is_short(q));
+  const unsigned m3 = __ballot_sync(~0u, is_i3(q));
+  const int mode = group_mode_counts(8 - __popc(m & grp), __popc(mb & grp),
+                                     __popc(ms & grp), __popc(m3 & grp));
+  const unsigned lower = m & below;
+  const int last = lower ? c - lane + 31 - __clz((int)lower) : carry;
+  const bool end = lane < 31 ? ((m >> (lane + 1)) & 1) != 0 : end_last;
+  return q != 0 ? value_cost(mode, lane & 7, q) : zero_desc(end, c - last);
+}
+
 // The tokenize of one block from its UNSCALED coefficients in the
 // swizzled buffer `s`, row by row: lane x of warp w takes cell x of the
 // x-rows (z, 2w) and (z, 2w + 1), r = 32 z + y, cell c = 32 r + x in block
@@ -244,7 +269,6 @@ __device__ __forceinline__ int tokenize_half(const float* s, float mulfac, const
                                              int h, int32_t* __restrict__ dblk) {
   const int lane = threadIdx.x & 31, y0 = 2 * (threadIdx.x >> 5);
   int cost = 0;
-  const unsigned grp = 0xffu << (lane & 24), below = (1u << lane) - 1u;
 #pragma unroll 1
   for (int i = 0; i < LINES; ++i)
 #pragma unroll 1
@@ -263,25 +287,37 @@ __device__ __forceinline__ int tokenize_half(const float* s, float mulfac, const
         // the first cell of the next row, or the block's end, ends a run
         // in this row's last cell
         const bool end_last = r == B * B - 1 || (rows[r < B * B - 1 ? r + 1 : r] >> 16) != 0;
-        int32_t d;
-        if (m[k] == 0) {  // a row of zeros (the same on every lane)
-          d = zero_desc(lane == B - 1 && end_last, c - carry);
-        } else {
-          const unsigned mb = __ballot_sync(~0u, is_byte(q[k]));
-          const unsigned ms = __ballot_sync(~0u, is_short(q[k]));
-          const unsigned m3 = __ballot_sync(~0u, is_i3(q[k]));
-          const int mode = group_mode_counts(8 - __popc(m[k] & grp), __popc(mb & grp),
-                                             __popc(ms & grp), __popc(m3 & grp));
-          const unsigned lower = m[k] & below;
-          const int last = lower ? r * B + B - 1 - __clz((int)lower) : carry;
-          const bool end = lane < B - 1 ? ((m[k] >> (lane + 1)) & 1) != 0 : end_last;
-          d = q[k] != 0 ? value_cost(mode, lane & 7, q[k]) : zero_desc(end, c - last);
-        }
+        const int32_t d = seg_desc(q[k], m[k], lane, c, carry, end_last);
         dblk[c] = d;
         cost += d & 7;
       }
     }
   return cost;
+}
+
+// cuTensorMapEncodeTiled from libcuda, looked up at run time so that the
+// library needs no link to it.
+typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                const cuuint32_t*, CUtensorMapInterleave,
+                                CUtensorMapSwizzle, CUtensorMapL2promotion,
+                                CUtensorMapFloatOOBfill);
+
+static inline EncodeTiled encode_tiled() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult q;
+#if CUDART_VERSION >= 12050
+    cudaError_t e = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
+                                                     cudaEnableDefault, &q);
+#else
+    cudaError_t e = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p,
+                                            cudaEnableDefault, &q);
+#endif
+    if (e == cudaSuccess && q == cudaDriverEntryPointSuccess) fn = (EncodeTiled)p;
+  }
+  return fn;
 }
 
 }  // namespace cvx

@@ -46,8 +46,6 @@
 // outgrows the instruction cache and the kernel takes twice as long:
 // PERF.md.)
 
-#include <cuda.h>  // CUtensorMap and its enums (types only: no link to libcuda)
-
 #include <cstring>
 
 #include "common.cuh"
@@ -144,31 +142,6 @@ fused_encode_kernel(const __grid_constant__ CUtensorMap tmap, int tma,
       mulfacs[blk] = mulfac;
     }
   }
-}
-
-// cuTensorMapEncodeTiled from libcuda, looked up at run time so that the
-// library needs no link to it.
-typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
-                                const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
-                                const cuuint32_t*, CUtensorMapInterleave,
-                                CUtensorMapSwizzle, CUtensorMapL2promotion,
-                                CUtensorMapFloatOOBfill);
-
-static EncodeTiled encode_tiled() {
-  static EncodeTiled fn = nullptr;
-  if (fn == nullptr) {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult q;
-#if CUDART_VERSION >= 12050
-    cudaError_t e = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
-                                                     cudaEnableDefault, &q);
-#else
-    cudaError_t e = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p,
-                                            cudaEnableDefault, &q);
-#endif
-    if (e == cudaSuccess && q == cudaDriverEntryPointSuccess) fn = (EncodeTiled)p;
-  }
-  return fn;
 }
 
 // The TMA route takes a 16-byte aligned volume whose rows are a multiple of

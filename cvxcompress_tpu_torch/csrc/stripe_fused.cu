@@ -1,7 +1,8 @@
 // stripe_fused: forward wavelet + scale + quantize + tokenize, and the
 // inverse wavelet, of the fused stripe blocks other than 32^3 (16^3,
 // (16, 16, 1), (8, 16, 8), (32, 32, 16), (64, 32, 32), ...: the JAX gate
-// stripe_fused_ok, ops/geometry.py).
+// stripe_fused_ok, ops/geometry.py; bx in 8..64, by in 8..256, bz 1 or
+// 8..256, at most 2^18 cells).
 //
 // Replaces the TPU kernels tokenize_pallas.stripe_fused_tiles
 // (cvxcompress_tpu/ops/tokenize_pallas.py:939, call :1024; global kernel
@@ -13,279 +14,780 @@
 // launched as `stripe_fused_inverse`).  The 32^3 blocks keep fused_encode.cu
 // and fused_inverse.cu.
 //
-// The TPU kernels hold a whole block row (bz, by, W) in VMEM and run each
-// axis' cascade as a dense operator product.  Here a CTA holds whole blocks:
-// a tile of 16,384 cells (16,384 / cells blocks; 4 at 16^3, 64 at
-// (16, 16, 1)) in shared memory, x-rows at a pitch of bx + 1 words so that a
-// warp's lines of every axis fall on distinct banks.  A block over 16,384
-// cells ((64, 32, 32), ...) is one CTA's alone and lives in its slot of the
-// coefficient output in device memory (template SMEM false), where the same
-// code runs at a pitch of bx.  Each axis is a dense f32 operator product
-// (the operator transposed, read through the read-only cache; no TF32, no
-// tensor cores): a thread computes 8 outputs of one line, a round takes
-// 2,048 / n whole lines, reads them, synchronises, then writes them.
+// Arithmetic: the native library's parity cascade (cascade.cuh), x, then
+// y, then z in both directions; a line of 8 to 32 cells, and an x-row of
+// 64, runs in one thread's registers (reg_cascade); a y- or z-line of 64
+// to 256 cells takes its levels 256 .. 64 in shared memory, a warp a line
+// (each lane its share of the output pairs, every tap read before any
+// output is written), then the levels 32 .. 2 in a thread's registers.  `wavelet.cascade_3d` is the
+// plain version, so kernel and plain version agree bit for bit and the
+// containers are those of native's parity codec.
 //
-// The encode writes the UNSCALED coefficients block-major (the emit kernel
-// and raw-fallback blocks read them), then each block's mulfac: the given
-// global one, or 1/(rms * scale) of its own coefficients, their squares
-// summed in f64 in a fixed order that ops/quant.py `run_rms` repeats (each
-// run of 64 consecutive cells in turn, then the runs in turn), so kernel
-// and plain tables are bit-equal.  Then the tokenize of tokenize_stripe.cu
-// (tokens.cuh tokenize64): thread t owns 64 consecutive cells, a block-wide
-// max-scan of the last non-zero cells cut at block starts; a block over a
-// tile takes its 16,384-cell passes in turn, the run state carried from one
-// to the next.  Outputs as tokenize_stripe: descriptors, the byte count of
-// each 128-cell chunk, block sizes (the raw decision is the wrapper's).
+// Layout.  A CTA's cells sit block-major in shared memory, x-rows dense, in
+// the TMA swizzle of the row width (32 B at bx = 8, 64 B at 16, 128 B at
+// 32 and 64): word w lives at w ^ (((w >> 5) & mask) << 2), so a thread's
+// row reads as float4s and a warp's 32 consecutive cells fall on 32 banks.
+//
+// Blocks of at most 16,384 cells: one persistent CTA of 512 threads per SM
+// walks tiles of 16,384 cells (64 KiB) of whole blocks, two tile buffers:
+// the next tile's copy runs under this tile's cascades and tokenize.  The
+// copy is one TMA tile copy per block (cp.async.bulk.tensor, a box of
+// bx x by x bz, zero past the volume's edges as native pads; at bx = 64 a
+// 4-D box of two 32-float halves, so that a row stays within the 128-byte
+// swizzle span), or, where TMA's 16-byte rules fail (nx % 4 != 0, nx % 32
+// != 0 at bx = 64, a misaligned base), 4-byte cp.async into the same
+// places.
+//
+// Larger blocks (32,768 to 2^18 cells: (64, 32, 32), (64, 64, 64), ...):
+// a thread-block cluster of R = min(8, cells / 16,384) CTAs of 256 threads
+// (two CTAs an SM, so that one's copies and barriers overlap the other's
+// work) holds one block, each CTA a range of bz / R z-planes (a contiguous range
+// of block-order cells, <= 128 KiB).  The x and y cascades run locally;
+// the z cascade on lines that each CTA reads from and writes to its peers'
+// shared memory (distributed shared memory), with a cluster barrier before
+// and after.
+//
+// Encode, per tile or CTA: the UNSCALED coefficients go out block-major
+// (raw-fallback blocks and the emit kernel read them); each block's
+// mulfac: the global one, or 1/(rms * scale) of its own coefficients, the
+// f64 squares summed in a fixed order that ops/quant.py `stripe_rms`
+// repeats (lane l of a warp adds cell 32 j + l of each 32-cell segment j of
+// its span in turn, the lanes meet in a halving tree, the spans of a CTA
+// add in order, then the CTAs of a cluster in rank order); then the
+// row-wise tokenize (common.cuh seg_desc): segments of 32 consecutive
+// block-order cells, a lane a cell, several segments a warp step (their
+// reads and ballots first), each segment's last non-zero cell by a ballot, a
+// CTA-wide max-scan over the segments, cut at block starts; in a cluster
+// the last non-zero cell before a CTA's range and the first cell after it
+// come from its peers.  Outputs as tokenize_stripe: descriptors, the byte
+// count of each 128-cell chunk, block sizes (the raw decision is the
+// wrapper's).
 //
 // The inverse reads the dense block-major coefficients the device entropy
-// decoder writes, runs the x, y, z inverse products and writes the
-// (nz, ny, nx) volume, clipped at the edges.
-// What bounds them on an H100: the operator products (n FMA per cell and
-// axis from shared memory), then the volume in and the coefficients and
-// descriptors out (encode), or the coefficients in and the volume out.
+// decoder writes (16-byte cp.async), runs the x, y, z inverse cascades and
+// writes the (nz, ny, nx) volume, clipped at the edges, as float4s where a
+// row's four cells lie inside it.
+// What bounds them on an H100: the bytes set the bound (the volume in, the
+// coefficients and descriptors out; or the coefficients in, the volume
+// out), but the kernels are bound by issue: the cascades' ~22 separately
+// rounded f32 operations per cell and axis (no FMA: native's parity order)
+// and, in the encode, the tokenize's ~2 warp instructions per cell, which
+// at 16^3 take more than half its time (PERF.md).
 
-#include "tokens.cuh"
+#include <cooperative_groups.h>
+
+#include <cstring>
+
+#include "common.cuh"
 
 namespace cvx {
 
-constexpr int LFT = 14;                // log2 cells per tile
-constexpr int FT = 1 << LFT;           // 16,384 cells per tile
-constexpr int FTHREADS = 256;          // each thread tokenizes 64 cells
-// the largest tile: 8-cell rows at a pitch of 9 words
-constexpr size_t FSMEM = (size_t)(FT / 8) * 9 * sizeof(float);
+namespace cg = cooperative_groups;
+
+constexpr int SF_LTILE = 14;
+constexpr int SF_TILE = 1 << SF_LTILE;  // cells of a tile buffer (64 KiB)
+constexpr int SF_NT = 512;              // threads of the tile kernels
+constexpr int SF_CT = 256;              // threads of a cluster CTA
+constexpr int SF_MAXPART = 1 << 15;     // a cluster CTA's cells, at most
+// two tile buffers and the slack to align them to 1,024 bytes
+constexpr size_t SF_TILE_SMEM = 2 * SF_TILE * sizeof(float) + 1024;
+constexpr size_t SF_PART_SMEM = SF_MAXPART * sizeof(float) + 1024;
 
 struct Geom {
   int lbx, lby, lbz;  // log2 of the block edges (lbz 0: bz == 1)
   int nx, ny, nz;     // the volume
-  int64_t nbx, nby;   // blocks along x and y
+  int nbx, nby;       // blocks along x and y
   int64_t nnn;        // blocks
+  int smask;          // the swizzle: 1 at bx = 8, 3 at 16, 7 at 32 and 64
 };
 
-// Working-buffer offset of cell c (block-major, from the buffer's first
-// block): rows of bx cells at a pitch of rp words.
-__device__ __forceinline__ int64_t woff(int64_t c, int lbx, int rp) {
-  return (c >> lbx) * rp + (c & ((1 << lbx) - 1));
+// Word offset of buffer word w in the swizzled layout.
+__device__ __forceinline__ int sw(int w, int smask) {
+  return w ^ (((w >> 5) & smask) << 2);
 }
 
-// The volume coordinates (x0, y0, z0) of block blk's cell 0.
+// The volume coordinates of block blk's cell 0
+// (32-bit division: a volume has fewer than 2^32 blocks).
 __device__ __forceinline__ int3 block_origin(const Geom& g, int64_t blk) {
-  const int64_t t = blk / g.nbx;
-  return make_int3((int)(blk % g.nbx) << g.lbx, (int)(t % g.nby) << g.lby,
-                   (int)(t / g.nby) << g.lbz);
+  const unsigned b = (unsigned)blk, t = b / (unsigned)g.nbx;
+  return make_int3((int)(b - t * g.nbx) << g.lbx, (int)(t % (unsigned)g.nby) << g.lby,
+                   (int)(t / (unsigned)g.nby) << g.lbz);
 }
 
-// Volume offset of the cell l of the block at origin o, or -1 outside the
-// volume (the partial edge blocks' zero padding).
-__device__ __forceinline__ int64_t vol_offset(const Geom& g, int3 o, int l) {
-  const int gx = o.x + (l & ((1 << g.lbx) - 1));
-  const int gy = o.y + ((l >> g.lbx) & ((1 << g.lby) - 1));
-  const int gz = o.z + (l >> (g.lbx + g.lby));
-  if (gx >= g.nx || gy >= g.ny || gz >= g.nz) return -1;
-  return ((int64_t)gz * g.ny + gy) * g.nx + gx;
-}
+// A line in this CTA's buffer: positions off + i * st.
+struct Lin {
+  float* s;
+  int off, st, smask;
+  __device__ __forceinline__ float& operator()(int i) const {
+    return s[sw(off + i * st, smask)];
+  }
+};
 
-// One axis (0 x, 1 y, 2 z) of the transform in place over the ncells cells
-// (whole blocks, a multiple of 2,048) of the working buffer: every line v
-// along the axis becomes op @ v, opT = op transposed ((n, n), opT[j*n + k] =
-// op[k][j]).  Thread t computes outputs 8(t % (n/8)) .. +8 of one line.
-__device__ void transform_axis_g(float* buf, int rp, const Geom& g, int axis,
-                                 const float* __restrict__ opT,
-                                 int64_t ncells) {
-  const int ln = axis == 0 ? g.lbx : axis == 1 ? g.lby : g.lbz;
-  const int n = 1 << ln;
-  const int gpl = n >> 3;  // threads per line
-  const int li = threadIdx.x / gpl, k0 = (threadIdx.x % gpl) * 8;
-  const int64_t nlines = ncells >> ln;
-  const int xmask = (1 << g.lbx) - 1;
-  for (int64_t l0 = 0; l0 < nlines; l0 += FTHREADS / gpl) {
-    const int64_t line = l0 + li;
-    int64_t base, stride;
-    if (axis == 0) {  // line = row
-      base = line * rp;
-      stride = 1;
-    } else if (axis == 1) {  // line = (block, z, x)
-      base = ((line >> g.lbx) << g.lby) * rp + (line & xmask);
-      stride = rp;
-    } else {  // line = (block, y, x)
-      const int64_t yx = line & ((1 << (g.lbx + g.lby)) - 1);
-      base = ((line >> (g.lbx + g.lby)) << (g.lbz + g.lby)) * rp +
-             (yx >> g.lbx) * rp + (yx & xmask);
-      stride = (int64_t)rp << g.lby;
-    }
-    float acc[8] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
-#pragma unroll 8
-    for (int j = 0; j < n; ++j) {  // n is a multiple of 8
-      const float v = buf[base + j * stride];
-      const float4 a = __ldg(reinterpret_cast<const float4*>(opT + j * n + k0));
-      const float4 b =
-          __ldg(reinterpret_cast<const float4*>(opT + j * n + k0 + 4));
-      acc[0] = fmaf(a.x, v, acc[0]);
-      acc[1] = fmaf(a.y, v, acc[1]);
-      acc[2] = fmaf(a.z, v, acc[2]);
-      acc[3] = fmaf(a.w, v, acc[3]);
-      acc[4] = fmaf(b.x, v, acc[4]);
-      acc[5] = fmaf(b.y, v, acc[5]);
-      acc[6] = fmaf(b.z, v, acc[6]);
-      acc[7] = fmaf(b.w, v, acc[7]);
-    }
-    __syncthreads();
+// A z-line across a cluster: position i is plane i % zc of rank i / zc.
+struct Dist {
+  float* s;
+  int off, plane, lzc, smask;
+  __device__ __forceinline__ float& operator()(int i) const {
+    float* p = s + sw(off + (i & ((1 << lzc) - 1)) * plane, smask);
+    return *cg::this_cluster().map_shared_rank(p, (unsigned)(i >> lzc));
+  }
+};
+
+// One level of length n (64, 128 or 256) of a line, in place, by the 32
+// lanes of a warp: lane l the output pairs l, l + 32, ...; every tap is
+// read before any output is written.
+template <bool INV, class A>
+__device__ __forceinline__ void warp_level(const A& a, int n, int lane) {
+  const int h = n >> 1;
+  float o0[4], o1[4];
 #pragma unroll
-    for (int i = 0; i < 8; ++i) buf[base + (k0 + i) * stride] = acc[i];
+  for (int m = 0; m < 4; ++m) {
+    const int j = lane + 32 * m;
+    if (j < h) {
+      if constexpr (INV) {
+        float L[4], H[5];
+#pragma unroll
+        for (int c = 0; c < 4; ++c) L[c] = a(mirr_sl(j - 1 + c, h));
+#pragma unroll
+        for (int c = 0; c < 5; ++c) H[c] = a(mirr_sh(h + j - 2 + c, h, h));
+        inv_pair(L, H, o0[m], o1[m]);
+      } else {
+        float x[9];
+#pragma unroll
+        for (int k = 0; k < 9; ++k) x[k] = a(mirr(2 * j - 4 + k, n));
+        fwd_pair(x, o0[m], o1[m]);
+      }
+    }
+  }
+  __syncwarp();
+#pragma unroll
+  for (int m = 0; m < 4; ++m) {
+    const int j = lane + 32 * m;
+    if (j < h) {
+      if constexpr (INV) {
+        a(2 * j) = o0[m];
+        a(2 * j + 1) = o1[m];
+      } else {
+        a(j) = o0[m];
+        a(h + j) = o1[m];
+      }
+    }
+  }
+  __syncwarp();
+}
+
+// The levels N .. 2 (forward) or 2 .. N (inverse) of positions [0, N) of
+// one line in this thread's registers.
+template <bool INV, int N, class A>
+__device__ __forceinline__ void reg_line(const A& a) {
+  float v[N];
+#pragma unroll
+  for (int i = 0; i < N; ++i) v[i] = a(i);
+  reg_cascade<INV>(v);
+#pragma unroll
+  for (int i = 0; i < N; ++i) a(i) = v[i];
+}
+
+// The whole cascade of `nlines` lines of length 2^ln; mk(l) is line l's
+// accessor.  Lines of 8 to 32: a thread a line.  Longer lines (nlines a
+// multiple of 32): warp w takes lines 32 w .. 32 w + 31, their levels of
+// 64 and more one line at a time (warp_level), their levels of 32 and less
+// a lane a line.
+template <bool INV, int N, class MK>
+__device__ __forceinline__ void lines_short(int nlines, const MK& mk) {
+#pragma unroll 1
+  for (int l = threadIdx.x; l < nlines; l += blockDim.x) reg_line<INV, N>(mk(l));
+}
+template <bool INV, class MK>
+__device__ __noinline__ void lines_long(int n, int nlines, const MK& mk) {
+  const int lane = threadIdx.x & 31;
+#pragma unroll 1
+  for (int g = threadIdx.x & ~31; g < nlines; g += blockDim.x) {
+    if (INV) {
+      reg_line<true, 32>(mk(g + lane));
+      __syncwarp();
+#pragma unroll 1
+      for (int lv = 64; lv <= n; lv <<= 1)
+#pragma unroll 1
+        for (int l = 0; l < 32; ++l) warp_level<true>(mk(g + l), lv, lane);
+    } else {
+#pragma unroll 1
+      for (int lv = n; lv >= 64; lv >>= 1)
+#pragma unroll 1
+        for (int l = 0; l < 32; ++l) warp_level<false>(mk(g + l), lv, lane);
+      reg_line<false, 32>(mk(g + lane));
+    }
+  }
+}
+template <bool INV, class MK>
+__device__ __forceinline__ void lines_any(int ln, int nlines, const MK& mk) {
+  switch (ln) {
+    case 3: lines_short<INV, 8>(nlines, mk); break;
+    case 4: lines_short<INV, 16>(nlines, mk); break;
+    case 5: lines_short<INV, 32>(nlines, mk); break;
+    default: lines_long<INV>(1 << ln, nlines, mk);
+  }
+}
+
+// Rows of N <= 32 cells, a thread a row, read and written as float4s.
+template <bool INV, int N>
+__device__ __forceinline__ void rows_short(float* s, int nrows, int smask) {
+#pragma unroll 1
+  for (int r = threadIdx.x; r < nrows; r += blockDim.x) {
+    float v[N];
+#pragma unroll
+    for (int c = 0; c < N / 4; ++c) {
+      const float4 q = *reinterpret_cast<const float4*>(s + sw(r * N + 4 * c, smask));
+      v[4 * c] = q.x;
+      v[4 * c + 1] = q.y;
+      v[4 * c + 2] = q.z;
+      v[4 * c + 3] = q.w;
+    }
+    reg_cascade<INV>(v);
+#pragma unroll
+    for (int c = 0; c < N / 4; ++c)
+      *reinterpret_cast<float4*>(s + sw(r * N + 4 * c, smask)) =
+          make_float4(v[4 * c], v[4 * c + 1], v[4 * c + 2], v[4 * c + 3]);
+  }
+}
+
+// Rows of 64 cells, a thread a row: read as float4s into registers; the
+// level 64 computed from them (forward: its highpass half stored at once,
+// the lowpass half kept for the levels 32 .. 2; inverse: after the levels
+// 2 .. 32 of the lowpass half), the outputs stored as float4s.
+template <bool INV>
+__device__ __forceinline__ void rows_64(float* s, int nrows, int smask) {
+#pragma unroll 1
+  for (int r = threadIdx.x; r < nrows; r += blockDim.x) {
+    auto at = [&](int c) { return reinterpret_cast<float4*>(s + sw(r * 64 + 4 * c, smask)); };
+    float v[64];
+#pragma unroll
+    for (int c = 0; c < 16; ++c) {
+      const float4 q = *at(c);
+      v[4 * c] = q.x;
+      v[4 * c + 1] = q.y;
+      v[4 * c + 2] = q.z;
+      v[4 * c + 3] = q.w;
+    }
+    if constexpr (INV) {
+      reg_levels<32, true>(v);
+#pragma unroll
+      for (int k = 0; k < 32; k += 2) {
+        float o[4];
+#pragma unroll
+        for (int i = 0; i < 2; ++i) {
+          float L[4], H[5];
+#pragma unroll
+          for (int c = 0; c < 4; ++c) L[c] = v[mirr_sl(k + i - 1 + c, 32)];
+#pragma unroll
+          for (int c = 0; c < 5; ++c) H[c] = v[mirr_sh(32 + k + i - 2 + c, 32, 32)];
+          inv_pair(L, H, o[2 * i], o[2 * i + 1]);
+        }
+        *at(k / 2) = make_float4(o[0], o[1], o[2], o[3]);
+      }
+    } else {
+      float lo[32];
+#pragma unroll
+      for (int j = 0; j < 32; j += 4) {
+        float hi[4];
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          float x[9];
+#pragma unroll
+          for (int k = 0; k < 9; ++k) x[k] = v[mirr(2 * (j + i) - 4 + k, 64)];
+          fwd_pair(x, lo[j + i], hi[i]);
+        }
+        *at(8 + j / 4) = make_float4(hi[0], hi[1], hi[2], hi[3]);
+      }
+      reg_cascade<false>(lo);
+#pragma unroll
+      for (int c = 0; c < 8; ++c)
+        *at(c) = make_float4(lo[4 * c], lo[4 * c + 1], lo[4 * c + 2], lo[4 * c + 3]);
+    }
+  }
+}
+
+// The x, then y cascades of the n cells (whole x-rows and y-columns) at s;
+// the caller synchronises the CTA before and after.
+template <bool INV>
+__device__ __forceinline__ void passes_xy_local(float* s, int n, const Geom& g) {
+  const int m = g.smask;
+  switch (g.lbx) {
+    case 3: rows_short<INV, 8>(s, n >> 3, m); break;
+    case 4: rows_short<INV, 16>(s, n >> 4, m); break;
+    case 5: rows_short<INV, 32>(s, n >> 5, m); break;
+    default: rows_64<INV>(s, n >> 6, m);
+  }
+  __syncthreads();
+  const int lbx = g.lbx, lxy = g.lbx + g.lby, bx = 1 << g.lbx;
+  lines_any<INV>(g.lby, n >> g.lby, [=](int l) {
+    return Lin{s, ((l >> lbx) << lxy) + (l & (bx - 1)), bx, m};
+  });
+}
+
+// The z cascades of the n cells (whole blocks) at s.
+template <bool INV>
+__device__ __forceinline__ void pass_z_local(float* s, int n, const Geom& g) {
+  const int lxy = g.lbx + g.lby, lc = lxy + g.lbz, m = g.smask;
+  lines_any<INV>(g.lbz, n >> g.lbz, [=](int l) {
+    return Lin{s, ((l >> lxy) << lc) + (l & ((1 << lxy) - 1)), 1 << lxy, m};
+  });
+}
+
+// The z cascades of this cluster CTA's share of its block's z-lines (the
+// columns rank * cols .. + cols), their planes spread over the cluster.
+template <bool INV>
+__device__ __forceinline__ void pass_z_cluster(float* s, const Geom& g, int lranks,
+                                               int rank) {
+  const int lxy = g.lbx + g.lby, cols = (1 << lxy) >> lranks;
+  const int lzc = g.lbz - lranks, m = g.smask, c0 = rank * cols;
+  lines_any<INV>(g.lbz, cols, [=](int l) {
+    return Dist{s, c0 + l, 1 << lxy, lzc, m};
+  });
+}
+
+// ---- copies ------------------------------------------------------------
+
+__device__ __forceinline__ void mbar_expect(unsigned bar, unsigned bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar),
+               "r"(bytes) : "memory");
+}
+
+// One thread: the bx x by x nzc box at volume origin o into dst (a TMA tile
+// copy completing on bar; at bx = 64 the map is 4-D, x split in halves).
+__device__ __forceinline__ void tma_box(float* dst, const void* tmap, int lbx, int3 o,
+                                        unsigned bar) {
+  if (lbx == 6)
+    asm volatile(
+        "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes"
+        " [%0], [%1, {%2, %3, %4, %5}], [%6];\n" ::"r"(smem_addr(dst)),
+        "l"(tmap), "r"(0), "r"(o.x >> 5), "r"(o.y), "r"(o.z), "r"(bar)
+        : "memory");
+  else
+    asm volatile(
+        "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes"
+        " [%0], [%1, {%2, %3, %4}], [%5];\n" ::"r"(smem_addr(dst)),
+        "l"(tmap), "r"(o.x), "r"(o.y), "r"(o.z), "r"(bar)
+        : "memory");
+}
+
+// Every thread: n cells of boxes (block-order: x, y, then z; whole blocks
+// from `blk`, or with cluster a partition from plane z of one block) by
+// 4-byte cp.async, zero past the volume's edges; no commit.
+__device__ __forceinline__ void load4(float* s, const float* vol, const Geom& g,
+                                      int64_t blk, int zoff, int n) {
+  const int lc = g.lbx + g.lby + g.lbz, lxy = g.lbx + g.lby;
+  for (int c = threadIdx.x; c < n; c += blockDim.x) {
+    const int3 o = block_origin(g, blk + (c >> lc));
+    const int l = c & ((1 << lc) - 1);
+    const int gx = o.x + (l & ((1 << g.lbx) - 1));
+    const int gy = o.y + ((l >> g.lbx) & ((1 << g.lby) - 1));
+    const int gz = o.z + zoff + (l >> lxy);
+    const bool in = gx < g.nx && gy < g.ny && gz < g.nz;
+    cp_async<4>(s + sw(c, g.smask),
+                in ? vol + ((int64_t)gz * g.ny + gy) * g.nx + gx : vol, in);
+  }
+}
+
+// Every thread: n dense coefficients by 16-byte cp.async; no commit.
+__device__ __forceinline__ void load16(float* s, const float* src, int n, int smask) {
+  for (int q = threadIdx.x; q < n / 4; q += blockDim.x)
+    cp_async<16>(s + sw(4 * q, smask), src + 4 * q, true);
+}
+
+// The n cells at s (whole x-rows of block blk from plane zoff on) into the
+// volume, clipped at its edges; float4 stores where a row's four cells lie
+// inside it and `vec` (nx % 4 == 0).
+__device__ __forceinline__ void store_volume(const float* s, float* vol, const Geom& g,
+                                             int64_t blk, int zoff, int n, bool vec) {
+  const int lc = g.lbx + g.lby + g.lbz, lxy = g.lbx + g.lby;
+  for (int q = threadIdx.x; q < n / 4; q += blockDim.x) {
+    const int c = 4 * q;
+    const int3 o = block_origin(g, blk + (c >> lc));
+    const int l = c & ((1 << lc) - 1);
+    const int gx = o.x + (l & ((1 << g.lbx) - 1));
+    const int gy = o.y + ((l >> g.lbx) & ((1 << g.lby) - 1));
+    const int gz = o.z + zoff + (l >> lxy);
+    if (gy >= g.ny || gz >= g.nz || gx >= g.nx) continue;
+    const float4 v = *reinterpret_cast<const float4*>(s + sw(c, g.smask));
+    float* dst = vol + ((int64_t)gz * g.ny + gy) * g.nx + gx;
+    if (vec && gx + 3 < g.nx) {
+      *reinterpret_cast<float4*>(dst) = v;
+    } else {
+      dst[0] = v.x;
+      if (gx + 1 < g.nx) dst[1] = v.y;
+      if (gx + 2 < g.nx) dst[2] = v.z;
+      if (gx + 3 < g.nx) dst[3] = v.w;
+    }
+  }
+}
+
+// ---- the encode's epilogue ----------------------------------------------
+
+// The n coefficients at s, block-major, to dst as float4s.
+__device__ __forceinline__ void store_coeffs(const float* s, float* dst, int n, int smask) {
+  for (int q = threadIdx.x; q < n / 4; q += blockDim.x)
+    reinterpret_cast<float4*>(dst)[q] = *reinterpret_cast<const float4*>(s + sw(4 * q, smask));
+}
+
+// The local RMS's spans: warp w owns the cells [w, w + 1) * ncells / warps;
+// lane l adds the f64 square of cell 32 j + l of each segment j of a span
+// in turn, the lanes meet in a halving tree, and span k's sum goes to
+// out[k].  Only the first n cells (whole blocks) count.
+__device__ __noinline__ void span_sums(const float* s, int ncells, int n, int span,
+                                          int smask, double* out) {
+  const int lane = threadIdx.x & 31, warps = blockDim.x >> 5;
+  const int per = ncells / warps, c_end = min(n, (int)(threadIdx.x >> 5) * per + per);
+  double acc = 0.0;
+#pragma unroll 1
+  for (int c0 = (threadIdx.x >> 5) * per; c0 < c_end; c0 += 32) {
+    const double d = s[sw(c0 + lane, smask)];
+    acc += d * d;  // exact square: an FMA contraction changes nothing
+    if ((c0 + 32) % span == 0) {
+#pragma unroll
+      for (int o = 16; o > 0; o >>= 1) acc += __shfl_xor_sync(~0u, acc, o);
+      if (lane == 0) out[(c0 + 32) / span - 1] = acc;
+      acc = 0.0;
+    }
+  }
+}
+
+// Tokenize, step 1: each 32-cell segment j of the first n cells of the
+// ncells at s (warp w the segments of its share, eight at a time: their
+// reads and ballots first) into rows[j]: 1 + its last non-zero cell (0:
+// none), bit 16 its first cell non-zero.  mf[b]: block b's mulfac (b =
+// cell >> lc).
+__device__ __noinline__ void tok_summaries(const float* s, int ncells, int n, int lc,
+                                              const float* mf, int smask, int* rows) {
+  const int lane = threadIdx.x & 31, warps = blockDim.x >> 5;
+  const int per = ncells / warps, c_beg = (threadIdx.x >> 5) * per;
+#pragma unroll 1
+  for (int c0 = c_beg; c0 < c_beg + per; c0 += 256) {
+    unsigned m[8];
+#pragma unroll
+    for (int k = 0; k < 8; ++k) {
+      const int c = c0 + 32 * k;
+      // cvtt(fv) != 0 exactly where |fv| >= 1 or fv is NaN
+      m[k] = c < n ? __ballot_sync(
+                         ~0u, !(fabsf(__fmul_rn(s[sw(c + lane, smask)], mf[c >> lc])) < 1.0f))
+                   : 0u;
+    }
+    if (lane == 0)
+#pragma unroll
+      for (int k = 0; k < 8; ++k) {
+        const int c = c0 + 32 * k;
+        rows[c >> 5] = (m[k] ? c + 32 - __clz((int)m[k]) : 0) | (int)((m[k] & 1) << 16);
+      }
+  }
+}
+
+// Tokenize, step 2: rows[j] becomes 1 + the last non-zero cell before
+// segment j (0: none) with its bit 16 kept; returns 1 + the last non-zero
+// cell of all (0: none).  Thread t takes segments t * spt .. + spt.
+__device__ __noinline__ int tok_scan(int* rows, int nseg, int* scan_buf) {
+  const int spt = nseg / blockDim.x, j0 = threadIdx.x * spt;
+  int v[4], top = 0;
+#pragma unroll
+  for (int k = 0; k < 4; ++k)
+    if (k < spt) {
+      v[k] = rows[j0 + k];
+      top = max(top, v[k] & 0xffff);
+    }
+  int total;
+  int run = block_exclusive_scan(top, 0, MaxOp(), scan_buf, &total);
+#pragma unroll
+  for (int k = 0; k < 4; ++k)
+    if (k < spt) {
+      rows[j0 + k] = run | (v[k] & 0x10000);
+      run = max(run, v[k] & 0xffff);
+    }
+  __syncthreads();
+  return total;
+}
+
+// Tokenize, step 3: the descriptors of the first n cells of the ncells at
+// s (global block-major cell gbase; block-local index of cell 0: boff, 0
+// in a tile) from rows (tok_scan's), a 128-cell chunk (four segments) a
+// warp step, their reads and ballots first; each chunk's byte count and
+// each block's size (atomics into the zeroed sizes; blk0 the block of cell
+// 0).  carry0: the block-local last non-zero cell before cell 0 (-1:
+// none); next_first: whether the cell after the ncells is non-zero (a
+// cluster CTA's range that ends inside its block).
+__device__ __noinline__ void tok_descs(const float* s, int ncells, int n, int lc,
+                                          const float* mf, int smask, const int* rows,
+                                          int64_t gbase, int boff, int64_t blk0, int carry0,
+                                          bool next_first, int32_t* __restrict__ desc,
+                                          int32_t* __restrict__ chunk_bytes,
+                                          int32_t* __restrict__ sizes) {
+  const int lane = threadIdx.x & 31, warps = blockDim.x >> 5, cells = 1 << lc;
+  const int per = ncells / warps, c_beg = (threadIdx.x >> 5) * per;
+  const int c_end = min(n, c_beg + per);
+  int32_t* dst = desc + gbase + lane;
+  int bsum = 0;
+#pragma unroll 1
+  for (int c0 = c_beg; c0 < c_end; c0 += 128) {
+    const float m0 = mf[c0 >> lc];  // a chunk lies in one block
+    const int bl0 = (boff + c0) & (cells - 1), bs = c0 - bl0;
+    int32_t q[4];
+    unsigned m[4];
+    int e[5];
+#pragma unroll
+    for (int k = 0; k < 4; ++k) q[k] = cvtt(__fmul_rn(s[sw(c0 + 32 * k + lane, smask)], m0));
+#pragma unroll
+    for (int k = 0; k < 5; ++k)
+      e[k] = k < 4 || c0 + 128 < ncells ? rows[(c0 >> 5) + k] : (int)next_first << 16;
+#pragma unroll
+    for (int k = 0; k < 4; ++k) m[k] = __ballot_sync(~0u, q[k] != 0);
+    const bool block_end = bl0 + 128 == cells;
+    int cost = 0;
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      const int last = (e[k] & 0xffff) - 1;  // tile-local, -1: none
+      const int carry = last >= 0 && last >= bs ? last - bs : carry0;
+      const bool end_last = (k == 3 && block_end) || (e[k + 1] >> 16) != 0;
+      const int32_t d = seg_desc(q[k], m[k], lane, bl0 + 32 * k + lane, carry, end_last);
+      dst[c0 + 32 * k] = d;
+      cost += d & 7;
+    }
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1) cost += __shfl_xor_sync(~0u, cost, o);
+    if (lane == 0) chunk_bytes[(gbase + c0) >> 7] = cost;
+    bsum += cost;
+    if (block_end || c0 + 128 == c_end) {
+      if (lane == 0 && bsum) atomicAdd(&sizes[blk0 + (c0 >> lc)], bsum);
+      bsum = 0;
+    }
+  }
+}
+
+// ---- the tile kernels (blocks of at most SF_TILE cells) -------------------
+
+// `factor`: the global mulfac, or with `local` the scale.  `tma`: the copy
+// route (uniform); `tmap` describes the volume when it is set.
+__global__ void __launch_bounds__(SF_NT, 1)
+sf_encode_tile(const __grid_constant__ CUtensorMap tmap, int tma, const float* __restrict__ vol,
+               Geom g, int local, float factor, float* __restrict__ coeffs,
+               int32_t* __restrict__ desc, int32_t* __restrict__ chunk_bytes,
+               int32_t* __restrict__ sizes, float* __restrict__ mulfacs) {
+  extern __shared__ __align__(16) unsigned char dsmem[];
+  float* const buf0 = block_buffer(dsmem);
+  __shared__ uint64_t full[2];
+  __shared__ int rows[SF_TILE / 32];
+  __shared__ int scan_buf[32];
+  __shared__ double spans[SF_TILE / 128];
+  __shared__ float s_mf[SF_TILE / 128];
+  const int lc = g.lbx + g.lby + g.lbz, cells = 1 << lc, bpt = SF_TILE >> lc;
+  const int64_t ntiles = (g.nnn + bpt - 1) / bpt;
+  const int span = min(cells, SF_TILE / (SF_NT / 32));
+
+  auto load = [&](int64_t t, int b) {
+    float* dst = buf0 + b * SF_TILE;
+    const int64_t blk = t * bpt;
+    const int nb = (int)min((int64_t)bpt, g.nnn - blk);
+    if (!tma) {
+      load4(dst, vol, g, blk, 0, nb << lc);
+      cp_async_commit();
+    } else if (threadIdx.x < 32) {
+      const unsigned bar = smem_addr(&full[b]);
+      if (threadIdx.x == 0) mbar_expect(bar, (unsigned)(nb << lc) * 4u);
+      __syncwarp();
+      for (int k = threadIdx.x; k < nb; k += 32)
+        tma_box(dst + (k << lc), &tmap, g.lbx, block_origin(g, blk + k), bar);
+    }
+  };
+
+  if (tma && threadIdx.x == 0) {
+    mbar_init(smem_addr(&full[0]));
+    mbar_init(smem_addr(&full[1]));
+  }
+  __syncthreads();
+  if (blockIdx.x < ntiles) load(blockIdx.x, 0);
+  int i = 0;
+  for (int64_t t = blockIdx.x; t < ntiles; t += gridDim.x, ++i) {
+    const int b = i & 1;
+    float* s = buf0 + b * SF_TILE;
+    if (t + gridDim.x < ntiles)
+      load(t + gridDim.x, b ^ 1);
+    else if (!tma)
+      cp_async_commit();
+    if (tma) {
+      mbar_wait(smem_addr(&full[b]), (i >> 1) & 1);
+    } else {
+      cp_async_wait<1>();
+      __syncthreads();
+    }
+    const int64_t blk = t * bpt;
+    const int nb = (int)min((int64_t)bpt, g.nnn - blk), n = nb << lc;
+    passes_xy_local<false>(s, SF_TILE, g);
+    __syncthreads();
+    if (g.lbz) {
+      pass_z_local<false>(s, SF_TILE, g);
+      __syncthreads();
+    }
+    store_coeffs(s, coeffs + (blk << lc), n, g.smask);
+    if (local) {
+      span_sums(s, SF_TILE, n, span, g.smask, spans);
+      __syncthreads();
+    }
+    if (threadIdx.x < nb) {
+      float mf = factor;
+      if (local) {
+        const int k = cells / span;
+        double ss = 0.0;
+        for (int j = 0; j < k; ++j) ss += spans[threadIdx.x * k + j];
+        mf = local_mulfac(ss, cells, factor);
+      }
+      s_mf[threadIdx.x] = mf;
+      mulfacs[blk + threadIdx.x] = mf;
+    }
+    __syncthreads();
+    tok_summaries(s, SF_TILE, n, lc, s_mf, g.smask, rows);
+    __syncthreads();
+    tok_scan(rows, SF_TILE / 32, scan_buf);
+    tok_descs(s, SF_TILE, n, lc, s_mf, g.smask, rows, blk << lc, 0, blk, -1, false, desc,
+              chunk_bytes, sizes);
+    fence_proxy_async();  // this tile's accesses before a later copy into it
     __syncthreads();
   }
 }
 
-__device__ __forceinline__ void transform_3d(float* buf, int rp, const Geom& g,
-                                             const float* opx, const float* opy,
-                                             const float* opz, int64_t ncells) {
-  transform_axis_g(buf, rp, g, 0, opx, ncells);
-  transform_axis_g(buf, rp, g, 1, opy, ncells);
-  if (g.lbz > 0) transform_axis_g(buf, rp, g, 2, opz, ncells);
+__global__ void __launch_bounds__(SF_NT, 1)
+sf_inverse_tile(const float* __restrict__ dense, Geom g, int vec, float* __restrict__ vol) {
+  extern __shared__ __align__(16) unsigned char dsmem[];
+  float* const buf0 = block_buffer(dsmem);
+  const int lc = g.lbx + g.lby + g.lbz, bpt = SF_TILE >> lc;
+  const int64_t ntiles = (g.nnn + bpt - 1) / bpt;
+  auto ncells = [&](int64_t t) { return (int)min((int64_t)bpt, g.nnn - t * bpt) << lc; };
+  if (blockIdx.x < ntiles) load16(buf0, dense + ((int64_t)blockIdx.x * bpt << lc),
+                                  ncells(blockIdx.x), g.smask);
+  cp_async_commit();
+  int i = 0;
+  for (int64_t t = blockIdx.x; t < ntiles; t += gridDim.x, ++i) {
+    float* s = buf0 + (i & 1) * SF_TILE;
+    const int64_t tn = t + gridDim.x;
+    if (tn < ntiles)
+      load16(buf0 + ((i & 1) ^ 1) * SF_TILE, dense + (tn * bpt << lc), ncells(tn), g.smask);
+    cp_async_commit();
+    cp_async_wait<1>();
+    __syncthreads();
+    passes_xy_local<true>(s, SF_TILE, g);
+    __syncthreads();
+    if (g.lbz) {
+      pass_z_local<true>(s, SF_TILE, g);
+      __syncthreads();
+    }
+    store_volume(s, vol, g, t * bpt, 0, ncells(t), vec);
+    __syncthreads();
+  }
 }
 
-// SMEM: a tile of whole blocks in shared memory (cells <= FT); else one
-// block per CTA, worked in its slot of `coeffs`.  `factor`: the global
-// mulfac, or with LOCAL the scale.
-template <bool LOCAL, bool SMEM>
-__global__ void __launch_bounds__(FTHREADS)
-stripe_fused_encode_kernel(const float* __restrict__ vol, Geom g,
-                           const float* __restrict__ opx,
-                           const float* __restrict__ opy,
-                           const float* __restrict__ opz, float factor,
-                           float* coeffs, int32_t* __restrict__ desc,
-                           int32_t* __restrict__ chunk_bytes,
-                           int32_t* __restrict__ sizes,
-                           float* __restrict__ mulfacs) {
-  extern __shared__ __align__(16) float smem[];
-  __shared__ double part[FTHREADS];
-  __shared__ float s_mf[FT / 128];  // a tile holds at most 128 blocks
-  __shared__ int3 s_org[FT / 128];  // and their origins in the volume
+// ---- the cluster kernels (blocks over SF_TILE cells) ----------------------
+
+// Cluster CTA `rank` of block blockIdx.x >> lranks: its planes rank * zc ..
+// + zc, cells boff = rank << lp .. + 2^lp of the block.
+__global__ void __launch_bounds__(SF_CT, 2)
+sf_encode_cluster(const __grid_constant__ CUtensorMap tmap, int tma,
+                  const float* __restrict__ vol, Geom g, int lranks, int local, float factor,
+                  float* __restrict__ coeffs, int32_t* __restrict__ desc,
+                  int32_t* __restrict__ chunk_bytes, int32_t* __restrict__ sizes,
+                  float* __restrict__ mulfacs) {
+  extern __shared__ __align__(16) unsigned char dsmem[];
+  float* const s = block_buffer(dsmem);
+  __shared__ uint64_t full;
+  __shared__ int rows[SF_MAXPART / 32];
   __shared__ int scan_buf[32];
+  __shared__ double spans[SF_CT / 32];
+  __shared__ double part;      // this CTA's sum of squares
+  __shared__ int last, first;  // 1 + its last non-zero cell, block-local; its first cell
+  __shared__ float s_mf;
+  cg::cluster_group cl = cg::this_cluster();
+  const int rank = (int)cl.block_rank(), nr = 1 << lranks;
+  const int lc = g.lbx + g.lby + g.lbz, cells = 1 << lc, lp = lc - lranks, n = 1 << lp;
+  const int64_t blk = blockIdx.x >> lranks;
+  const int boff = rank << lp, zoff = rank << (g.lbz - lranks);
+  const int64_t gbase = (blk << lc) + boff;
 
-  const int lcells = g.lbx + g.lby + g.lbz;
-  const int64_t cells = (int64_t)1 << lcells;
-  const int64_t ncells = SMEM ? FT : cells;  // the CTA's cells
-  const int64_t fb = SMEM ? (int64_t)blockIdx.x << (LFT - lcells) : blockIdx.x;
-  const int64_t gbase = fb << lcells;  // its first cell, block-major
-  const int bpt = (int)(ncells >> lcells);  // its blocks
-  const int rp = (1 << g.lbx) + (SMEM ? 1 : 0);
-  float* buf = SMEM ? smem : coeffs + gbase;
-  if (threadIdx.x < bpt) s_org[threadIdx.x] = block_origin(g, fb + threadIdx.x);
-  __syncthreads();
-
-  for (int64_t c = threadIdx.x; c < ncells; c += FTHREADS) {
-    float v = 0.0f;
-    if (fb + (c >> lcells) < g.nnn) {
-      const int64_t o = vol_offset(g, s_org[c >> lcells], (int)(c & (cells - 1)));
-      if (o >= 0) v = vol[o];
+  if (tma) {
+    if (threadIdx.x == 0) {
+      const unsigned bar = smem_addr(&full);
+      mbar_init(bar);
+      mbar_expect(bar, (unsigned)n * 4u);
+      int3 o = block_origin(g, blk);
+      o.z += zoff;
+      tma_box(s, &tmap, g.lbx, o, bar);
     }
-    buf[woff(c, g.lbx, rp)] = v;
+    __syncthreads();
+    mbar_wait(smem_addr(&full), 0);
+  } else {
+    load4(s, vol, g, blk, zoff, n);
+    cp_async_commit();
+    cp_async_wait<0>();
+    __syncthreads();
   }
-  __syncthreads();
-  transform_3d(buf, rp, g, opx, opy, opz, ncells);
-  const int64_t valid =
-      min(ncells, (g.nnn - fb) << lcells);  // the cells of real blocks
-  if (SMEM)
-    for (int64_t c = threadIdx.x; c < valid; c += FTHREADS)
-      coeffs[gbase + c] = buf[woff(c, g.lbx, rp)];
-
-  // each block's mulfac
-  if (LOCAL) {
-    // a block's 64-cell runs in the CTA's passes of FT cells: per pass each
-    // thread sums its run's squares, then one thread per block adds the
-    // pass's runs of its block in order
-    const int rpb = (int)min((int64_t)FTHREADS, cells >> 6);  // runs per block and pass
-    double total = 0.0;  // a block over a tile: its sum so far (thread 0)
-    for (int64_t p0 = 0; p0 < ncells; p0 += FT) {
-      const int64_t c0 = p0 + threadIdx.x * 64;
+  passes_xy_local<false>(s, n, g);
+  cl.sync();
+  pass_z_cluster<false>(s, g, lranks, rank);
+  cl.sync();
+  store_coeffs(s, coeffs + gbase, n, g.smask);
+  if (local) {
+    span_sums(s, n, n, n / (SF_CT / 32), g.smask, spans);
+    __syncthreads();
+    if (threadIdx.x == 0) {
       double ss = 0.0;
-      for (int i = 0; i < 64; ++i) {
-        const double v = buf[woff(c0 + i, g.lbx, rp)];
-        ss += v * v;  // exact square: an FMA contraction changes nothing
-      }
-      part[threadIdx.x] = ss;
-      __syncthreads();
-      if (threadIdx.x < FTHREADS / rpb) {
-        double acc = SMEM ? 0.0 : total;
-        for (int r = 0; r < rpb; ++r) acc += part[threadIdx.x * rpb + r];
-        if (SMEM)
-          s_mf[threadIdx.x] = local_mulfac(acc, cells, factor);
-        else
-          total = acc;
-      }
-      __syncthreads();
+      for (int w = 0; w < SF_CT / 32; ++w) ss += spans[w];
+      part = ss;
     }
-    if (!SMEM && threadIdx.x == 0) s_mf[0] = local_mulfac(total, cells, factor);
-  } else if (threadIdx.x < bpt) {
-    s_mf[threadIdx.x] = factor;
+    cl.sync();
+  }
+  if (threadIdx.x == 0) {
+    float mf = factor;
+    if (local) {
+      double ss = 0.0;
+      for (int r = 0; r < nr; ++r) ss += *cl.map_shared_rank(&part, (unsigned)r);
+      mf = local_mulfac(ss, cells, factor);
+    }
+    s_mf = mf;
+    if (rank == 0) mulfacs[blk] = mf;
   }
   __syncthreads();
-  if (threadIdx.x < bpt && fb + threadIdx.x < g.nnn)
-    mulfacs[fb + threadIdx.x] = s_mf[threadIdx.x];
-
-  // the tokenize, pass by pass; `carry`: a block over a tile's last non-zero
-  // cell before the pass, block-local (-1: none)
+  // s_mf is indexed by cell >> lc, 0 for every cell of the range
+  tok_summaries(s, n, n, lc, &s_mf, g.smask, rows);
+  __syncthreads();
+  const int top = tok_scan(rows, n / 32, scan_buf);
+  if (threadIdx.x == 0) {
+    last = top ? boff + top : 0;
+    first = rows[0] >> 16;
+  }
+  cl.sync();
   int carry = -1;
-  for (int64_t p0 = 0; p0 < ncells; p0 += FT) {
-    const int64_t c0 = p0 + threadIdx.x * 64;  // the thread's first cell
-    const int bt = (int)(c0 >> lcells);
-    const int64_t blk = fb + bt;
-    const bool active = blk < g.nnn;
-    const int l0 = (int)(c0 & (cells - 1));
-    const float mf = s_mf[bt];
-    auto q = [&](int i) {
-      return cvtt(__fmul_rn(buf[woff(c0 + i, g.lbx, rp)], mf));
-    };
-    uint64_t nonzero = 0;
-    if (active)
-      for (int i = 0; i < 64; ++i) nonzero |= (uint64_t)(q(i) != 0) << i;
-    const int t0 = (int)(c0 - p0);  // pass-local
-    const int last_local = nonzero ? t0 + 63 - __clzll((long long)nonzero) : -1;
-    int pass_last;
-    const int excl =
-        block_exclusive_scan(last_local, -1, MaxOp(), scan_buf, &pass_last);
-    const unsigned live = __ballot_sync(0xffffffffu, active);
-    if (active) {
-      // a scan result from an earlier block of the tile falls below 0
-      const int el = excl >= 0 ? excl - t0 + l0 : -1;
-      const bool end_after = l0 + 64 == cells || q(64) != 0;
-      const int cost = tokenize64(q, nonzero, el >= 0 ? el : carry, l0,
-                                  end_after, desc + gbase + c0);
-      store_counts(cost, live, (int)cells, gbase + c0, blk, chunk_bytes, sizes);
-    }
-    if (pass_last >= 0) carry = (int)p0 + pass_last;
-  }
+  for (int r = 0; r < rank; ++r) carry = max(carry, *cl.map_shared_rank(&last, (unsigned)r) - 1);
+  const bool next_first = rank + 1 < nr && *cl.map_shared_rank(&first, (unsigned)rank + 1) != 0;
+  tok_descs(s, n, n, lc, &s_mf, g.smask, rows, gbase, boff, blk, carry, next_first, desc,
+            chunk_bytes, sizes);
+  cl.sync();  // the peers have read `last`, `first` and `part`
 }
 
-template <bool SMEM>
-__global__ void __launch_bounds__(FTHREADS)
-stripe_fused_inverse_kernel(const float* __restrict__ dense, Geom g,
-                            const float* __restrict__ opx,
-                            const float* __restrict__ opy,
-                            const float* __restrict__ opz, float* work,
-                            float* __restrict__ vol) {
-  extern __shared__ __align__(16) float smem[];
-  __shared__ int3 s_org[FT / 128];
-  const int lcells = g.lbx + g.lby + g.lbz;
-  const int64_t cells = (int64_t)1 << lcells;
-  const int64_t ncells = SMEM ? FT : cells;
-  const int64_t fb = SMEM ? (int64_t)blockIdx.x << (LFT - lcells) : blockIdx.x;
-  const int64_t gbase = fb << lcells;
-  const int rp = (1 << g.lbx) + (SMEM ? 1 : 0);
-  float* buf = SMEM ? smem : work + gbase;
-  const int64_t valid = min(ncells, (g.nnn - fb) << lcells);
-  if (threadIdx.x < (int)(ncells >> lcells))
-    s_org[threadIdx.x] = block_origin(g, fb + threadIdx.x);
-
-  for (int64_t c = threadIdx.x; c < ncells; c += FTHREADS)
-    buf[woff(c, g.lbx, rp)] = c < valid ? dense[gbase + c] : 0.0f;
+__global__ void __launch_bounds__(SF_CT, 2)
+sf_inverse_cluster(const float* __restrict__ dense, Geom g, int lranks, int vec,
+                   float* __restrict__ vol) {
+  extern __shared__ __align__(16) unsigned char dsmem[];
+  float* const s = block_buffer(dsmem);
+  cg::cluster_group cl = cg::this_cluster();
+  const int rank = (int)cl.block_rank();
+  const int lc = g.lbx + g.lby + g.lbz, lp = lc - lranks, n = 1 << lp;
+  const int64_t blk = blockIdx.x >> lranks;
+  load16(s, dense + (blk << lc) + (rank << lp), n, g.smask);
+  cp_async_commit();
+  cp_async_wait<0>();
   __syncthreads();
-  transform_3d(buf, rp, g, opx, opy, opz, ncells);
-  for (int64_t c = threadIdx.x; c < valid; c += FTHREADS) {
-    const int64_t o = vol_offset(g, s_org[c >> lcells], (int)(c & (cells - 1)));
-    if (o >= 0) vol[o] = buf[woff(c, g.lbx, rp)];
-  }
+  passes_xy_local<true>(s, n, g);
+  cl.sync();
+  pass_z_cluster<true>(s, g, lranks, rank);
+  cl.sync();
+  store_volume(s, vol, g, blk, rank << (g.lbz - lranks), n, vec);
 }
+
+// ---- launchers ------------------------------------------------------------
 
 static Geom make_geom(int nx, int ny, int nz, int lbx, int lby, int lbz) {
   Geom g;
@@ -297,98 +799,160 @@ static Geom make_geom(int nx, int ny, int nz, int lbx, int lby, int lbz) {
   g.nz = nz;
   g.nbx = (nx + (1 << lbx) - 1) >> lbx;
   g.nby = (ny + (1 << lby) - 1) >> lby;
-  g.nnn = g.nbx * g.nby * ((nz + (1 << lbz) - 1) >> lbz);
+  g.nnn = (int64_t)g.nbx * g.nby * ((nz + (1 << lbz) - 1) >> lbz);
+  g.smask = lbx == 3 ? 1 : lbx == 4 ? 3 : 7;
   return g;
 }
 
-// The CTAs and dynamic shared memory of a launch: tiles of FT cells (true),
-// or one block each when a block is larger (false).
-static bool grid_of(const Geom& g, int64_t* ctas, size_t* smem) {
-  const int lcells = g.lbx + g.lby + g.lbz;
-  if (lcells > LFT) {
-    *ctas = g.nnn;
-    *smem = 0;
-    return false;
-  }
-  *ctas = (g.nnn + (1 << (LFT - lcells)) - 1) >> (LFT - lcells);
-  *smem = (size_t)(FT >> g.lbx) * ((1 << g.lbx) + 1) * sizeof(float);
-  return true;
+// log2 of the cluster's CTAs for a block of 2^lc cells (0: the tile
+// kernels): at most 8, the portable cluster size.
+static int cluster_lranks(int lc) {
+  if (lc <= SF_LTILE) return 0;
+  return lc - SF_LTILE < 3 ? lc - SF_LTILE : 3;
 }
 
-template <bool LOCAL>
-static int launch_encode(const float* vol, int nx, int ny, int nz, int lbx,
-                         int lby, int lbz, const float* opx, const float* opy,
-                         const float* opz, float factor, float* coeffs,
-                         int32_t* desc, int32_t* chunk_bytes, int32_t* sizes,
-                         float* mulfacs, cudaStream_t st) {
+// The TMA map of the volume for boxes of bx x by x nzc (x in 32-float halves
+// at bx = 64), or false where TMA's rules fail (the 4-byte route).
+static bool make_tmap(CUtensorMap* tmap, const float* vol, const Geom& g, int nzc,
+                      int* err) {
+  *err = 0;
+  const int bx = 1 << g.lbx;
+  if (reinterpret_cast<uintptr_t>(vol) % 16 || g.nx % 4 || (bx == 64 && g.nx % 32))
+    return false;
+  const EncodeTiled enc = encode_tiled();
+  if (enc == nullptr) {
+    *err = (int)cudaErrorSymbolNotFound;
+    return false;
+  }
+  const CUtensorMapSwizzle swz = bx == 8    ? CU_TENSOR_MAP_SWIZZLE_32B
+                                 : bx == 16 ? CU_TENSOR_MAP_SWIZZLE_64B
+                                            : CU_TENSOR_MAP_SWIZZLE_128B;
+  const cuuint64_t row = (cuuint64_t)g.nx * 4, plane = row * g.ny;
+  CUresult r;
+  if (bx == 64) {
+    const cuuint64_t dims[4] = {32, (cuuint64_t)g.nx / 32, (cuuint64_t)g.ny,
+                                (cuuint64_t)g.nz};
+    const cuuint64_t strides[3] = {128, row, plane};
+    const cuuint32_t box[4] = {32, 2, (cuuint32_t)(1 << g.lby), (cuuint32_t)nzc};
+    const cuuint32_t one[4] = {1, 1, 1, 1};
+    r = enc(tmap, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 4, (void*)vol, dims, strides, box, one,
+            CU_TENSOR_MAP_INTERLEAVE_NONE, swz, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  } else {
+    const cuuint64_t dims[3] = {(cuuint64_t)g.nx, (cuuint64_t)g.ny, (cuuint64_t)g.nz};
+    const cuuint64_t strides[2] = {row, plane};
+    const cuuint32_t box[3] = {(cuuint32_t)bx, (cuuint32_t)(1 << g.lby), (cuuint32_t)nzc};
+    const cuuint32_t one[3] = {1, 1, 1};
+    r = enc(tmap, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 3, (void*)vol, dims, strides, box, one,
+            CU_TENSOR_MAP_INTERLEAVE_NONE, swz, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  }
+  if (r != CUDA_SUCCESS) *err = (int)cudaErrorInvalidValue;
+  return r == CUDA_SUCCESS;
+}
+
+static cudaError_t sm_count(int* sms) {
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e == cudaSuccess) e = cudaDeviceGetAttribute(sms, cudaDevAttrMultiProcessorCount, dev);
+  return e;
+}
+
+// A launch of `kernel` as nnn clusters of 2^lranks CTAs of SF_CT threads.
+template <class K, class... Args>
+static cudaError_t launch_clusters(K kernel, const Geom& g, int lranks, cudaStream_t st,
+                                   Args... args) {
+  const int lc = g.lbx + g.lby + g.lbz;
+  const size_t smem = ((size_t)1 << (lc - lranks)) * sizeof(float) + 1024;
+  cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                       (int)SF_PART_SMEM);
+  if (e != cudaSuccess) return e;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((unsigned)(g.nnn << lranks));
+  cfg.blockDim = dim3(SF_CT);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = st;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = 1u << lranks;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return cudaLaunchKernelEx(&cfg, kernel, args...);
+}
+
+static int launch_encode(const float* vol, int nx, int ny, int nz, int lbx, int lby, int lbz,
+                         int local, float factor, float* coeffs, int32_t* desc,
+                         int32_t* chunk_bytes, int32_t* sizes, float* mulfacs,
+                         cudaStream_t st) {
   const Geom g = make_geom(nx, ny, nz, lbx, lby, lbz);
   if (g.nnn == 0) return 0;
-  int64_t ctas;
-  size_t smem;
-  const bool tiled = grid_of(g, &ctas, &smem);
+  const int lc = lbx + lby + lbz, lranks = cluster_lranks(lc);
+  CUtensorMap tmap;
+  std::memset(&tmap, 0, sizeof tmap);
+  int err;
+  const int tma = make_tmap(&tmap, vol, g, (1 << lbz) >> lranks, &err);
+  if (err) return err;
   cudaError_t e = cudaMemsetAsync(sizes, 0, g.nnn * sizeof(int32_t), st);
   if (e != cudaSuccess) return (int)e;
-  if (tiled) {
-    e = cudaFuncSetAttribute(stripe_fused_encode_kernel<LOCAL, true>,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             (int)FSMEM);
-    if (e != cudaSuccess) return (int)e;
-    stripe_fused_encode_kernel<LOCAL, true><<<(unsigned)ctas, FTHREADS, smem, st>>>(
-        vol, g, opx, opy, opz, factor, coeffs, desc, chunk_bytes, sizes, mulfacs);
-  } else {
-    stripe_fused_encode_kernel<LOCAL, false><<<(unsigned)ctas, FTHREADS, smem, st>>>(
-        vol, g, opx, opy, opz, factor, coeffs, desc, chunk_bytes, sizes, mulfacs);
+  if (lranks) {
+    e = launch_clusters(sf_encode_cluster, g, lranks, st, tmap, tma, vol, g, lranks, local,
+                        factor, coeffs, desc, chunk_bytes, sizes, mulfacs);
+    return e != cudaSuccess ? (int)e : (int)cudaGetLastError();
   }
+  int sms = 0;
+  e = cudaFuncSetAttribute(sf_encode_tile, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           (int)SF_TILE_SMEM);
+  if (e == cudaSuccess) e = sm_count(&sms);
+  if (e != cudaSuccess) return (int)e;
+  const int64_t ntiles = (g.nnn + (SF_TILE >> lc) - 1) / (SF_TILE >> lc);
+  const unsigned grid = (unsigned)(ntiles < sms ? ntiles : sms);
+  sf_encode_tile<<<grid, SF_NT, SF_TILE_SMEM, st>>>(tmap, tma, vol, g, local, factor, coeffs,
+                                                    desc, chunk_bytes, sizes, mulfacs);
   return (int)cudaGetLastError();
 }
 
 }  // namespace cvx
 
-// The operators are the forward (encode) or inverse (decode) (n, n) f32
-// matrices of bx, by and bz, each transposed; opz is not read when bz == 1.
-extern "C" int cvx_stripe_fused_encode(
-    const float* vol, int nx, int ny, int nz, int lbx, int lby, int lbz,
-    const float* opx, const float* opy, const float* opz, float mulfac,
-    float* coeffs, int32_t* desc, int32_t* chunk_bytes, int32_t* sizes,
-    float* mulfacs, void* stream) {
-  return cvx::launch_encode<false>(vol, nx, ny, nz, lbx, lby, lbz, opx, opy, opz,
-                                   mulfac, coeffs, desc, chunk_bytes, sizes,
-                                   mulfacs, (cudaStream_t)stream);
+extern "C" int cvx_stripe_fused_encode(const float* vol, int nx, int ny, int nz, int lbx,
+                                       int lby, int lbz, float mulfac, float* coeffs,
+                                       int32_t* desc, int32_t* chunk_bytes, int32_t* sizes,
+                                       float* mulfacs, void* stream) {
+  return cvx::launch_encode(vol, nx, ny, nz, lbx, lby, lbz, 0, mulfac, coeffs, desc,
+                            chunk_bytes, sizes, mulfacs, (cudaStream_t)stream);
 }
 
-extern "C" int cvx_stripe_fused_encode_local(
-    const float* vol, int nx, int ny, int nz, int lbx, int lby, int lbz,
-    const float* opx, const float* opy, const float* opz, float scale,
-    float* coeffs, int32_t* desc, int32_t* chunk_bytes, int32_t* sizes,
-    float* mulfacs, void* stream) {
-  return cvx::launch_encode<true>(vol, nx, ny, nz, lbx, lby, lbz, opx, opy, opz,
-                                  scale, coeffs, desc, chunk_bytes, sizes,
-                                  mulfacs, (cudaStream_t)stream);
+extern "C" int cvx_stripe_fused_encode_local(const float* vol, int nx, int ny, int nz,
+                                             int lbx, int lby, int lbz, float scale,
+                                             float* coeffs, int32_t* desc,
+                                             int32_t* chunk_bytes, int32_t* sizes,
+                                             float* mulfacs, void* stream) {
+  return cvx::launch_encode(vol, nx, ny, nz, lbx, lby, lbz, 1, scale, coeffs, desc,
+                            chunk_bytes, sizes, mulfacs, (cudaStream_t)stream);
 }
 
-// `work` holds nnn * cells floats when a block is over 16,384 cells, else
-// it is not read.
-extern "C" int cvx_stripe_fused_inverse(const float* dense, int nx, int ny,
-                                        int nz, int lbx, int lby, int lbz,
-                                        const float* opx, const float* opy,
-                                        const float* opz, float* work,
-                                        float* vol, void* stream) {
+// `dense` must be 16-byte aligned (its rows move by 16-byte cp.async).
+extern "C" int cvx_stripe_fused_inverse(const float* dense, int nx, int ny, int nz, int lbx,
+                                        int lby, int lbz, float* vol, void* stream) {
   using namespace cvx;
   cudaStream_t st = (cudaStream_t)stream;
   const Geom g = make_geom(nx, ny, nz, lbx, lby, lbz);
   if (g.nnn == 0) return 0;
-  int64_t ctas;
-  size_t smem;
-  if (grid_of(g, &ctas, &smem)) {
-    cudaError_t e = cudaFuncSetAttribute(
-        stripe_fused_inverse_kernel<true>,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)FSMEM);
-    if (e != cudaSuccess) return (int)e;
-    stripe_fused_inverse_kernel<true><<<(unsigned)ctas, FTHREADS, smem, st>>>(
-        dense, g, opx, opy, opz, work, vol);
-  } else {
-    stripe_fused_inverse_kernel<false><<<(unsigned)ctas, FTHREADS, smem, st>>>(
-        dense, g, opx, opy, opz, work, vol);
+  const int lc = lbx + lby + lbz, lranks = cluster_lranks(lc);
+  const int vec = nx % 4 == 0 && reinterpret_cast<uintptr_t>(vol) % 16 == 0;
+  cudaError_t e;
+  if (lranks) {
+    e = launch_clusters(sf_inverse_cluster, g, lranks, st, dense, g, lranks, vec, vol);
+    return e != cudaSuccess ? (int)e : (int)cudaGetLastError();
   }
+  int sms = 0;
+  e = cudaFuncSetAttribute(sf_inverse_tile, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           (int)SF_TILE_SMEM);
+  if (e == cudaSuccess) e = sm_count(&sms);
+  if (e != cudaSuccess) return (int)e;
+  const int64_t ntiles = (g.nnn + (SF_TILE >> lc) - 1) / (SF_TILE >> lc);
+  const unsigned grid = (unsigned)(ntiles < sms ? ntiles : sms);
+  sf_inverse_tile<<<grid, SF_NT, SF_TILE_SMEM, st>>>(dense, g, vec, vol);
   return (int)cudaGetLastError();
 }

@@ -28,7 +28,8 @@ so the volume equals native's parity decompress
 `stripe_fused_inverse` (csrc/stripe_fused.cu, plain version
 `stripe_fused_inverse_plain`) is K5 at the other blocks of the JAX gate
 `stripe_fused_ok` (16^3, (16, 16, 1), ...; ops/geometry.py): the dense
-block-major (nnn, cells) coefficients -> the volume.
+block-major (nnn, cells) coefficients -> the volume, native's parity
+inverse cascade (`wavelet.cascade_3d`) bit for bit.
 """
 
 from __future__ import annotations
@@ -149,7 +150,7 @@ def stripe_fused_inverse_plain(dense, vol_shape, block):
     """Plain PyTorch version of the fused stripe inverse (same volume)."""
     bx, by, bz = block
     coeffs = dense.reshape(-1, bz, by, bx)
-    return blocks.from_blocks(wavelet.inverse_blocks(coeffs), vol_shape, block)
+    return blocks.from_blocks(wavelet.cascade_3d(coeffs, inverse=True), vol_shape, block)
 
 
 def stripe_fused_inverse(dense, vol_shape, block):
@@ -167,16 +168,13 @@ def stripe_fused_inverse(dense, vol_shape, block):
     if dense.device.type == "cpu":
         return stripe_fused_inverse_plain(dense, vol_shape, block)
     _kernels.check_cuda(dense, dtypes=(torch.float32,))
+    _kernels.check_aligned(dense)  # 16-byte asynchronous copies
     if bx < 8 or by < 8 or cells < 128:
         raise ValueError(f"the fused stripe kernel takes blocks of bx, by >= 8 "
                          f"and >= 128 cells, got {block}")
     dev = dense.device
     nz, ny, nx = vol_shape
-    # a block over a tile (16,384 cells) is worked in device memory
-    work = torch.empty_like(dense) if cells > (1 << 14) else dense
     vol = torch.empty(vol_shape, dtype=torch.float32, device=dev)
-    ops = wavelet.operators_t(block, inverse=True, device=dev)
     _kernels.launch("stripe_fused_inverse", dense.data_ptr(), nx, ny, nz,
-                    *geometry.log2_block(block), *(op.data_ptr() for op in ops),
-                    work.data_ptr(), vol.data_ptr())
+                    *geometry.log2_block(block), vol.data_ptr())
     return vol

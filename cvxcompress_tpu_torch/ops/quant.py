@@ -19,10 +19,11 @@ lane i+16, then i + i+8, ...) and the warps' sums in the same tree.  At
 z-lines (y, x) of y = 2w and 2w + 1 from z = 0 up (`zline_order`, the
 cells its registers hold after the z cascade); at 128^3 one CTA of 256
 threads reduces each z-slice, thread t its 64 consecutive cells, and the
-128 slice sums add in slice order; at the other fused stripe blocks each
-run of 64 cells adds in turn, then the runs (`run_rms`).  The JAX package
-sums in float32 trees; the tables agree to its own contract between paths,
-rtol 1e-5.
+128 slice sums add in slice order; at the other fused stripe blocks
+lane l of a warp adds cell l of each 32-cell segment of its span, the
+lanes meet in the halving tree, then the spans and a cluster's CTAs add
+in turn (`stripe_rms`).  The JAX package sums in float32 trees; the
+tables agree to its own contract between paths, rtol 1e-5.
 
 Quantization (Run_Length_Encode_Slow.cpp:203-207): i = trunc(mulfac * c)
 toward zero with x86 cvttps semantics — NaN and values outside the int32
@@ -120,17 +121,39 @@ def local_rms(coeffs):
     return rms_of_partials(partials.view(n, slices), cells)
 
 
-def run_rms(coeffs):
-    """Per-block RMS of block-major (n, cells) f32 coefficients in the
-    fused stripe kernels' order (csrc/stripe_fused.cu): the f64 squares of
-    each run of 64 consecutive cells added in turn, then the runs' sums in
-    turn; sqrt(sum / cells) in f64, rounded to f32.  (n,) f32."""
+STRIPE_TILE = 1 << 14  # cells of a tile of csrc/stripe_fused.cu's tile kernels
+
+
+def stripe_layout(cells):
+    """(ranks, span) of csrc/stripe_fused.cu at blocks of `cells` cells: a
+    block of at most STRIPE_TILE cells lies in one CTA of 16 warps, each
+    warp's 1,024 cells in spans of min(cells, 1024); a larger one across a
+    cluster of min(8, cells / STRIPE_TILE) CTAs (ranks) of 8 warps, a span
+    per warp."""
+    if cells <= STRIPE_TILE:
+        return 1, min(cells, STRIPE_TILE // 16)
+    ranks = min(8, cells // STRIPE_TILE)
+    return ranks, cells // (ranks * 8)
+
+
+def stripe_rms(coeffs):
+    """Per-block RMS of block-major (n, cells) f32 coefficients in the fused
+    stripe kernels' order (csrc/stripe_fused.cu, `stripe_layout`): in each
+    span, lane l adds the f64 square of cell 32 j + l of each 32-cell
+    segment j in turn, the 32 lanes meet in a halving tree; a CTA's spans
+    add in turn, then the cluster's CTAs in rank order; sqrt(sum / cells)
+    in f64, rounded to f32.  (n,) f32."""
     n, cells = coeffs.shape
-    sq = coeffs.to(torch.float64).square().view(n, cells // 64, 64)
-    runs = torch.zeros(sq.shape[:2], dtype=torch.float64, device=coeffs.device)
-    for i in range(64):
-        runs = runs + sq[:, :, i]
-    return rms_of_partials(runs, cells)
+    ranks, span = stripe_layout(cells)
+    sq = coeffs.to(torch.float64).square().view(n, cells // span, span // 32, 32)
+    acc = torch.zeros((n, cells // span, 32), dtype=torch.float64, device=coeffs.device)
+    for j in range(span // 32):
+        acc = acc + sq[:, :, j]
+    spans = _halve(acc).view(n, ranks, -1)
+    parts = torch.zeros((n, ranks), dtype=torch.float64, device=coeffs.device)
+    for k in range(spans.shape[2]):
+        parts = parts + spans[:, :, k]
+    return rms_of_partials(parts, cells)
 
 
 def block_table(plane, block, mulfac=None, *, scale=None):

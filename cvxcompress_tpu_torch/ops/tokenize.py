@@ -97,7 +97,7 @@ def fused_encode(vol, mulfac=None, *, scale=None):
 
 # -- every other geometry ------------------------------------------------------
 
-TILE = 1 << 14  # cells per CTA of csrc/tokenize_stripe.cu and stripe_fused.cu
+TILE = 1 << 14  # cells per CTA of csrc/tokenize_stripe.cu
 
 
 def raw_fallback(desc, chunk_bytes, sizes):
@@ -197,10 +197,10 @@ def encode(vol, block, mulfac=None, *, scale=None):
 def stripe_fused_encode_plain(vol, block, mulfac=None, *, scale=None):
     """Plain PyTorch version of `stripe_fused_encode` (same outputs)."""
     local = quant.is_local(mulfac, scale)
-    coeffs = wavelet.forward_blocks(blocks.to_blocks(vol, block))
+    coeffs = wavelet.cascade_3d(blocks.to_blocks(vol, block), inverse=False)
     coeffs = coeffs.reshape(coeffs.shape[0], -1)
     if local:
-        mulfacs = quant.mulfac_from_rms(quant.run_rms(coeffs), scale)
+        mulfacs = quant.mulfac_from_rms(quant.stripe_rms(coeffs), scale)
     else:
         mulfacs = torch.full((coeffs.shape[0],), mulfac, dtype=torch.float32,
                              device=coeffs.device)
@@ -214,9 +214,10 @@ def stripe_fused_encode(vol, block, mulfac=None, *, scale=None):
     (csrc/stripe_fused.cu; K1 and K9 port at those blocks), launched as
     `stripe_fused_encode`, or under the local RMS (give `scale` instead of
     `mulfac`: each block's mulfac is 1/(rms*scale) of its own coefficients,
-    summed as ops/quant.py `run_rms`) as `stripe_fused_encode_local`.
-    `coeffs` are the UNSCALED block-major (nnn, cells) coefficients; the
-    rest as `tokenize_stripe`.  TPU counterpart:
+    summed as ops/quant.py `stripe_rms`) as `stripe_fused_encode_local`.
+    `coeffs` are the UNSCALED block-major (nnn, cells) coefficients,
+    native's parity cascade (`wavelet.cascade_3d`) bit for bit; the rest as
+    `tokenize_stripe`.  TPU counterpart:
     `tokenize_pallas.stripe_fused_encode` (:1056)."""
     local = quant.is_local(mulfac, scale)
     if vol.device.type == "cpu":
@@ -233,11 +234,10 @@ def stripe_fused_encode(vol, block, mulfac=None, *, scale=None):
     coeffs = torch.empty((nnn, cells), dtype=torch.float32, device=dev)
     desc, chunk_bytes, sizes = _outputs(nnn, cells, dev)
     mulfacs = torch.empty((nnn,), dtype=torch.float32, device=dev)
-    ops = wavelet.operators_t(block, inverse=False, device=dev)
     _kernels.launch(
         "stripe_fused_encode_local" if local else "stripe_fused_encode",
         vol.data_ptr(), nx, ny, nz, *geometry.log2_block(block),
-        *(op.data_ptr() for op in ops), float(scale if local else mulfac),
+        float(scale if local else mulfac),
         coeffs.data_ptr(), desc.data_ptr(), chunk_bytes.data_ptr(),
         sizes.data_ptr(), mulfacs.data_ptr(),
     )

@@ -10,12 +10,11 @@ tests/test_torch_wavelet.py holds the operators bit-equal to those.
 
 `forward_blocks` / `inverse_blocks` are the plain PyTorch transforms of a
 (n, bz, by, bx) block batch, three f32 contractions in the reference's axis
-order x -> y -> z.  They are the specification the fused stripe kernels
-(csrc/stripe_fused.cu) are compared with, and the transforms themselves on
-the stripe route (with `forward_3d_volume`), where the JAX package runs
-them as XLA products too.  The 32^3 and 128^3 kernels (csrc/cascade.cuh)
-run the multi-level cascade itself instead, and `cascade_axis` / `cascade`
-/ `cascade_3d` are their plain versions: the native library's parity
+order x -> y -> z: the transforms themselves on the stripe route (with
+`forward_3d_volume`), where the JAX package runs them as XLA products too.
+The 32^3, 128^3 and fused stripe kernels (csrc/cascade.cuh) run the
+multi-level cascade itself instead, and `cascade_axis` / `cascade` /
+`cascade_3d` are their plain versions: the native library's parity
 cascade (`native/cvx_host.cpp` `wav_fwd_axis_parity`,
 `wav_inv_axis_parity`) one f32 multiply or add per op.  The matmuls
 must run in full f32: a TF32 contraction keeps ~3 decimal digits and breaks
@@ -225,12 +224,6 @@ def operator(dim, inverse, device):
     return torch.tensor(np.asarray(m, dtype=F32), device=device)
 
 
-def operators_t(block, inverse, device):
-    """The f32 operators of bx, by and bz, each transposed (contiguous), as
-    the fused stripe kernels take them (csrc/stripe_fused.cu)."""
-    return tuple(operator(n, inverse, device).t().contiguous() for n in block)
-
-
 def _apply_3d(blocks, inverse):
     bz, by, bx = blocks.shape[-3:]
     dev = blocks.device
@@ -375,7 +368,7 @@ def cascade_3d(t, inverse):
     """The x, then y, then z cascade of a (n, bz, by, bx) f32 block batch, in
     both directions the native library's axis order (`wav_fwd_block_ex`,
     `wav_inv_block_ex`, native/cvx_host.cpp:197-221): the plain version of
-    the 32^3 kernels."""
+    the 32^3 and fused stripe kernels."""
     for d in (3, 2, 1):
         t = cascade(t, d, inverse)
     return t

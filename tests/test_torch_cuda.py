@@ -526,9 +526,9 @@ def route_kernels(shape, block, local=False):
 
 def generic_vs_plain(vt, block, mulfac=None, scale=None):
     """The route's encode on the card: on the "stripe_fused" route the
-    kernel's coefficients within 1e-5 of the plain version's, its table
-    bit-equal to the plain table of its own coefficients, and the fused
-    inverse within 1e-5 of its plain version; on either route the tokenize
+    kernel's coefficients (as int32: NaN payloads too) and table bit-equal
+    to the plain version's, and the fused inverse bit-equal to its plain
+    version on those coefficients; on either route the tokenize
     and `emit_chunks` bit-equal to their plain versions on the kernel's own
     coefficients and table, and the stream equal to the native encoder's.
     Returns the encode's outputs."""
@@ -543,17 +543,14 @@ def generic_vs_plain(vt, block, mulfac=None, scale=None):
     torch.cuda.synchronize()
     assert _kernels.launches[route_kernels(shape, block, local)[0]] == 1
     if fused:
-        cp = tokenize.stripe_fused_encode_plain(vt, block, mulfac, scale=scale)[0]
-        fin = torch.isfinite(cp).all(1)
-        assert rel_rms(c[fin], cp[fin]) < TRANSFORM_TOL
-        want = (quant.mulfac_from_rms(quant.run_rms(c), scale) if local
-                else torch.full_like(mk, mulfac))
-        assert torch.equal(mk, want)
+        cp, *_, mp = tokenize.stripe_fused_encode_plain(vt, block, mulfac, scale=scale)
+        assert torch.equal(c.view(torch.int32), cp.view(torch.int32))
+        assert torch.equal(mk, mp)
         plain = tokenize.tokenize_blocks_plain(c, mk)
         cbm, sb = c, None
-        vk = fused_inverse.stripe_fused_inverse(torch.nan_to_num(c), shape, block)
-        vp = fused_inverse.stripe_fused_inverse_plain(torch.nan_to_num(c), shape, block)
-        assert rel_rms(vk, vp) < TRANSFORM_TOL
+        vk = fused_inverse.stripe_fused_inverse(c, shape, block)
+        vp = fused_inverse.stripe_fused_inverse_plain(c, shape, block)
+        assert torch.equal(vk.view(torch.int32), vp.view(torch.int32))
     else:
         plain = tokenize.tokenize_stripe_plain(c, mk, block)
         cbm, sb = blocks.to_blocks(c, block).view(mk.shape[0], -1), block
@@ -580,6 +577,8 @@ def generic_vs_plain(vt, block, mulfac=None, scale=None):
     ((16, 16, 1), (3, 50, 70)), ((8, 16, 8), (20, 40, 60)),
     ((32, 32, 16), (40, 70, 70)), ((64, 32, 32), (70, 40, 140)),
     ((16, 256, 16), (20, 300, 40)), ((64, 64, 64), (70, 90, 300)),
+    ((8, 16, 256), (260, 40, 20)), ((64, 8, 128), (130, 20, 130)),
+    ((64, 64, 64), (64, 64, 128)),
 ], ids=lambda v: "x".join(map(str, v)))
 @pytest.mark.parametrize("local", [False, True], ids=["global", "local"])
 def test_generic_kernels_match_plain(dev, block, shape, local):
@@ -589,12 +588,45 @@ def test_generic_kernels_match_plain(dev, block, shape, local):
     generic_vs_plain(vt, block, **args)
 
 
+@pytest.mark.parametrize("block", [(16, 16, 16), (64, 32, 32)], ids=["16", "64x32x32"])
+@pytest.mark.parametrize("route", ["view_at_offset_1", "nx_odd"])
+def test_stripe_fused_copy_routes_bit_equal(dev, block, route):
+    """The fused stripe encode's 4-byte copy route (a misaligned view, or nx
+    % 4 != 0 where TMA's 16-byte rules fail) gives the plain version's
+    outputs bit for bit, in the tile and the cluster kernels."""
+    shape = (40, 70, 75) if route == "nx_odd" else (40, 70, 96)
+    vol = generic_volume("sine", shape, block)
+    if route == "view_at_offset_1":
+        flat = torch.zeros(vol.size + 1, device=dev)
+        vt = flat[1:].view(shape)
+        vt.copy_(torch.from_numpy(vol))
+    else:
+        vt = torch.from_numpy(vol).to(dev)
+    for args in (dict(mulfac=quant.global_mulfac(vol, 1e-2)), dict(scale=1e-2)):
+        generic_vs_plain(vt, block, **args)
+
+
+@pytest.mark.parametrize("block", [(16, 16, 16), (64, 32, 32)], ids=["16", "64x32x32"])
+def test_stripe_fused_gives_native_parity_container(dev, block):
+    """On the card the fused stripe route's global container is
+    `cvx_compress_parity_th`'s byte for byte, and its decompress equals
+    `cvx_decompress_inplace_parity_th`'s volume."""
+    vol = generic_volume("sine", (64, 100, 128), block)
+    data, _ = cvt.compress(vol, 1e-2, block=block)
+    ref, _ = rle_host.host_compress_parity(vol, 1e-2, block=block)
+    np.testing.assert_array_equal(np.asarray(data), ref)
+    out = cvt.decompress(data).cpu().numpy()
+    want = rle_host.host_decompress_parity(ref)
+    assert np.array_equal(out.view(np.uint32), want.view(np.uint32))
+
+
 @pytest.mark.parametrize("kind", ["half", "nan", "fused_nan"])
 def test_generic_kernels_zero_and_nan_blocks(dev, kind):
     """Whole zero blocks (one run of 2^24 zeros in a 256^3 block: an RLESC3
-    of 2^24 - 1 and a trailing [0], cost 5) and a NaN block (raw), on the
-    stripe route and (the NaN) on the fused stripe route, whose blocks over
-    a tile are worked in device memory."""
+    of 2^24 - 1 and a trailing [0], cost 5) and a NaN block, on the stripe
+    route (raw: the einsums spread the NaN to the whole block) and on the
+    fused stripe route at a block held by a cluster (native's parity
+    cascade spreads it to part of the block, coded as VLESC4 tokens)."""
     block = (64, 32, 32) if kind == "fused_nan" else (256, 256, 256)
     shape = (64, 64, 128) if kind == "fused_nan" else (512, 256, 256)
     vol = generic_volume("half" if kind == "half" else "nan", shape, block)
@@ -604,8 +636,11 @@ def test_generic_kernels_zero_and_nan_blocks(dev, kind):
     if kind == "half":
         assert rk.tolist() == [False, False] and int(sk[1]) == 5
         assert int(dk[1, -1]) == 5 | 8 | (((1 << 24) - 1) << 4)
-    else:
+    elif kind == "nan":
         assert rk.tolist() == [False] * (rk.numel() - 1) + [True]
+    else:
+        nan = torch.isnan(c[-1])
+        assert bool(nan.any()) and not bool(nan.all())
 
 
 @pytest.mark.parametrize("block,shape", [

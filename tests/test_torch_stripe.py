@@ -175,7 +175,7 @@ def test_stripe_fused_encode_matches_jax_k1(case):
     """Level 1: `stripe_fused_encode` against JAX K1 (`stripe_fused_encode`,
     interpret mode; K9 under the local RMS) on the same volume: the
     coefficients within 1e-5 of K1's fv over its mulfacs, the table within
-    rtol 1e-5 (the port sums in f64, `quant.run_rms`), and the port's
+    rtol 1e-5 (the port sums in f64, `quant.stripe_rms`), and the port's
     tokenize of K1's own fv giving its descriptors, chunk bytes, sizes and
     raw flags bit for bit."""
     block, shape, local = FUSED_CASES[case]
@@ -334,9 +334,11 @@ def test_raw_fallback_and_nan_block(block):
     """x1000 noise beside a quiet region at 1e-8: the noisy blocks fall back
     to raw, their unscaled coefficients stored (the fused stripe route's
     block-major ones; the stripe route's, gathered from the volume-order
-    plane, in tests/test_torch_generic.py).  Under the local RMS a NaN makes
-    its block's coefficients NaN: that block alone is raw.  Both engines
-    agree bit for bit and native decodes each container."""
+    plane, in tests/test_torch_generic.py).  Under the local RMS a NaN
+    spreads to part of its block's coefficients (native's parity cascade),
+    which code as VLESC4 tokens: the raw flags are native's parity codec's
+    (no block raw) and the NaN block's mulfac is 1.0.  Both engines agree
+    bit for bit and native decodes each container."""
     rng = np.random.default_rng(82)
     shape = (16, 64, 256)
     vol = (rng.standard_normal(shape) * 1000).astype(F32)
@@ -350,7 +352,10 @@ def test_raw_fallback_and_nan_block(block):
                                device="cpu")
         raw = ctn.unpack(data)[1] < 0
         if local:
-            assert np.flatnonzero(raw).tolist() == [raw.size - 1]
+            nat_raw = ctn.unpack(rle_host.host_compress_parity(
+                v, scale, block=block, use_local_rms=True)[0])[1] < 0
+            np.testing.assert_array_equal(raw, nat_raw)
+            assert not raw.any() and ctn.unpack(data)[2][-1] == 1.0
         else:
             assert raw.reshape(nbz, nby, nbx)[:, :, : 128 // block[0]].all()
             assert not raw.reshape(nbz, nby, nbx)[:, :, 128 // block[0]:].any()
