@@ -20,14 +20,15 @@ Builds the CUDA kernels (csrc/, nvcc for sm_90a) and the native host library
   `block_emit` at A with 8^3, 64^3, 256^3 and (64, 32, 32) blocks, on a
   (512, 256, 256) volume whose upper half is zero, and at the bench's
   256^3 volume S with 16^3, (16, 16, 1), (8, 8, 1) and (128, 8, 8) blocks
-  (sinusoid and ramp); then A at 8^3, 64^3 and 256^3 and S at the sweep's
-  blocks, global and local, through the public API: the size within 1 %
-  of native's codec run here (A) or of the JAX package's codec on the same
-  input (S, `tools/jax_quality_s.py`), every quantized coefficient equal
-  to native's or one step from it where the port's scaled value sits on
-  the step, err within 2 % and SNR within 0.2 dB of the reference where no
-  coefficient steps (else within what the steps can move them),
-  containers decoding both ways;
+  (sinusoid and ramp), and N(0,1) noise on (100, 130, 75) at 8^3, 16^3,
+  64^3 and (64, 32, 32) (edge blocks); then A at 8^3, 64^3 and 256^3 and
+  S at the sweep's blocks, global and local, through the public API: the
+  size within 1 % of native's codec run here (A) or of the JAX package's
+  codec on the same input (S, `tools/jax_quality_s.py`), every quantized
+  coefficient equal to native's or one step from it where the port's
+  scaled value sits on the step, err within 2 % and SNR within 0.2 dB of
+  the reference where no coefficient steps (else within what the steps
+  can move them), containers decoding both ways;
 - the JAX package's opt-in encode routes (phases 2e and 3f): under
   CVX_FUSED_W=1 at B (`block_fwd_xz` + `block_encode_y`, the 128^3 encode
   split at x,z | y, held bit-equal to `block_encode`'s z | x,y and timed
@@ -40,6 +41,13 @@ Builds the CUDA kernels (csrc/, nvcc for sm_90a) and the native host library
   default route's where the coefficients are, else the ratio within 1 % of
   native's and the CI bars; and an 8^3 compress under the caller's
   set_float32_matmul_precision("high") equal to one under "highest";
+
+and holds `decode_chase`, the route the wrapper picks and each of its two
+routes (the walk, the pieces), bit-equal to its plain version on every
+container it decodes and, with the chase's one-step semantics, on two
+synthetic inputs of 2^20 subsegments (one chain; resets at random places
+and on and beside the kernel's piece seams) and times a device-engine
+decompress of B's noise container through the public API (phase 2b);
 
 it compares every kernel of the path with its plain PyTorch version at the
 path's shapes (`fused_encode`, `fused_encode_local` and `fused_inverse`,
@@ -101,6 +109,7 @@ F32_FLOPS = 67e12
 F64_FLOPS = 34e12
 KERNELS_A = ("fused_encode", "emit_payload", "fused_inverse")
 DECODE_KERNELS = ("decode_maps", "decode_chase", "decode_emit")
+CHASE_BYTES = 100 + 1 + 8  # a subsegment's P and reset flag in, e32 and c32 out
 KERNELS_B = ("block_fwd_z", "block_encode_xy", "block_emit", "block_inv_xy",
              "block_inv_z")
 # the local-RMS paths: config A and B with use_local_rms=True
@@ -351,6 +360,50 @@ C32, C128 = cascade_flops(32), cascade_flops(128)
 C32_INV, C128_INV = cascade_flops(32, inverse=True), cascade_flops(128, inverse=True)
 
 
+def synthetic_chase(kind, dev):
+    """(P, sub_reset, starts, cells) of a synthetic chase of 2^20 subsegments
+    with random maps (exits in [0, 25), counts in [0, 8)), cells = 2^21:
+    "chain", one chain (its counts saturate at cells after ~600,000 rows);
+    "resets", resets at random places (1 in 500), on every third boundary of
+    the kernel's pieces and one row before and after others (the look-back's
+    seams)."""
+    import torch
+
+    from cvxcompress_tpu_torch.ops import entropy_decode
+
+    n, piece = 1 << 20, entropy_decode.CHASE_PIECE
+    rng = np.random.default_rng(20 if kind == "chain" else 21)
+    P = (rng.integers(0, 8, (n, 25)) * 32 + rng.integers(0, 25, (n, 25))).astype(np.int32)
+    reset = np.zeros(n, bool)
+    reset[0] = True
+    if kind == "resets":
+        reset[rng.random(n) < 1 / 500] = True
+        edges = np.arange(piece, n, piece)
+        reset[edges[::3]] = True
+        reset[edges[1::7] - 1] = True
+        reset[edges[2::11] + 1] = True
+    starts = np.flatnonzero(reset).astype(np.int32)
+    return (torch.from_numpy(P).to(dev), torch.from_numpy(reset).to(dev),
+            torch.from_numpy(starts).to(dev), 1 << 21)
+
+
+def chase_routes(P, reset, starts, cells):
+    """decode_chase's outputs on each of its two routes, the walk and the
+    pieces (`entropy_decode.chase_walks` forced each way): [(route, e32,
+    c32)]."""
+    from cvxcompress_tpu_torch.ops import entropy_decode
+
+    picks = entropy_decode.chase_walks
+    out = []
+    try:
+        for route, walk in (("walk", True), ("pieces", False)):
+            entropy_decode.chase_walks = lambda *_, w=walk: w
+            out.append((route, *entropy_decode.chase(P, reset, starts, cells)))
+    finally:
+        entropy_decode.chase_walks = picks
+    return out
+
+
 def ramp(vol, b):
     """`vol` with its b^3 blocks scaled by 10^-(block index mod 5) (block RMS
     10^4 apart) and the guard cases in three blocks: all-zero (rms 0), ~1e-38
@@ -584,6 +637,12 @@ def main():
         check(torch.equal(ek, ep) and torch.equal(ck, cp),
               f"{label}: decode_chase e32 and c32 bit-equal to the plain "
               "(Sklansky) version")
+        routes = chase_routes(Pk, reset, starts, cells)
+        check(all(torch.equal(e, ep) and torch.equal(c, cp) for _, e, c in routes),
+              f"{label}: decode_chase's walk and piece routes bit-equal to the plain "
+              "version (the wrapper's pick: "
+              f"{'walk' if entropy_decode.chase_walks(nsub, starts.numel(), cells) else 'pieces'})")
+        del routes
         dk = entropy_decode.emit(stream, Mk, ek, ck, sblk, sf, nnn, cells)
         dp = entropy_decode.emit_plain(stream, Mk, ek, ck, sblk, sf, nnn, cells)
         check(torch.equal(dk.view(torch.int32), dp.view(torch.int32)),
@@ -619,12 +678,12 @@ def main():
                         plain_iters)),
         )
         # bytes: stream in, M (32 x 4 B) and P (25 x 4 B) per subsegment out;
-        # P, the chain starts in, e32 and c32 out; stream, M, e32, c32,
+        # P and the reset flags in, e32 and c32 out; stream, M, e32, c32,
         # sub_block and the scalefac table in, the dense buffer out (zeroed
         # and written once)
         bounds = dict(
             decode_maps=bound(nsub * (32 + 128 + 100), 0),
-            decode_chase=bound(nsub * (100 + 8) + 4 * starts.numel(), 0),
+            decode_chase=bound(nsub * CHASE_BYTES, 0),
             decode_emit=bound(nsub * (32 + 128 + 12) + 4 * nnn * (cells + 1), 0),
         )
         for k, (ms, pms) in times.items():
@@ -645,6 +704,35 @@ def main():
         report[k] = dict(max_abs_err=max(errs[k], nerrs[k]), ms=times[k][0],
                          plain_ms=times[k][1], noise_ms=ntimes[k][0],
                          noise_plain_ms=ntimes[k][1], **bounds[k])
+
+    # the chase's look-back at scale: one chain of 2^20 subsegments, and
+    # 2^20 with resets at random places and on and beside its piece seams
+    chase_inputs = {}
+    for kind in ("chain", "resets"):
+        P, reset, starts, cells = synthetic_chase(kind, dev)
+        ek, ck = entropy_decode.chase(P, reset, starts, cells)
+        ep, cp = entropy_decode.chase_plain(P, reset, cells)
+        routes = chase_routes(P, reset, starts, cells)
+        torch.cuda.synchronize()
+        se, sc = entropy_decode.chase_sequential(P.cpu().numpy(), reset.cpu().numpy(),
+                                                 cells)
+        check(all(torch.equal(e, ep) and torch.equal(c, cp)
+                  for e, c in [(ek, ck)] + [r[1:] for r in routes])
+              and np.array_equal(ek.cpu().numpy(), se)
+              and np.array_equal(ck.cpu().numpy(), sc),
+              f"synthetic {kind} ({starts.numel()} chains, {int((ck == cells).sum())} "
+              "counts saturated): decode_chase e32 and c32, the wrapper's pick and both "
+              "routes, bit-equal to chase_plain and chase_sequential")
+        del routes
+        chase_inputs[f"synthetic {kind}"] = dict(
+            ms=cuda_ms(lambda: entropy_decode.chase(P, reset, starts, cells), 20),
+            plain_ms=cuda_ms(lambda: entropy_decode.chase_plain(P, reset, cells), 3),
+            **bound(P.shape[0] * CHASE_BYTES, 0))
+        r = chase_inputs[f"synthetic {kind}"]
+        print(f"  synthetic {kind}: decode_chase kernel {r['ms']:.4f} ms, plain "
+              f"{r['plain_ms']:.3f} ms, bound {r['bound_ms']:.4f} ms on {card}")
+        del P, reset, starts, ek, ck, ep, cp
+    report["decode_chase"]["inputs"] = chase_inputs
 
     # fused_inverse: the dense mode the device engine feeds it (reported),
     # and the chunk-sparse mode of the host engine
@@ -684,7 +772,7 @@ def main():
     print(f"  at {time.perf_counter() - t_start:.1f} s", flush=True)
     print("phase 2b: 128^3 kernels vs plain versions at", SHAPE_B, flush=True)
 
-    def block_kernels(label, volb, scale, iters, plain_iters, native):
+    def block_kernels(label, volb, scale, iters, plain_iters, native, time_decompress=False):
         """The five 128^3 launches against their plain versions on `volb`,
         and the decode kernels at cells = 2^21 on its container; returns
         the 128^3 kernels' report and the decode kernels' times."""
@@ -757,6 +845,13 @@ def main():
         print(f"  {label}: container {bdata.size} B, ratio {bratio:.1f}")
         bdense, berrs, btimes, bbounds = decode_stages(
             f"{label} container", bdata, iters, plain_iters)
+        if time_decompress:  # where the chase shows end to end
+            dms, druns = wall_ms(lambda: (cvt.decompress(bdata, engine="device"),
+                                          torch.cuda.synchronize()), 5)
+            e2e[f"{label} decompress_ms"] = dms
+            print(f"  {label}: device-engine decompress through the API {dms:.2f} ms "
+                  f"(median; runs {', '.join(f'{x:.2f}' for x in druns)}) on {card}",
+                  flush=True)
         rows = bdense.view(-1, fused_inverse.CHUNK)
         xk = fused_inverse.block_inv_xy(rows, volb.shape)
         xp = fused_inverse.block_inv_xy_plain(rows, volb.shape)
@@ -800,12 +895,15 @@ def main():
                   f" bound {r['bound_ms']:.4f} ms ({r['bound_by']}) on {card}")
         return out, btimes
 
+    e2e = {}  # end-to-end times taken in the kernel phases
     vol_b = sinusoid(*SHAPE_B, PERIODS)
     breport, _ = block_kernels("config B", vol_b, SCALE, 10, 2, native=True)
     report.update(breport)
     noise_b = np.random.default_rng(0).standard_normal(SHAPE_B, dtype=np.float32)
     nreport, nbtimes = block_kernels("config B noise", noise_b, NOISE_SCALE, 3, 1,
-                                        native=False)
+                                        native=False, time_decompress=True)
+    report["decode_chase"]["inputs"]["B noise container"] = dict(
+        ms=nbtimes["decode_chase"][0], plain_ms=nbtimes["decode_chase"][1])
     del noise_b
     for k, r in nreport.items():
         report[k].update(noise_ms=r["ms"], noise_plain_ms=r["plain_ms"])
@@ -1155,6 +1253,8 @@ def main():
              False, {}),
             ("A 64x32x32 misaligned view", vol, (64, 32, 32), False, False,
              dict(view=True)),
+            (f"unaligned {SHAPE_U} noise 8^3", noise_u, (8, 8, 8), False, False, {}),
+            (f"unaligned {SHAPE_U} noise 64^3", noise_u, (64, 64, 64), False, False, {}),
             (f"unaligned {SHAPE_U} noise 16^3", noise_u, (16, 16, 16), True, False, {}),
             (f"unaligned {SHAPE_U} noise 64x32x32", noise_u, (64, 32, 32), False, False,
              {}),
@@ -1171,7 +1271,6 @@ def main():
             ("S 128x8x8", vol_s, (128, 8, 8), False, False, {})):
         generic[label] = generic_kernels(label, v, block, local, 5, 1, half, **extra)
         print(f"  {label} done at {time.perf_counter() - t_start:.1f} s", flush=True)
-    del vol_half, noise_u, vol_mib
     # each kernel's row at its cell (K13 at A-64^3, K1 at S-16^3), every
     # input's numbers beside it (B for block_emit)
     for k, cell in (("tokenize_stripe", "A 64^3"), ("stripe_fused_encode", "S 16^3"),
@@ -1184,6 +1283,23 @@ def main():
             label: {f: r[k][f] for f in ("ms", "plain_ms", "bound_ms", "library_ms")
                     if f in r[k]}
             for label, r in generic.items() if k in r}
+    # the stripe tokenize on the unaligned noise's 64^3 plane, edge blocks
+    # (its public route is the fused stripe kernel's, held above)
+    label = f"unaligned {SHAPE_U} noise 64^3 plane"
+    vt = torch.from_numpy(noise_u).to(dev)
+    c, dk, cbk, sk, rk, mk = tokenize.encode(vt, (64, 64, 64),
+                                             quant.global_mulfac(noise_u, SCALE))
+    check(all(torch.equal(a, b) for a, b in zip(
+        (dk, cbk, sk, rk), tokenize.tokenize_stripe_plain(c, mk, (64, 64, 64)))),
+          f"{label}: tokenize_stripe descriptors, chunk bytes, sizes and raw flags "
+          f"({int(rk.sum())} raw of {mk.numel()} blocks) bit-equal to the plain version")
+    report["tokenize_stripe"]["inputs"][label] = dict(
+        ms=cuda_ms(lambda: tokenize.tokenize_stripe(c, mk, (64, 64, 64)), 5),
+        plain_ms=cuda_ms(lambda: tokenize.tokenize_stripe_plain(c, mk, (64, 64, 64)), 1),
+        **bound(8 * c.numel() + 4 * cbk.numel() + 9 * mk.numel(), 0))
+    print(f"  {label}: tokenize_stripe kernel "
+          f"{report['tokenize_stripe']['inputs'][label]['ms']:.4f} ms on {card}")
+    del vol_half, noise_u, vol_mib, vt, c, dk, cbk, sk, rk, mk
 
     # -- phase 2e: the opt-in encode routes' kernels against their plain
     # versions (the JAX package's CVX_FUSED_W=1, CVX_STRIPE=patch and
@@ -2020,6 +2136,7 @@ def main():
                                        **res_b),
                       "config_a_local": res_c, "config_b_local": res_d,
                       "other_geometries": res_e, "optin_routes": res_f,
+                      "kernel_phase_e2e_ms": e2e,
                       "encode_128_split_ms": dict(zip(
                           ("z|xy", "xz|y", "xz|y again", "z|xy again"), split_ms))}))
     print(json.dumps({"ok": True, "device": {

@@ -54,10 +54,11 @@
 // repeats (lane l of a warp adds cell 32 j + l of each 32-cell segment j of
 // its span in turn, the lanes meet in a halving tree, the spans of a CTA
 // add in order, then the CTAs of a cluster in rank order); then the
-// row-wise tokenize (common.cuh seg_desc): segments of 32 consecutive
-// block-order cells, a lane a cell, several segments a warp step (their
-// reads and ballots first), each segment's last non-zero cell by a ballot, a
-// CTA-wide max-scan over the segments, cut at block starts; in a cluster
+// row-wise tokenize (stripe_tok.cuh, shared with tokenize_stripe.cu, on
+// common.cuh seg_desc): segments of 32 consecutive block-order cells, a
+// lane a cell, several segments a warp step (their reads and ballots
+// first), each segment's last non-zero cell by a ballot, a CTA-wide
+// max-scan over the segments, cut at block starts; in a cluster
 // the last non-zero cell before a CTA's range and the first cell after it
 // come from its peers.  Outputs as tokenize_stripe: descriptors, the byte
 // count of each 128-cell chunk, block sizes (the raw decision is the
@@ -78,7 +79,7 @@
 
 #include <cstring>
 
-#include "common.cuh"
+#include "stripe_tok.cuh"
 
 namespace cvx {
 
@@ -100,11 +101,6 @@ struct Geom {
   int64_t nnn;        // blocks
   int smask;          // the swizzle: 1 at bx = 8, 3 at 16, 7 at 32 and 64
 };
-
-// Word offset of buffer word w in the swizzled layout.
-__device__ __forceinline__ int sw(int w, int smask) {
-  return w ^ (((w >> 5) & smask) << 2);
-}
 
 // The volume coordinates of block blk's cell 0
 // (32-bit division: a volume has fewer than 2^32 blocks).
@@ -348,11 +344,6 @@ __device__ __forceinline__ void pass_z_cluster(float* s, const Geom& g, int lran
 
 // ---- copies ------------------------------------------------------------
 
-__device__ __forceinline__ void mbar_expect(unsigned bar, unsigned bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar),
-               "r"(bytes) : "memory");
-}
-
 // One thread: the bx x by x nzc box at volume origin o into dst (a TMA tile
 // copy completing on bar; at bx = 64 the map is 4-D, x split in halves).
 __device__ __forceinline__ void tma_box(float* dst, const void* tmap, int lbx, int3 o,
@@ -364,11 +355,7 @@ __device__ __forceinline__ void tma_box(float* dst, const void* tmap, int lbx, i
         "l"(tmap), "r"(0), "r"(o.x >> 5), "r"(o.y), "r"(o.z), "r"(bar)
         : "memory");
   else
-    asm volatile(
-        "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes"
-        " [%0], [%1, {%2, %3, %4}], [%5];\n" ::"r"(smem_addr(dst)),
-        "l"(tmap), "r"(o.x), "r"(o.y), "r"(o.z), "r"(bar)
-        : "memory");
+    tma_box3(dst, tmap, o.x, o.y, o.z, bar);
 }
 
 // Every thread: n cells of boxes (block-order: x, y, then z; whole blocks
@@ -448,114 +435,6 @@ __device__ __noinline__ void span_sums(const float* s, int ncells, int n, int sp
       for (int o = 16; o > 0; o >>= 1) acc += __shfl_xor_sync(~0u, acc, o);
       if (lane == 0) out[(c0 + 32) / span - 1] = acc;
       acc = 0.0;
-    }
-  }
-}
-
-// Tokenize, step 1: each 32-cell segment j of the first n cells of the
-// ncells at s (warp w the segments of its share, eight at a time: their
-// reads and ballots first) into rows[j]: 1 + its last non-zero cell (0:
-// none), bit 16 its first cell non-zero.  mf[b]: block b's mulfac (b =
-// cell >> lc).
-__device__ __noinline__ void tok_summaries(const float* s, int ncells, int n, int lc,
-                                              const float* mf, int smask, int* rows) {
-  const int lane = threadIdx.x & 31, warps = blockDim.x >> 5;
-  const int per = ncells / warps, c_beg = (threadIdx.x >> 5) * per;
-#pragma unroll 1
-  for (int c0 = c_beg; c0 < c_beg + per; c0 += 256) {
-    unsigned m[8];
-#pragma unroll
-    for (int k = 0; k < 8; ++k) {
-      const int c = c0 + 32 * k;
-      // cvtt(fv) != 0 exactly where |fv| >= 1 or fv is NaN
-      m[k] = c < n ? __ballot_sync(
-                         ~0u, !(fabsf(__fmul_rn(s[sw(c + lane, smask)], mf[c >> lc])) < 1.0f))
-                   : 0u;
-    }
-    if (lane == 0)
-#pragma unroll
-      for (int k = 0; k < 8; ++k) {
-        const int c = c0 + 32 * k;
-        rows[c >> 5] = (m[k] ? c + 32 - __clz((int)m[k]) : 0) | (int)((m[k] & 1) << 16);
-      }
-  }
-}
-
-// Tokenize, step 2: rows[j] becomes 1 + the last non-zero cell before
-// segment j (0: none) with its bit 16 kept; returns 1 + the last non-zero
-// cell of all (0: none).  Thread t takes segments t * spt .. + spt.
-__device__ __noinline__ int tok_scan(int* rows, int nseg, int* scan_buf) {
-  const int spt = nseg / blockDim.x, j0 = threadIdx.x * spt;
-  int v[4], top = 0;
-#pragma unroll
-  for (int k = 0; k < 4; ++k)
-    if (k < spt) {
-      v[k] = rows[j0 + k];
-      top = max(top, v[k] & 0xffff);
-    }
-  int total;
-  int run = block_exclusive_scan(top, 0, MaxOp(), scan_buf, &total);
-#pragma unroll
-  for (int k = 0; k < 4; ++k)
-    if (k < spt) {
-      rows[j0 + k] = run | (v[k] & 0x10000);
-      run = max(run, v[k] & 0xffff);
-    }
-  __syncthreads();
-  return total;
-}
-
-// Tokenize, step 3: the descriptors of the first n cells of the ncells at
-// s (global block-major cell gbase; block-local index of cell 0: boff, 0
-// in a tile) from rows (tok_scan's), a 128-cell chunk (four segments) a
-// warp step, their reads and ballots first; each chunk's byte count and
-// each block's size (atomics into the zeroed sizes; blk0 the block of cell
-// 0).  carry0: the block-local last non-zero cell before cell 0 (-1:
-// none); next_first: whether the cell after the ncells is non-zero (a
-// cluster CTA's range that ends inside its block).
-__device__ __noinline__ void tok_descs(const float* s, int ncells, int n, int lc,
-                                          const float* mf, int smask, const int* rows,
-                                          int64_t gbase, int boff, int64_t blk0, int carry0,
-                                          bool next_first, int32_t* __restrict__ desc,
-                                          int32_t* __restrict__ chunk_bytes,
-                                          int32_t* __restrict__ sizes) {
-  const int lane = threadIdx.x & 31, warps = blockDim.x >> 5, cells = 1 << lc;
-  const int per = ncells / warps, c_beg = (threadIdx.x >> 5) * per;
-  const int c_end = min(n, c_beg + per);
-  int32_t* dst = desc + gbase + lane;
-  int bsum = 0;
-#pragma unroll 1
-  for (int c0 = c_beg; c0 < c_end; c0 += 128) {
-    const float m0 = mf[c0 >> lc];  // a chunk lies in one block
-    const int bl0 = (boff + c0) & (cells - 1), bs = c0 - bl0;
-    int32_t q[4];
-    unsigned m[4];
-    int e[5];
-#pragma unroll
-    for (int k = 0; k < 4; ++k) q[k] = cvtt(__fmul_rn(s[sw(c0 + 32 * k + lane, smask)], m0));
-#pragma unroll
-    for (int k = 0; k < 5; ++k)
-      e[k] = k < 4 || c0 + 128 < ncells ? rows[(c0 >> 5) + k] : (int)next_first << 16;
-#pragma unroll
-    for (int k = 0; k < 4; ++k) m[k] = __ballot_sync(~0u, q[k] != 0);
-    const bool block_end = bl0 + 128 == cells;
-    int cost = 0;
-#pragma unroll
-    for (int k = 0; k < 4; ++k) {
-      const int last = (e[k] & 0xffff) - 1;  // tile-local, -1: none
-      const int carry = last >= 0 && last >= bs ? last - bs : carry0;
-      const bool end_last = (k == 3 && block_end) || (e[k + 1] >> 16) != 0;
-      const int32_t d = seg_desc(q[k], m[k], lane, bl0 + 32 * k + lane, carry, end_last);
-      dst[c0 + 32 * k] = d;
-      cost += d & 7;
-    }
-#pragma unroll
-    for (int o = 16; o > 0; o >>= 1) cost += __shfl_xor_sync(~0u, cost, o);
-    if (lane == 0) chunk_bytes[(gbase + c0) >> 7] = cost;
-    bsum += cost;
-    if (block_end || c0 + 128 == c_end) {
-      if (lane == 0 && bsum) atomicAdd(&sizes[blk0 + (c0 >> lc)], bsum);
-      bsum = 0;
     }
   }
 }
@@ -644,7 +523,7 @@ sf_encode_tile(const __grid_constant__ CUtensorMap tmap, int tma, const float* _
     tok_summaries(s, SF_TILE, n, lc, s_mf, g.smask, rows);
     __syncthreads();
     tok_scan(rows, SF_TILE / 32, scan_buf);
-    tok_descs(s, SF_TILE, n, lc, s_mf, g.smask, rows, blk << lc, 0, blk, -1, false, desc,
+    tok_descs<4>(s, SF_TILE, n, lc, s_mf, g.smask, rows, blk << lc, 0, blk, -1, false, desc,
               chunk_bytes, sizes);
     fence_proxy_async();  // this tile's accesses before a later copy into it
     __syncthreads();
@@ -762,7 +641,7 @@ sf_encode_cluster(const __grid_constant__ CUtensorMap tmap, int tma,
   int carry = -1;
   for (int r = 0; r < rank; ++r) carry = max(carry, *cl.map_shared_rank(&last, (unsigned)r) - 1);
   const bool next_first = rank + 1 < nr && *cl.map_shared_rank(&first, (unsigned)rank + 1) != 0;
-  tok_descs(s, n, n, lc, &s_mf, g.smask, rows, gbase, boff, blk, carry, next_first, desc,
+  tok_descs<4>(s, n, n, lc, &s_mf, g.smask, rows, gbase, boff, blk, carry, next_first, desc,
             chunk_bytes, sizes);
   cl.sync();  // the peers have read `last`, `first` and `part`
 }
@@ -849,13 +728,6 @@ static bool make_tmap(CUtensorMap* tmap, const float* vol, const Geom& g, int nz
   }
   if (r != CUDA_SUCCESS) *err = (int)cudaErrorInvalidValue;
   return r == CUDA_SUCCESS;
-}
-
-static cudaError_t sm_count(int* sms) {
-  int dev = 0;
-  cudaError_t e = cudaGetDevice(&dev);
-  if (e == cudaSuccess) e = cudaDeviceGetAttribute(sms, cudaDevAttrMultiProcessorCount, dev);
-  return e;
 }
 
 // A launch of `kernel` as nnn clusters of 2^lranks CTAs of SF_CT threads.

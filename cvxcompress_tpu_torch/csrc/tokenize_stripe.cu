@@ -5,181 +5,244 @@
 // Replaces the TPU kernels tokenize_pallas.tokenize_tiles_stripe (K13,
 // cvxcompress_tpu/ops/tokenize_pallas.py:744, call :781; `_kernel_stripe`
 // :702 with `_tile_desc_stripe` :538), tokenize_tiles2 (K12, :437, call
-// :454) and tokenize_tiles (K12', :391, call :402; the same body `_kernel`
-// :292 with `_tile_desc` :116), with the XLA epilogues around them
-// (_stripe_accounting :1092, tokenize_desc_fast2 :478: chunk bytes, block
-// sizes).  The JAX package tokenizes the block-major, chunk-major layout
-// (K12) where its stripe gate fails; here every geometry reads the
-// transform's volume-order plane in place, so no relayout precedes the
-// tokenize.  The raw-fallback decision follows in the wrapper
-// (ops/tokenize.py).
+// :454), tokenize_tiles (K12', :391, call :402; the same body `_kernel`
+// :292 with `_tile_desc` :116) and tokenize_tiles_volume (K15, :1170, call
+// :1209), with the XLA epilogues around them (_stripe_accounting :1092,
+// tokenize_desc_fast2 :478: chunk bytes, block sizes).  The JAX package
+// tokenizes the block-major, chunk-major layout (K12) where its stripe gate
+// fails; here every geometry reads the transform's volume-order plane in
+// place, so no relayout precedes the tokenize.  The raw-fallback decision
+// follows in the wrapper (ops/tokenize.py).
 //
 // Input: the UNSCALED coefficients of the volume-order (nzp, nyp, nxp)
-// plane, read through the stripe map (stripe_map.cuh).  Each block's mulfac
-// comes from the (nnn,) table (one value repeated under the global RMS):
-// fv = __fmul_rn(c, mf[block]), the single f32 rounding of the JAX stage
-// `chunks * mfc` (codec.py:94).  Output, block major: the per-cell
-// descriptors (cost | run_end << 3 | min(run_len, 2^24 - 1) << 4), the byte
-// count of every min(128, cells)-cell chunk and every block's size.
+// plane (stripe_map.cuh: every edge a multiple of the block's, bx >= 8).
+// Each block's mulfac comes from the (nnn,) table (one value repeated under
+// the global RMS): fv = __fmul_rn(c, mf[block]), the single f32 rounding of
+// the JAX stage `chunks * mfc` (codec.py:94).  Output, block major: the
+// per-cell descriptors (cost | run_end << 3 | min(run_len, 2^24 - 1) << 4),
+// the byte count of every min(128, cells)-cell chunk and every block's
+// size.  Runs of 2^24 zeros (an all-zero 256^3 block) cost 5 bytes: an
+// RLESC3 of 2^24 - 1 and a trailing [0] (tokens.cuh run_cost).
 //
-// A CTA takes a tile of 16,384 consecutive block-major cells from an atomic
-// ticket, copies them into shared memory (65-word rows, one per thread, so
-// the thread-per-64-cells reads fall on distinct banks) and tokenizes them:
-// thread t owns cells [64t, 64t + 64), eight whole groups of 8, always
-// inside one block (cells >= 64).  The JAX kernels carry the zero-run state
-// across sequential grid steps in SMEM; a GPU grid has no order.  A tile of
-// blocks smaller than itself (8^3 = 512 cells: 32 whole blocks) needs no
-// carry: a block-wide max-scan of the threads' last non-zero cells, cut at
-// each block's start.  A block larger than a tile (64^3 = 16 tiles, 256^3 =
-// 1,024) carries its run state by the decoupled look-back of the 128^3 path
-// (block_common.cuh slice_tokenize): the CTA publishes its tile's last
-// non-zero cell, then walks back over its block's earlier tiles until one has
-// a non-zero cell.  The ticket order means every earlier tile's CTA has
-// started and publishes before it waits, so the walk ends.  The cell after a
-// tile's last, inside the same block, is read from the source: a run's end
-// needs one cell of lookahead, the TPU kernels' clamped next-row window.
-// Runs of 2^24 zeros (an all-zero 256^3 block) cost 5 bytes: an RLESC3 of
-// 2^24 - 1 and a trailing [0] (tokens.cuh run_cost).
+// A tile is 16,384 consecutive block-major cells: whole blocks (8^3: 32 of
+// them; (8, 8, 1): 256), or a range of z-planes or y-rows of one larger
+// block (64^3: 16 tiles a block, 256^3: 1,024).  Either way each block's
+// share is a box of the plane.  One persistent CTA of 512 threads per SM
+// takes tiles from an atomic ticket, two tile buffers: the next tile's TMA
+// boxes (one per block, or one per tile; no swizzle, so a tile lies dense
+// in block order) land under this tile's tokenize.  The tokenize is the
+// row-wise one of stripe_tok.cuh (the fused stripe kernels'): a lane a cell,
+// ballots, a max-scan over the 512 segments' last non-zero cells.
 //
-// What bounds it on an H100: bytes (4 B in, 4 B of descriptor out per cell,
-// 4 B per chunk); the scan and look-back are per tile.
+// A block larger than a tile carries its zero run from tile to tile by a
+// decoupled look-back on one status word per tile: right after its scan a
+// tile publishes its last non-zero cell as an inclusive value, or, having
+// none, "aggregate: no non-zero cell"; a tile whose first cell is zero then
+// reads its block's earlier tiles' words 32 at a time (a lane each), back
+// to the nearest inclusive one, and (if it had none of its own) publishes
+// that value as its inclusive one.  So a tile in an all-zero stretch stops
+// at the nearest tile that has finished, not at the stretch's start.  The
+// ticket order means every earlier tile's CTA has started, and it publishes
+// before it waits, so the walk ends.  A run's end needs the cell after the
+// tile, in the same block: one read from the plane.
+//
+// What bounds it on an H100: the bytes set the bound (4 B in, 4 B of
+// descriptor out per cell, 4 B per chunk), but the kernel is bound by
+// issue: the descriptors' instructions per 32-cell segment take over half
+// its time (PERF.md).
 
+#include <cstring>
+
+#include "lookback.cuh"
 #include "stripe_map.cuh"
-#include "tokens.cuh"
+#include "stripe_tok.cuh"
 
 namespace cvx {
 
-constexpr int LTT = 14;               // log2 cells per tile
-constexpr int TT = 1 << LTT;          // 16,384 cells per tile
-constexpr int TBT = 256;              // threads per CTA
-constexpr int TPER = TT / TBT;        // 64 cells per thread
-constexpr int TPITCH = TPER + 1;      // padded row of one thread's cells
-constexpr size_t TSMEM = (size_t)TBT * TPITCH * sizeof(float);
+constexpr int LTT = 14;
+constexpr int TT = 1 << LTT;  // cells per tile (64 KiB)
+constexpr int TBT = 512;      // threads per CTA
+// two tile buffers and the slack to align them to 1,024 bytes
+constexpr size_t TSMEM = 2 * TT * sizeof(float) + 1024;
+static_assert(TT / 64 <= TBT, "a thread per block's box");
+constexpr unsigned TS_AGG = 1u << 30;   // the tile has no non-zero cell
+constexpr unsigned TS_INCL = 2u << 30;  // payload: 1 + the block's last
+                                        // non-zero cell up to the tile's end
 
-__global__ void __launch_bounds__(TBT)
-tokenize_stripe_kernel(const float* __restrict__ src,
-                       const float* __restrict__ mulfacs, int64_t nnn,
-                       StripeMap map, int* __restrict__ ticket,
-                       int* __restrict__ status, int32_t* __restrict__ desc,
-                       int32_t* __restrict__ chunk_bytes,
-                       int32_t* __restrict__ sizes) {
-  extern __shared__ __align__(16) float s[];
-  __shared__ int64_t s_org[TBT];
-  __shared__ int s_tile, s_carry, scan_buf[32];
+__global__ void __launch_bounds__(TBT, 1)
+tokenize_stripe_kernel(const __grid_constant__ CUtensorMap tmap, const float* __restrict__ src,
+                       const float* __restrict__ mulfacs, int64_t nnn, StripeMap map,
+                       int64_t ntiles, unsigned* __restrict__ ticket,
+                       unsigned* __restrict__ status, int32_t* __restrict__ desc,
+                       int32_t* __restrict__ chunk_bytes, int32_t* __restrict__ sizes) {
+  extern __shared__ __align__(16) unsigned char dsmem[];
+  float* const buf0 = block_buffer(dsmem);
+  __shared__ uint64_t full[2];
+  __shared__ int rows[TT / 32];
+  __shared__ int scan_buf[32];
+  __shared__ int64_t s_tile[2];
+  __shared__ int s_carry, s_next;
+  const int lxy = map.lbx + map.lby, lc = lxy + map.lbz, cells = 1 << lc;
+  const int ltpb = lc > LTT ? lc - LTT : 0;  // log2 tiles per block
+  const int lbpt = lc < LTT ? LTT - lc : 0;  // log2 blocks per tile
 
-  const int lcells = map.lbx + map.lby + map.lbz;
-  const int cells = 1 << lcells;
-  const int64_t total = nnn << lcells;
-  if (threadIdx.x == 0) s_tile = atomicAdd(ticket, 1);
-  __syncthreads();
-  const int tile = s_tile;
-  const int64_t tbase = (int64_t)tile << LTT;  // the tile's first cell
-  const int64_t fb = tbase >> lcells;          // the tile's first block
-  // a block spans 2^ltpb tiles (ltpb > 0 only when cells > TT); zt is the
-  // tile's place in it
-  const int ltpb = lcells > LTT ? lcells - LTT : 0;
-  const int zt = tile & ((1 << ltpb) - 1);
-  const int bpt = lcells < LTT ? 1 << (LTT - lcells) : 1;  // blocks per tile
-  if (threadIdx.x < bpt)
-    s_org[threadIdx.x] =
-        fb + threadIdx.x < nnn ? map_origin<true>(map, fb + threadIdx.x) : 0;
-  __syncthreads();
-
-  // the tile into shared memory, consecutive threads on consecutive cells
-  for (int k = 0; k < TPER; ++k) {
-    const int c = k * TBT + threadIdx.x;
-    const int64_t g = tbase + c;
-    if (g < total) {
-      const int bi = (int)((g >> lcells) - fb);
-      const int l = (int)(g & (cells - 1));
-      s[(c >> 6) * TPITCH + (c & (TPER - 1))] =
-          src[s_org[bi] + map_cell<true>(map, l)];
-    }
-  }
-  __syncthreads();
-
-  const int c0 = threadIdx.x * TPER;   // the thread's first cell in the tile
-  const int64_t g0 = tbase + c0;
-  const bool active = g0 < total;      // whole blocks: all 64 cells or none
-  const int64_t blk = g0 >> lcells;
-  const int l0 = (int)(g0 & (cells - 1));  // its block-local index
-  const float mf = active ? mulfacs[blk] : 1.0f;
-  const float* row = s + threadIdx.x * TPITCH;
-  uint64_t nonzero = 0;
-  if (active)
-    for (int i = 0; i < TPER; ++i)
-      nonzero |= (uint64_t)(cvtt(__fmul_rn(row[i], mf)) != 0) << i;
-  const int last_local = nonzero ? c0 + 63 - __clzll((long long)nonzero) : -1;
-  int tile_last;
-  const int excl =
-      block_exclusive_scan(last_local, -1, MaxOp(), scan_buf, &tile_last);
-
-  if (ltpb > 0 && threadIdx.x == 0) {
-    atomicExch(&status[tile], tile_last + 2);  // 1: no non-zero cell
-    int carry = -1;  // the block's last non-zero cell before the tile
-    for (int p = 1; p <= zt; ++p) {
-      int v;
-      while ((v = atomicAdd(&status[tile - p], 0)) == 0) __nanosleep(64);
-      if (v >= 2) {
-        carry = ((zt - p) << LTT) + v - 2;
-        break;
+  // the plane coordinates of block blk's cell 0 (32-bit division: a plane
+  // holds fewer than 2^32 blocks)
+  auto origin = [&](int64_t blk) {
+    const unsigned bi = (unsigned)blk, r = bi / (unsigned)map.nbx;
+    return make_int3((int)(bi - r * (unsigned)map.nbx) << map.lbx,
+                     (int)(r % (unsigned)map.nby) << map.lby,
+                     (int)(r / (unsigned)map.nby) << map.lbz);
+  };
+  // tile t's boxes into buffer b: one box, or one per block, a thread each
+  // (a box may land before thread 0's expect_tx; the barrier's transaction
+  // count may go below zero until its one arrival)
+  auto load = [&](int64_t t, int b) {
+    float* dst = buf0 + b * TT;
+    const unsigned bar = smem_addr(&full[b]);
+    if (ltpb) {
+      if (threadIdx.x == 0) {
+        const int boff = (int)(t & ((1 << ltpb) - 1)) << LTT;
+        const int3 o = origin(t >> ltpb);
+        mbar_expect(bar, TT * 4u);
+        tma_box3(dst, &tmap, o.x, o.y + ((boff >> map.lbx) & ((1 << map.lby) - 1)),
+                 o.z + (boff >> lxy), bar);
+      }
+    } else {
+      const int64_t fb = t << lbpt;
+      const int nb = (int)min((int64_t)1 << lbpt, nnn - fb);
+      if (threadIdx.x == 0) mbar_expect(bar, (unsigned)(nb << lc) * 4u);
+      if (threadIdx.x < nb) {
+        const int3 o = origin(fb + threadIdx.x);
+        tma_box3(dst + (threadIdx.x << lc), &tmap, o.x, o.y, o.z, bar);
       }
     }
-    s_carry = carry;
+  };
+
+  if (threadIdx.x == 0) {
+    mbar_init(smem_addr(&full[0]));
+    mbar_init(smem_addr(&full[1]));
+    s_tile[0] = atomicAdd(ticket, 1u);
   }
   __syncthreads();
-  // the warp's lanes that hold cells; the lanes of one chunk or one block
-  // are all in it or all out
-  const unsigned live = __ballot_sync(0xffffffffu, active);
-  if (!active) return;
+  if (s_tile[0] < ntiles) load(s_tile[0], 0);
+#pragma unroll 1
+  for (int i = 0;; ++i) {
+    const int b = i & 1;
+    const int64_t t = s_tile[b];
+    if (t >= ntiles) break;  // uniform
+    if (threadIdx.x == 0) s_tile[b ^ 1] = atomicAdd(ticket, 1u);
+    __syncthreads();
+    if (s_tile[b ^ 1] < ntiles) load(s_tile[b ^ 1], b ^ 1);
 
-  // the last non-zero cell before the thread's first, block-local (-1: the
-  // run starts at the block's start); a scan result from an earlier block
-  // of the tile falls below 0 and does not count
-  const int el = excl >= 0 ? excl - c0 + l0 : -1;
-  const int last = el >= 0 ? el : (ltpb > 0 ? s_carry : -1);
-  // whether a run in the thread's last cell ends there: at its block's end
-  // always, else when the next cell quantizes to non-zero
-  bool end_after;
-  if (l0 + TPER == cells) {
-    end_after = true;
-  } else if (threadIdx.x + 1 < TBT) {
-    end_after = cvtt(__fmul_rn(row[TPITCH], mf)) != 0;
-  } else {  // the next tile's first cell, same block
-    end_after =
-        cvtt(__fmul_rn(src[s_org[0] + map_cell<true>(map, l0 + TPER)], mf)) != 0;
+    int64_t blk0;   // the tile's (first) block
+    int boff, n;    // its first cell's block-local index; its cells
+    if (ltpb) {
+      blk0 = t >> ltpb;
+      boff = (int)(t & ((1 << ltpb) - 1)) << LTT;
+      n = TT;
+    } else {
+      blk0 = t << lbpt;
+      boff = 0;
+      n = (int)min((int64_t)1 << lbpt, nnn - blk0) << lc;
+    }
+    const float* mf = mulfacs + blk0;  // mf[c >> lc]: cell c's block's mulfac
+    if (ltpb && threadIdx.x == 32)  // the cell after the tile, same block
+      s_next = boff + TT < cells &&
+               cvtt(__fmul_rn(src[map_origin<true>(map, blk0) +
+                                  map_cell<true>(map, boff + TT)], mf[0])) != 0;
+    float* s = buf0 + b * TT;
+    mbar_wait(smem_addr(&full[b]), (i >> 1) & 1);
+    tok_summaries(s, TT, n, lc, mf, 0, rows);
+    __syncthreads();
+    const int top = tok_scan(rows, TT / 32, scan_buf);  // 1 + last non-zero, 0: none
+
+    if (ltpb && threadIdx.x < 32) {
+      const int lane = threadIdx.x;
+      const int zt = (int)(t & ((1 << ltpb) - 1));  // the tile's place in its block
+      if (lane == 0)
+        st_relaxed(&status[t], top ? TS_INCL | (unsigned)(boff + top)
+                                   : zt ? TS_AGG : TS_INCL);
+      int carry = -1;  // the block's last non-zero cell before the tile
+      if (zt && !(rows[0] >> 16)) {
+        for (int64_t base = t - 1;; base -= 32) {
+          const int64_t r = base - lane;
+          const unsigned f = r >= t - zt ? wait_status(&status[r]) : TS_INCL;
+          const unsigned incl = __ballot_sync(~0u, (f & TS_INCL) != 0);
+          if (incl) {
+            carry = (int)(__shfl_sync(~0u, f, __ffs(incl) - 1) & (TS_AGG - 1)) - 1;
+            break;
+          }
+        }
+        if (!top && lane == 0) st_relaxed(&status[t], TS_INCL | (unsigned)(carry + 1));
+      }
+      if (lane == 0) s_carry = carry;
+    }
+    __syncthreads();
+    if (ltpb)
+      tok_descs<4>(s, TT, n, lc, mf, 0, rows, t << LTT, boff, blk0, s_carry, s_next != 0,
+                   desc, chunk_bytes, sizes);
+    else if (lc == 6)  // (8, 8, 1): 64-cell chunks
+      tok_descs<2>(s, TT, n, lc, mf, 0, rows, t << LTT, 0, blk0, -1, false, desc,
+                   chunk_bytes, sizes);
+    else
+      tok_descs<4>(s, TT, n, lc, mf, 0, rows, t << LTT, 0, blk0, -1, false, desc,
+                   chunk_bytes, sizes);
+    fence_proxy_async();  // this tile's reads before a later copy into it
+    __syncthreads();
   }
+}
 
-  const int cost = tokenize64(
-      [&](int i) { return cvtt(__fmul_rn(row[i], mf)); }, nonzero, last, l0,
-      end_after, desc + g0);
-  store_counts(cost, live, cells, g0, blk, chunk_bytes, sizes);
+// The TMA map of the plane for a tile's box of each block: bx x by x bz,
+// or, for a block over a tile, bx x min(by, TT / bx) x max(1, TT / (bx by)).
+static int make_plane_map(CUtensorMap* tmap, const float* plane, const StripeMap& m,
+                          int64_t nzp) {
+  if (reinterpret_cast<uintptr_t>(plane) % 16) return (int)cudaErrorMisalignedAddress;
+  const EncodeTiled enc = encode_tiled();
+  if (enc == nullptr) return (int)cudaErrorSymbolNotFound;
+  const int lxy = m.lbx + m.lby, lc = lxy + m.lbz;
+  const cuuint64_t dims[3] = {(cuuint64_t)m.nxp, (cuuint64_t)m.nyp, (cuuint64_t)nzp};
+  const cuuint64_t strides[2] = {(cuuint64_t)m.nxp * 4, (cuuint64_t)m.nxp * m.nyp * 4};
+  const int lby = m.lby < LTT - m.lbx ? m.lby : LTT - m.lbx;
+  const int lbz = lc <= LTT ? m.lbz : lxy < LTT ? LTT - lxy : 0;
+  const cuuint32_t box[3] = {1u << m.lbx, 1u << lby, 1u << lbz};
+  const cuuint32_t one[3] = {1, 1, 1};
+  const CUresult r = enc(tmap, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 3, (void*)plane, dims,
+                         strides, box, one, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                         CU_TENSOR_MAP_SWIZZLE_NONE, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                         CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : (int)cudaErrorInvalidValue;
 }
 
 }  // namespace cvx
 
-// `scratch` holds 1 + ceil(nnn * cells / 16384) ints: the ticket and the
-// tiles' status words.  Zeroes them and the block sizes, then launches one
-// CTA per tile.
-extern "C" int cvx_tokenize_stripe(const float* plane, const float* mulfacs,
-                                   int64_t nnn, int lbx, int lby, int lbz,
-                                   int64_t nbx, int64_t nby, int64_t nxp,
-                                   int64_t nyp, int* scratch, int32_t* desc,
-                                   int32_t* chunk_bytes, int32_t* sizes,
-                                   void* stream) {
+// `plane` must be 16-byte aligned (the TMA's rule; every edge of the plane
+// is a multiple of 8 floats).  `scratch` holds 1 + ceil(nnn * cells /
+// 16384) words: the ticket and the tiles' status words.  Zeroes them and
+// the block sizes, then launches one CTA per SM (at most one per tile).
+extern "C" int cvx_tokenize_stripe(const float* plane, const float* mulfacs, int64_t nnn,
+                                   int lbx, int lby, int lbz, int64_t nbx, int64_t nby,
+                                   int64_t nxp, int64_t nyp, unsigned* scratch, int32_t* desc,
+                                   int32_t* chunk_bytes, int32_t* sizes, void* stream) {
   using namespace cvx;
   if (nnn == 0) return 0;
   cudaStream_t st = (cudaStream_t)stream;
+  const StripeMap map = make_map(lbx, lby, lbz, nbx, nby, nxp, nyp);
   const int64_t ntiles = ((nnn << (lbx + lby + lbz)) + TT - 1) >> LTT;
+  CUtensorMap tmap;
+  std::memset(&tmap, 0, sizeof tmap);
+  const int err = make_plane_map(&tmap, plane, map, (nnn / (nbx * nby)) << lbz);
+  if (err) return err;
+  int sms = 0;
   cudaError_t e = cudaFuncSetAttribute(
-      tokenize_stripe_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)TSMEM);
-  if (e == cudaSuccess)
-    e = cudaMemsetAsync(scratch, 0, (1 + ntiles) * sizeof(int), st);
+      tokenize_stripe_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)TSMEM);
+  if (e == cudaSuccess) e = sm_count(&sms);
+  if (e == cudaSuccess) e = cudaMemsetAsync(scratch, 0, (1 + ntiles) * sizeof(unsigned), st);
   if (e == cudaSuccess) e = cudaMemsetAsync(sizes, 0, nnn * sizeof(int32_t), st);
   if (e != cudaSuccess) return (int)e;
-  tokenize_stripe_kernel<<<(unsigned)ntiles, TBT, TSMEM, st>>>(
-      plane, mulfacs, nnn, make_map(lbx, lby, lbz, nbx, nby, nxp, nyp),
-      scratch, scratch + 1, desc, chunk_bytes, sizes);
+  const unsigned grid = (unsigned)(ntiles < sms ? ntiles : sms);
+  tokenize_stripe_kernel<<<grid, TBT, TSMEM, st>>>(tmap, plane, mulfacs, nnn, map, ntiles,
+                                                   scratch, scratch + 1, desc, chunk_bytes,
+                                                   sizes);
   return (int)cudaGetLastError();
 }

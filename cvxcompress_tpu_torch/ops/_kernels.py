@@ -47,7 +47,8 @@ _SIGNATURES = {
     ],
     "cvx_decode_maps": [_VP, ctypes.c_int64, ctypes.c_int, _VP, _VP, _VP],
     "cvx_decode_chase": [
-        _VP, _VP, ctypes.c_int64, ctypes.c_int64, ctypes.c_int, _VP, _VP, _VP,
+        _VP, _VP, _VP, ctypes.c_int64, ctypes.c_int64, ctypes.c_int, ctypes.c_int,
+        ctypes.c_int, _VP, _VP, _VP,
     ],
     "cvx_decode_emit": [
         _VP, _VP, _VP, _VP, _VP, ctypes.c_int64, _VP, ctypes.c_int,

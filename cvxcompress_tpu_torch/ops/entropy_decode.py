@@ -13,8 +13,9 @@ kernels, each with its plain PyTorch version in this module:
   2. `chase` (csrc/decode_chase.cu, replaces K18 `_chase_pallas` :258):
      the cross-subsegment recurrence.  Every block start resets the state,
      so each block is an independent chain: entry e = T[k][e], cursor
-     c = min(c + NV[k][e], cells).  The plain version is the JAX default,
-     the log-depth Sklansky scan (:396-487).
+     c = min(c + NV[k][e], cells).  The kernel walks short chains a warp
+     each and scans pieces of long ones; the plain version is the JAX
+     default, the log-depth Sklansky scan (:396-487).
   3. `emit` (csrc/decode_emit.cu, replaces K4 `_emit_values_pallas` :733
      and the scatter after it, `decode_to_blocks` :884-898): every token
      start decodes its token and writes its dequantized values into the
@@ -401,23 +402,63 @@ def parse_maps(stream, nsub, cells):
     return M, P
 
 
+CHASE_PIECE = 128  # subsegments a warp of csrc/decode_chase.cu walks, at most
+CHASE_UNIT = 8  # pieces a CTA of it takes (its look-back's unit), at most
+WALK_MEAN = 16  # the walk's longest mean chain, in subsegments
+WALK_CELLS = 32 ** 3  # the walk's largest block
+
+
+def chase_walks(nsub, nchains, cells):
+    """Whether the chase kernel walks the chains, a warp each, rather than
+    scanning pieces of them: when they average at most WALK_MEAN
+    subsegments (a smooth volume's 32^3 blocks average ~4) and the blocks
+    hold at most WALK_CELLS cells.  A walk takes about as long as the
+    longest chain, and a block's chain holds at most 4 * cells / W + 1
+    subsegments (a block over 4 bytes a cell is stored raw): over such
+    blocks no walk is longer than 4,097 steps, whatever the data."""
+    return nsub <= WALK_MEAN * nchains and cells <= WALK_CELLS
+
+
+def chase_shape(nsub):
+    """The pieces' shape: CHASE_PIECE subsegments a warp and CHASE_UNIT
+    warps a CTA, or for a short stream pieces of a multiple of 32 that give
+    ~2,048 of them (the card holds 16 warps, a piece each, on each of its
+    132 SMs) in units of 4 pieces, so that the walks are short and run at
+    once."""
+    piece = min(CHASE_PIECE, 32 * -(-nsub // (2048 * 32)))
+    return piece, CHASE_UNIT if piece == CHASE_PIECE else 4
+
+
 def chase(P, sub_reset, starts, cells):
     """(e32, c32): each subsegment's entry offset and output cursor.
 
     `starts` lists the subsegments where sub_reset holds, in order, and
-    must begin with 0; the kernel walks one chain per start, the plain
-    version scans `sub_reset`.
+    must begin with 0 (the plan's chains).  The kernel walks each chain, a
+    warp a chain from its start, or when `chase_walks` says no, scans
+    pieces of subsegments, a unit of them a CTA (`chase_shape`), and joins
+    the units by a decoupled look-back; the plain version is the JAX
+    package's Sklansky scan.
     """
     if P.dim() != 2 or P.shape[1] != E or sub_reset.shape != (P.shape[0],):
         raise ValueError(f"P must be (nsub, {E}) with a reset per subsegment")
     if P.device.type == "cpu":
         return chase_plain(P, sub_reset, cells)
-    _kernels.check_cuda(P, starts, dtypes=(torch.int32, torch.int32))
-    nsub = P.shape[0]
+    _kernels.check_cuda(P, sub_reset, starts,
+                        dtypes=(torch.int32, torch.bool, torch.int32))
+    nsub, nchains = P.shape[0], starts.numel()
     e32 = torch.empty(nsub, dtype=torch.int32, device=P.device)
     c32 = torch.empty(nsub, dtype=torch.int32, device=P.device)
-    _kernels.launch("decode_chase", P.data_ptr(), starts.data_ptr(),
-                    starts.numel(), nsub, cells, e32.data_ptr(), c32.data_ptr())
+    piece = warps = 0  # the walk
+    scratch = None
+    if not chase_walks(nsub, nchains, cells):
+        piece, warps = chase_shape(nsub)
+        # the ticket and the status words, held until the launch is queued
+        scratch = torch.empty(1 + -(-nsub // (warps * piece)) * E, dtype=torch.int32,
+                              device=P.device)
+    _kernels.launch("decode_chase", P.data_ptr(), sub_reset.data_ptr(), starts.data_ptr(),
+                    nchains, nsub, piece, warps, cells,
+                    None if scratch is None else scratch.data_ptr(), e32.data_ptr(),
+                    c32.data_ptr())
     return e32, c32
 
 

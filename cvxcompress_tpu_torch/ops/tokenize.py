@@ -172,6 +172,8 @@ def tokenize_stripe(plane, mulfacs, block):
     if mulfacs.shape != (nnn,):
         raise ValueError(f"the mulfac table must be ({nnn},), got "
                          f"{tuple(mulfacs.shape)}")
+    if plane.data_ptr() % 16:  # the kernel copies boxes of it by TMA
+        plane = plane.clone()
     desc, chunk_bytes, sizes = _outputs(nnn, cells, plane.device)
     scratch = torch.empty(1 + -(-nnn * cells // TILE), dtype=torch.int32,
                           device=plane.device)

@@ -8,6 +8,7 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")  # the port's tests need PyTorch
+torch.set_num_threads(1)  # one thread a process: the suite runs in parallel workers
 
 import jax.numpy as jnp
 

@@ -11,6 +11,7 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")  # the port's tests need PyTorch
+torch.set_num_threads(1)  # one thread a process: the suite runs in parallel workers
 
 import cvxcompress_tpu_torch as cvt
 from cvxcompress_tpu_torch.ops import fused_compress, fused_inverse, rle_host, wavelet

@@ -9,6 +9,7 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")  # the port's tests need PyTorch
+torch.set_num_threads(1)  # one thread a process: the suite runs in parallel workers
 
 import cvxcompress_tpu_torch as cvt
 from cvxcompress_tpu import container as jctn
@@ -69,6 +70,7 @@ def test_import_leaves_jax_out():
         "assert not bad, bad\n"
     )
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env["OMP_NUM_THREADS"] = "1"  # as the test processes (parallel workers)
     res = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
                          capture_output=True, text=True, timeout=300)
     assert res.returncode == 0, res.stderr

@@ -19,6 +19,8 @@ from cvxcompress_tpu_torch.ops import (
     quant, rle_device, rle_host, tokenize,
 )
 
+import lookback_cases as lc
+
 pytestmark = pytest.mark.cuda
 
 TRANSFORM_TOL = 1e-5
@@ -220,6 +222,78 @@ def test_decode_kernels_on_corrupt_payloads(dev, seed):
     out = cvt.decompress(data, device="cuda", engine="device")
     torch.cuda.synchronize()
     assert tuple(out.shape) == (64, 64, 96)
+
+
+@pytest.mark.parametrize("walk", [True, False], ids=["walk", "pieces"])
+@pytest.mark.parametrize("name", ["short", "short_saturating", "long"])
+def test_chase_kernel_across_piece_seams(dev, name, walk, monkeypatch):
+    """decode_chase, on each of its routes, against its plain version and
+    the one-step semantics on chains of 1, L - 1, L, L + 1 and 2 L + 1
+    subsegments (L its piece), resets on and beside piece boundaries and a
+    chain over hundreds of pieces (tests/lookback_cases.py)."""
+    P, reset, cells = lc.chase_cases(entropy_decode.chase_shape)[name]
+    Pt, rt = torch.from_numpy(P).to(dev), torch.from_numpy(reset).to(dev)
+    starts = torch.from_numpy(np.flatnonzero(reset).astype(np.int32)).to(dev)
+    monkeypatch.setattr(entropy_decode, "chase_walks", lambda *_: walk)
+    e32, c32 = entropy_decode.chase(Pt, rt, starts, cells)
+    ep, cp = entropy_decode.chase_plain(Pt, rt, cells)
+    assert torch.equal(e32, ep) and torch.equal(c32, cp)
+    se, sc = entropy_decode.chase_sequential(P, reset, cells)
+    np.testing.assert_array_equal(e32.cpu().numpy(), se)
+    np.testing.assert_array_equal(c32.cpu().numpy(), sc)
+
+
+@pytest.mark.parametrize("kind", ["stretches", "last_tile", "tile_edge"])
+def test_tokenize_stripe_kernel_across_tile_seams(dev, kind):
+    """tokenize_stripe against its plain version on three (256, 256, 8)
+    blocks of 32 tiles (all-zero stretches over many tiles, one non-zero
+    cell in a block's last tile, runs ending on tile edges), the plane also
+    at a misaligned view (the wrapper copies it for the TMA boxes)."""
+    c, mf = lc.stripe_case(kind)
+    plane = blocks.from_blocks(torch.from_numpy(c).to(dev).view(-1, 8, 256, 256),
+                               lc.STRIPE_SHAPE, lc.STRIPE_BLOCK)
+    mk = torch.from_numpy(mf).to(dev)
+    plain = tokenize.tokenize_stripe_plain(plane, mk, lc.STRIPE_BLOCK)
+    view = torch.zeros(plane.numel() + 1, device=dev)[1:].view(plane.shape)
+    view.copy_(plane)
+    for p in (plane, view):
+        got = tokenize.tokenize_stripe(p, mk, lc.STRIPE_BLOCK)
+        assert all(torch.equal(a, b) for a, b in zip(got, plain))
+
+
+def test_device_decompress_from_two_threads(dev):
+    """Two threads decompress at once on the default stream, a container
+    each: a smooth 32^3 one (the chase walks its chains) and a noise 128^3
+    one (the chase scans pieces, its look-back over a scratch of its own
+    each call).  Every result equals the one decompressed alone."""
+    import threading
+
+    rng = np.random.default_rng(5)
+    smooth = volume(rng, (64, 96, 96))
+    noise = rng.standard_normal((128, 128, 256)).astype(np.float32)
+    datas = [cvt.compress(smooth, 1e-2, device="cuda")[0],
+             cvt.compress(noise, 1e-1, block=(128, 128, 128), device="cuda")[0]]
+    refs = [cvt.decompress(d, device="cuda", engine="device") for d in datas]
+    torch.cuda.synchronize()
+    bad = []
+
+    def run(i):
+        try:
+            for _ in range(20):
+                out = cvt.decompress(datas[i], device="cuda", engine="device")
+                nd = int((out.view(torch.int32) != refs[i].view(torch.int32)).sum())
+                if nd:
+                    bad.append((i, nd))  # the container, its cells that differ
+        except Exception as e:  # a failed launch fails the test, not just the thread
+            bad.append(e)
+
+    threads = [threading.Thread(target=run, args=(i,)) for i in (0, 1)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    torch.cuda.synchronize()
+    assert not bad
 
 
 def test_device_engine_matches_host_engine(dev, rng):

@@ -7,7 +7,9 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")  # the port's tests need PyTorch
+torch.set_num_threads(1)  # one thread a process: the suite runs in parallel workers
 
+import jax
 import jax.numpy as jnp
 
 import cvxcompress_tpu_torch as cvt
@@ -23,6 +25,9 @@ from cvxcompress_tpu_torch.ops import entropy_decode as ted
 from conftest import make_radial_volume, make_sinusoid_volume, rel_error_and_snr
 
 TRANSFORM_TOL = 1e-5
+# the JAX package's parse, compiled once per shape (run op by op it takes
+# tens of seconds a call)
+parse_stages = jax.jit(ed._parse_stages, static_argnums=(2, 3))
 
 
 def rel_rms(got, ref):
@@ -79,6 +84,20 @@ def _container(kind):
 CONTAINERS = ["sinusoid", "radial", "raw_noise", "oracle", "native_shuffled"]
 
 
+@pytest.fixture(scope="module")
+def container():
+    """_container(kind), each kind built once for the module's tests (which
+    only read it)."""
+    cache = {}
+
+    def get(kind):
+        if kind not in cache:
+            cache[kind] = _container(kind)
+        return cache[kind]
+
+    return get
+
+
 def decode_dense(data):
     """The port's device engine stages on the CPU: dense (nnn, cells)."""
     p = ted.plan(data)
@@ -122,8 +141,8 @@ def assert_dense_bit_exact(data):
 
 
 @pytest.mark.parametrize("kind", CONTAINERS)
-def test_plan_matches_jax(kind):
-    data = _container(kind)
+def test_plan_matches_jax(container, kind):
+    data = container(kind)
     mine, ref = ted.plan(data), ed.plan(data)
     for k in ("segs", "sub_block", "sub_reset", "raw_ids"):
         np.testing.assert_array_equal(mine[k], ref[k], err_msg=k)
@@ -152,14 +171,14 @@ def test_plan_matches_jax(kind):
 
 
 @pytest.mark.parametrize("kind", ["radial", "multiseg"])
-def test_parse_and_chase_match_parse_stages(kind):
-    data = _container(kind)
+def test_parse_and_chase_match_parse_stages(container, kind):
+    data = container(kind)
     p = ted.plan(data)
     b = ted.upload(p, "cpu")
     nsub, cells = b["sub_block"].numel(), p["cells"]
     M, P = ted.parse_maps_plain(b["stream"], nsub, cells)
     e32, c32 = ted.chase_plain(P, b["sub_reset"], cells)
-    jM, je32, jc32, _, _, _ = ed._parse_stages(
+    jM, je32, jc32, _, _, _ = parse_stages(
         jnp.asarray(p["segs"]), jnp.asarray(p["sub_reset"]), cells)
     np.testing.assert_array_equal(M.numpy(), np.asarray(jM))
     np.testing.assert_array_equal(e32.numpy(), np.asarray(je32))
@@ -230,8 +249,8 @@ def test_dense_decode_f32_escapes_and_raw():
     assert_dense_bit_exact(data)
 
 
-def test_dense_decode_multisegment_blocks():
-    assert_dense_bit_exact(_container("multiseg"))
+def test_dense_decode_multisegment_blocks(container):
+    assert_dense_bit_exact(container("multiseg"))
 
 
 def test_dense_decode_zero_and_long_runs():
@@ -325,7 +344,7 @@ def test_emit_matches_emit_kernel_interpret():
     data, _ = jcodec.compress(vol, 1e-2, block=block)
     p = ed.plan(data)
     cells = 32 ** 3
-    M, e32, c32, vals_s, sv, Bx = ed._parse_stages(
+    M, e32, c32, vals_s, sv, Bx = parse_stages(
         jnp.asarray(p["segs"]), jnp.asarray(p["sub_reset"]), cells, False)
     kval, kidx, total = ed._emit_values_pallas(
         M, e32, c32, vals_s, sv, Bx, jnp.asarray(p["scalefac"]),
@@ -361,8 +380,8 @@ def test_device_engine_matches_host_engine_and_jax():
 
 
 @pytest.mark.parametrize("kind", ["oracle", "native_shuffled", "raw_noise"])
-def test_device_engine_decodes_foreign_containers(kind):
-    data = _container(kind)
+def test_device_engine_decodes_foreign_containers(container, kind):
+    data = container(kind)
     dev = cvt.decompress(data, device="cpu", engine="device").numpy()
     np.testing.assert_array_equal(
         dev, cvt.decompress(data, device="cpu", engine="host").numpy())
@@ -371,14 +390,21 @@ def test_device_engine_decodes_foreign_containers(kind):
 # (g) corrupt payloads -----------------------------------------------------
 
 
+@pytest.fixture(scope="module")
+def clean_radial():
+    """A native container of a (64, 64, 96) radial volume and its dense
+    decode, shared by the corrupt-payload cases."""
+    data = rle_host.host_compress(make_radial_volume(64, 64, 96), 1e-2)[0]
+    return data, decode_dense(data)
+
+
 @pytest.mark.parametrize("seed", range(3))
-def test_corrupt_payload_never_crashes_and_stays_in_its_blocks(seed):
+def test_corrupt_payload_never_crashes_and_stays_in_its_blocks(clean_radial, seed):
     """Bit-flipped payload bytes decode to something without raising, and
     a flipped block's chain writes nowhere but in its own block: every block
     whose payload holds no flip decodes exactly as before."""
-    data = rle_host.host_compress(make_radial_volume(64, 64, 96), 1e-2)[0]
+    data, clean = clean_radial
     _, blkoffs, _, pbase = ctn.unpack(data)
-    clean = decode_dense(data)
     r = np.random.default_rng(seed)
     bad = data.copy()
     flips = r.integers(pbase, data.size - 8, 6)
@@ -398,8 +424,8 @@ def test_corrupt_payload_never_crashes_and_stays_in_its_blocks(seed):
 # (h) a degenerate container -----------------------------------------------
 
 
-def test_degenerate_container_raises_on_device_decodes_on_auto():
-    data = cvt.compress(make_radial_volume(40, 50, 70), 1e-2, device="cpu")[0].copy()
+def test_degenerate_container_raises_on_device_decodes_on_auto(container):
+    data = container("radial").copy()
     offs = data[32: 32 + 8 * 12].view(np.int64)
     offs[1] = offs[0]  # two blocks share one payload
     cvt.utils.io.validate(data)

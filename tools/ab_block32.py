@@ -25,12 +25,12 @@ import argparse
 import ctypes
 import json
 import os
-import subprocess
 import sys
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, ROOT)
 
+import ab_common  # noqa: E402
 import chip_smoke as cs  # noqa: E402  (helpers only; its main() is not run)
 
 _VP, _I, _I64, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64, ctypes.c_float
@@ -42,33 +42,12 @@ PARENT_SIGNATURES = {
 }
 
 
-def build_parent(parent):
-    from cvxcompress_tpu_torch.ops import _kernels
-
-    src = os.path.join(parent, "cvxcompress_tpu_torch", "csrc")
-    out = os.path.join(ROOT, "build", "ab_parent")
-    os.makedirs(out, exist_ok=True)
-    so = os.path.join(out, "libparent32.so")
-    cmd = [_kernels._nvcc(), *_kernels.ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler",
-           "-fPIC", "-shared", "-o", so, os.path.join(src, "fused_encode.cu"),
-           os.path.join(src, "fused_inverse.cu")]
-    subprocess.run(cmd, check=True)
-    lib = ctypes.CDLL(so)
-    for name, argtypes in PARENT_SIGNATURES.items():
-        fn = getattr(lib, name)
-        fn.argtypes = argtypes
-        fn.restype = ctypes.c_int
-    return lib
-
-
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--parent", required=True, help="the earlier checkout's root")
     ap.add_argument("--iters", type=int, default=20)
     args = ap.parse_args()
-    card = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True).stdout.strip()
+    card = ab_common.card()
     print(card, flush=True)
     import torch
 
@@ -77,7 +56,8 @@ def main():
         return 2
     from cvxcompress_tpu_torch.ops import codec, fused_inverse, quant, tokenize, wavelet
 
-    plib = build_parent(args.parent)
+    plib = ab_common.build_parent(args.parent, ("fused_encode.cu", "fused_inverse.cu"),
+                                  "libparent32", PARENT_SIGNATURES)
     dev = torch.device("cuda")
     vol = cs.sinusoid(*cs.SHAPE, cs.PERIODS)
     vt = torch.from_numpy(vol).to(dev)
@@ -156,11 +136,11 @@ def main():
     }
     res = {}
     for name, (earlier, this) in pairs.items():
-        t = [cs.cuda_ms(earlier, args.iters), cs.cuda_ms(this, args.iters),
-             cs.cuda_ms(this, args.iters), cs.cuda_ms(earlier, args.iters)]
-        res[name] = dict(earlier_ms=[t[0], t[3]], this_ms=[t[1], t[2]])
-        print(f"  {name}: earlier {t[0]:.4f}, this {t[1]:.4f}, this {t[2]:.4f}, earlier "
-              f"{t[3]:.4f} ms on {card}", flush=True)
+        fns = {"earlier": earlier, "this": this}
+        t = ab_common.turns(ab_common.ORDER, lambda k: fns[k](), args.iters)
+        res[name] = dict(earlier_ms=t["earlier"], this_ms=t["this"])
+        print(f"  {name}: earlier {t['earlier'][0]:.4f}, this {t['this'][0]:.4f}, this "
+              f"{t['this'][1]:.4f}, earlier {t['earlier'][1]:.4f} ms on {card}", flush=True)
     print(json.dumps({"card": card, "config": "A", "chunk_sparse_rows": rows_h.shape[0],
                       "turns": res}))
     return 0

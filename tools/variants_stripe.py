@@ -23,69 +23,32 @@ import ctypes
 import json
 import math
 import os
-import shutil
-import subprocess
 import sys
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, ROOT)
 
+import ab_common  # noqa: E402
 import chip_smoke as cs  # noqa: E402  (helpers only; its main() is not run)
 
 
+_VP, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+SIGNATURES = {
+    "cvx_stripe_fused_encode": [_VP, _I, _I, _I, _I, _I, _I, _F, _VP, _VP, _VP, _VP, _VP, _VP],
+    "cvx_stripe_fused_encode_local": [_VP, _I, _I, _I, _I, _I, _I, _F, _VP, _VP, _VP, _VP,
+                                      _VP, _VP],
+    "cvx_stripe_fused_inverse": [_VP, _I, _I, _I, _I, _I, _I, _VP, _VP],
+}
+
+
 def build(name, subs):
-    from cvxcompress_tpu_torch.ops import _kernels
-
-    d = os.path.join(ROOT, "build", "variants", name)
-    shutil.rmtree(d, ignore_errors=True)
-    shutil.copytree(_kernels.SRC_DIR, d)
-    p = os.path.join(d, "stripe_fused.cu")
-    s = open(p).read()
-    for a, b in subs:
-        if a == "FILE":
-            s = open(os.path.join(ROOT, b)).read()
-            continue
-        if a not in s:
-            raise ValueError(f"{name}: {a!r} is not in the source")
-        s = s.replace(a, b)
-    with open(p, "w") as f:
-        f.write(s)
-    so = os.path.join(d, "lib.so")
-    r = subprocess.run([_kernels._nvcc(), *_kernels.ARCH_FLAGS, "-std=c++17", "-O3",
-                        "-Xcompiler", "-fPIC", "-shared", "-Xptxas", "-v", "-o", so, p],
-                       capture_output=True, text=True)
-    for line in (r.stdout + r.stderr).splitlines():
-        if "registers" in line or "error" in line:
-            print(f"  {name}: {line.strip()[:160]}")
-    if r.returncode:
-        raise RuntimeError(f"{name}: nvcc failed")
-    lib = ctypes.CDLL(so)
-    vp, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    for fn in ("cvx_stripe_fused_encode", "cvx_stripe_fused_encode_local"):
-        getattr(lib, fn).argtypes = [vp, i, i, i, i, i, i, f, vp, vp, vp, vp, vp, vp]
-    lib.cvx_stripe_fused_inverse.argtypes = [vp, i, i, i, i, i, i, vp, vp]
-    return lib
-
-
-def device_ms(fn, iters, match):
-    """Mean device time per call of the kernels whose name holds `match`."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile
-
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as p:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    return sum(e.device_time_total for e in p.key_averages() if match in e.key) / iters / 1e3
+    return ab_common.build_variant(name, {"stripe_fused.cu": subs}, ("stripe_fused.cu",),
+                                   SIGNATURES, subdir="variants")
 
 
 def main():
     variants = json.loads(sys.argv[1]) if len(sys.argv) > 1 else {"base": []}
-    card = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True).stdout.strip()
+    card = ab_common.card()
     print(card, flush=True)
     import torch
 
@@ -119,8 +82,8 @@ def main():
             return fused_inverse.stripe_fused_inverse(ref[0], vol.shape, block)
 
         print(f"{cell} shipped wrappers: encode {cs.cuda_ms(w_enc, 20):.4f} ms (device "
-              f"{device_ms(w_enc, 10, 'sf_'):.4f}), inverse {cs.cuda_ms(w_inv, 20):.4f} "
-              f"(device {device_ms(w_inv, 10, 'sf_'):.4f}) on {card}", flush=True)
+              f"{ab_common.device_ms(w_enc, 10, 'sf_'):.4f}), inverse {cs.cuda_ms(w_inv, 20):.4f} "
+              f"(device {ab_common.device_ms(w_inv, 10, 'sf_'):.4f}) on {card}", flush=True)
         outs = (torch.empty((nnn, cells), device=dev),
                 torch.empty((nnn, cells), dtype=torch.int32, device=dev),
                 torch.empty(nnn * cells // 128, dtype=torch.int32, device=dev),
