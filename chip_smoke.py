@@ -69,7 +69,10 @@ nothing of JAX.
 Output: the card's name and power limit first, progress lines, then on
 the line before the last a JSON object with each kernel's launches, error,
 time beside its plain version's and its bound (the least time the card
-could take for the same work), and on the last line
+could take for the same work; the decode kernels also with the profiler's
+device time of each alone, the emit's zeroing apart, on A's CI and noise
+containers and B's noise container, and the noise containers' bounds),
+and on the last line
 {"ok": true, "device": {...}}.  Any failed check raises (exit code != 0)
 and prints no result; so does a machine without a CUDA card.  Profiler
 traces of one compress + decompress per timed global-RMS config (and the
@@ -202,6 +205,26 @@ def cuda_ms(fn, iters):
     t1.record()
     torch.cuda.synchronize()
     return t0.elapsed_time(t1) / iters
+
+
+def device_ms(fn, iters, match):
+    """Device time per call of fn's kernels (and memsets) whose name holds
+    `match`, a string or a tuple of them, each launched once a call: the
+    sum over them of the profiler's mean per launch, without the host's
+    launch overhead (a mean over the records there are: CUPTI sometimes
+    loses one)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    match = (match,) if isinstance(match, str) else match
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    return sum(e.device_time_total / e.count for e in prof.key_averages()
+               if e.count and any(m in e.key for m in match)) / 1e3
 
 
 def bound(nbytes, flops, flops64=0):
@@ -615,7 +638,12 @@ def main():
 
     # the device entropy decoder: each kernel against its plain version on
     # a container (the main path's shapes, timed for the report)
-    def decode_stages(label, cont, iters, plain_iters):
+    def decode_stages(label, cont, iters, plain_iters, device=False):
+        """Each decode kernel against its plain version on `cont`; returns
+        the dense coefficients, the errors, {kernel: (ms, plain ms)} by CUDA
+        events through the wrappers (with `device`, also each kernel's
+        device time alone, the profiler's, and the emit's zeroing) and the
+        bounds."""
         hdr, blkoffs, _, pbase = cvt.container.unpack(cont)
         p = entropy_decode.plan(cont)
         check(p is not None, f"{label}: plan accepts the container")
@@ -661,22 +689,26 @@ def main():
             decode_emit=float((dk - torch.from_numpy(nat).to(dev)).abs().max()),
         )
         del Mp, Pp, nat
-        times = dict(
-            decode_maps=(
-                cuda_ms(lambda: entropy_decode.parse_maps(stream, nsub, cells), iters),
-                cuda_ms(lambda: entropy_decode.parse_maps_plain(stream, nsub, cells),
-                        plain_iters)),
-            decode_chase=(
-                cuda_ms(lambda: entropy_decode.chase(Pk, reset, starts, cells), iters),
-                cuda_ms(lambda: entropy_decode.chase_plain(Pk, reset, cells),
-                        plain_iters)),
-            decode_emit=(
-                cuda_ms(lambda: entropy_decode.emit(stream, Mk, ek, ck, sblk, sf,
-                                                    nnn, cells), iters),
-                cuda_ms(lambda: entropy_decode.emit_plain(stream, Mk, ek, ck, sblk,
-                                                          sf, nnn, cells),
-                        plain_iters)),
+        runs = dict(
+            decode_maps=(lambda: entropy_decode.parse_maps(stream, nsub, cells),
+                         lambda: entropy_decode.parse_maps_plain(stream, nsub, cells)),
+            decode_chase=(lambda: entropy_decode.chase(Pk, reset, starts, cells),
+                          lambda: entropy_decode.chase_plain(Pk, reset, cells)),
+            decode_emit=(lambda: entropy_decode.emit(stream, Mk, ek, ck, sblk, sf, nnn,
+                                                     cells),
+                         lambda: entropy_decode.emit_plain(stream, Mk, ek, ck, sblk, sf,
+                                                           nnn, cells)),
         )
+        times = {k: (cuda_ms(run, iters), cuda_ms(plain, plain_iters))
+                 for k, (run, plain) in runs.items()}
+        if device:  # the chase: its walk, or its pieces and their memset
+            names = dict(decode_maps="decode_maps",
+                         decode_chase=("decode_walk", "decode_chase", "Memset"),
+                         decode_emit="decode_emit")
+            for k, (run, _) in runs.items():
+                times[k] += (device_ms(run, iters, names[k]),)
+            times["decode_emit"] += (
+                device_ms(runs["decode_emit"][0], iters, ("FillFunctor", "Memset")),)
         # bytes: stream in, M (32 x 4 B) and P (25 x 4 B) per subsegment out;
         # P and the reset flags in, e32 and c32 out; stream, M, e32, c32,
         # sub_block and the scalefac table in, the dense buffer out (zeroed
@@ -686,24 +718,30 @@ def main():
             decode_chase=bound(nsub * CHASE_BYTES, 0),
             decode_emit=bound(nsub * (32 + 128 + 12) + 4 * nnn * (cells + 1), 0),
         )
-        for k, (ms, pms) in times.items():
-            print(f"  {label}: {k} kernel {ms:.4f} ms, plain {pms:.3f} ms, bound "
-                  f"{bounds[k]['bound_ms']:.4f} ms on {card}")
+        for k, (ms, pms, *dms) in times.items():
+            print(f"  {label}: {k} kernel {ms:.4f} ms"
+                  + "".join(f", device {x:.4f}" for x in dms[:1])
+                  + "".join(f" (zeroing {x:.4f})" for x in dms[1:])
+                  + f", plain {pms:.3f} ms, bound {bounds[k]['bound_ms']:.4f} ms on {card}")
         return dk, errs, times, bounds
 
-    dense, errs, times, bounds = decode_stages("CI container", data, 20, 3)
+    dense, errs, times, bounds = decode_stages("CI container", data, 20, 3, device=True)
     noise = np.random.default_rng(0).standard_normal(SHAPE, dtype=np.float32)
     ndata, nratio = cvt.compress(noise, NOISE_SCALE)
     del noise
     print(f"  noise container: N(0,1) {SHAPE} at scale {NOISE_SCALE}, "
           f"ratio {nratio:.2f}")
-    _, nerrs, ntimes, _ = decode_stages("noise container", ndata, 5, 1)
+    _, nerrs, ntimes, nbounds = decode_stages("noise container", ndata, 5, 1, device=True)
     del ndata
     torch.cuda.empty_cache()
     for k in DECODE_KERNELS:
         report[k] = dict(max_abs_err=max(errs[k], nerrs[k]), ms=times[k][0],
-                         plain_ms=times[k][1], noise_ms=ntimes[k][0],
-                         noise_plain_ms=ntimes[k][1], **bounds[k])
+                         plain_ms=times[k][1], device_ms=times[k][2],
+                         noise_ms=ntimes[k][0], noise_plain_ms=ntimes[k][1],
+                         noise_device_ms=ntimes[k][2],
+                         noise_bound_ms=nbounds[k]["bound_ms"], **bounds[k])
+    report["decode_emit"].update(zeroing_device_ms=times["decode_emit"][3],
+                                 noise_zeroing_device_ms=ntimes["decode_emit"][3])
 
     # the chase's look-back at scale: one chain of 2^20 subsegments, and
     # 2^20 with resets at random places and on and beside its piece seams
@@ -844,7 +882,7 @@ def main():
         torch.cuda.empty_cache()
         print(f"  {label}: container {bdata.size} B, ratio {bratio:.1f}")
         bdense, berrs, btimes, bbounds = decode_stages(
-            f"{label} container", bdata, iters, plain_iters)
+            f"{label} container", bdata, iters, plain_iters, device=time_decompress)
         if time_decompress:  # where the chase shows end to end
             dms, druns = wall_ms(lambda: (cvt.decompress(bdata, engine="device"),
                                           torch.cuda.synchronize()), 5)
@@ -893,17 +931,19 @@ def main():
         for k, r in out.items():
             print(f"  {label}: {k} kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.3f} ms,"
                   f" bound {r['bound_ms']:.4f} ms ({r['bound_by']}) on {card}")
-        return out, btimes
+        return out, btimes, bbounds
 
     e2e = {}  # end-to-end times taken in the kernel phases
     vol_b = sinusoid(*SHAPE_B, PERIODS)
-    breport, _ = block_kernels("config B", vol_b, SCALE, 10, 2, native=True)
+    breport, *_ = block_kernels("config B", vol_b, SCALE, 10, 2, native=True)
     report.update(breport)
     noise_b = np.random.default_rng(0).standard_normal(SHAPE_B, dtype=np.float32)
-    nreport, nbtimes = block_kernels("config B noise", noise_b, NOISE_SCALE, 3, 1,
-                                        native=False, time_decompress=True)
-    report["decode_chase"]["inputs"]["B noise container"] = dict(
-        ms=nbtimes["decode_chase"][0], plain_ms=nbtimes["decode_chase"][1])
+    nreport, nbtimes, nbbounds = block_kernels("config B noise", noise_b, NOISE_SCALE, 3,
+                                               1, native=False, time_decompress=True)
+    for k in DECODE_KERNELS:
+        report[k].setdefault("inputs", {})["B noise container"] = dict(
+            ms=nbtimes[k][0], plain_ms=nbtimes[k][1], device_ms=nbtimes[k][2],
+            bound_ms=nbbounds[k]["bound_ms"])
     del noise_b
     for k, r in nreport.items():
         report[k].update(noise_ms=r["ms"], noise_plain_ms=r["plain_ms"])
@@ -2122,7 +2162,9 @@ def main():
                "bound_by": r["bound_by"], "library_ms": r.get("library_ms")}
         for extra in ("noise_ms", "noise_plain_ms", "ramp_ms", "ramp_plain_ms", "inputs",
                       "in_place_ms", "library_call", "noise_library_ms",
-                      "chunk_sparse_ms", "chunk_sparse_bound_ms"):
+                      "chunk_sparse_ms", "chunk_sparse_bound_ms", "device_ms",
+                      "noise_device_ms", "noise_bound_ms", "zeroing_device_ms",
+                      "noise_zeroing_device_ms"):
             if extra in r:
                 row[extra] = r[extra]
         if also:

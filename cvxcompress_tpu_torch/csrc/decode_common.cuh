@@ -13,28 +13,24 @@ constexpr int ENTRIES = 25;     // entry offsets (the longest token is 25 B)
 constexpr int DEC_WARPS = 8;    // warps per CTA of the per-subsegment kernels
 constexpr unsigned FULL = 0xffffffffu;
 
-// Token length from its first byte, as a signed byte (_LENGTHS).
-__device__ __forceinline__ int token_len(int sv) {
-  switch (sv) {
-    case 127: return 2;    // RLESC1
-    case 125: return 4;    // RLESC3
-    case -125: return 3;   // VLESC2
-    case -127: return 4;   // VLESC3
-    case -126: return 17;  // VLESC2_8x
-    case 126: return 25;   // VLESC3_8x
-    case -128: return 5;   // VLESC4
-    default: return 1;     // a plain byte (0 is a single zero)
-  }
-}
+// The token that starts with the four stream bytes in `b` (little endian):
+// its length (_LENGTHS) and the cells it covers: the run of RLESC1 and
+// RLESC3 (the latter saturated at `cells`), 8 for a group, 1 otherwise.
+// The escapes are the bytes 0x7D..0x83, so their lengths come from one
+// byte permute of a table, with no branch.
+struct Token {
+  int len, cnt;
+};
 
-// Cells a token covers when it starts here: the run of RLESC1 and RLESC3
-// (the latter saturated at `cells`), 8 for a group, 1 otherwise.
-__device__ __forceinline__ int token_count(int sv, int b1, int b2, int b3,
-                                           int cells) {
-  if (sv == 127) return b1;
-  if (sv == 125) return min(b1 | (b2 << 8) | (b3 << 16), cells);
-  if (sv == -126 || sv == 126) return 8;
-  return 1;
+__device__ __forceinline__ Token token_at(uint32_t b, int cells) {
+  const uint32_t idx = (b - 0x7Du) & 255u;  // 0..6: RLESC3, VLESC3_8x, RLESC1,
+  const bool esc = idx < 7;                 // VLESC4, VLESC3, VLESC2_8x, VLESC2
+  const int run = (int)(b >> 8);            // bytes 1..3
+  Token t;
+  t.len = esc ? (int)(__byte_perm(0x05021904u, 0x00031104u, idx) & 255u) : 1;
+  t.cnt = idx == 0 ? min(run, cells) : idx == 2 ? (run & 255)
+        : idx == 1 || idx == 5 ? 8 : 1;
+  return t;
 }
 
 }  // namespace cvx

@@ -232,7 +232,8 @@ def check_cuda(*tensors, dtypes):
 def check_aligned(*tensors):
     """Raise unless every tensor's data starts on a 16-byte boundary (the
     128^3 kernels move 512-byte rows as float4s, `fused_inverse` its chunk
-    rows by 16-byte asynchronous copies)."""
+    rows by 16-byte asynchronous copies, the decode kernels read the stream
+    as aligned words)."""
     for t in tensors:
         if t.data_ptr() % 16:
             raise ValueError("kernel input must start on a 16-byte boundary (a view "

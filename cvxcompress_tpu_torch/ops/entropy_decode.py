@@ -58,6 +58,7 @@ _LENGTHS = ((127, 2), (125, 4), (-125, 3), (-127, 4), (-126, 17), (126, 25),
 
 PAD = W  # zero bytes after the stream (>= LOOK): every lookahead stays in it
 _ALIGN = 16  # blob field alignment (any dtype view of a field is legal)
+MAX_CELLS = 1 << 26  # P packs min(NV, cells) * 32 + T in an int32: cells below it
 
 
 def _align(n):
@@ -392,9 +393,12 @@ def _check_stream(stream, nsub):
 def parse_maps(stream, nsub, cells):
     """(M, P) of every subsegment; see parse_maps_plain."""
     _check_stream(stream, nsub)
+    if not 0 < cells < MAX_CELLS:
+        raise ValueError(f"cells must lie in (0, {MAX_CELLS}), got {cells}")
     if stream.device.type == "cpu":
         return parse_maps_plain(stream, nsub, cells)
     _kernels.check_cuda(stream, dtypes=(torch.uint8,))
+    _kernels.check_aligned(stream)  # upload: the blob's first field
     M = torch.empty((nsub, W), dtype=torch.int32, device=stream.device)
     P = torch.empty((nsub, E), dtype=torch.int32, device=stream.device)
     _kernels.launch("decode_maps", stream.data_ptr(), nsub, cells,
@@ -473,11 +477,14 @@ def emit(stream, M, e32, c32, sub_block, scalefac, nnn, cells):
                          "one entry per subsegment")
     if scalefac.shape != (nnn,):
         raise ValueError(f"scalefac must be ({nnn},), got {tuple(scalefac.shape)}")
+    if not 0 < cells < MAX_CELLS:
+        raise ValueError(f"cells must lie in (0, {MAX_CELLS}), got {cells}")
     if stream.device.type == "cpu":
         return emit_plain(stream, M, e32, c32, sub_block, scalefac, nnn, cells)
     _kernels.check_cuda(stream, M, e32, c32, sub_block, scalefac,
                         dtypes=(torch.uint8,) + (torch.int32,) * 4
                         + (torch.float32,))
+    _kernels.check_aligned(stream)  # upload: the blob's first field
     out = torch.zeros((nnn, cells), dtype=torch.float32, device=stream.device)
     _kernels.launch("decode_emit", stream.data_ptr(), M.data_ptr(),
                     e32.data_ptr(), c32.data_ptr(), sub_block.data_ptr(), nsub,

@@ -19,6 +19,7 @@ from cvxcompress_tpu_torch.ops import (
     quant, rle_device, rle_host, tokenize,
 )
 
+import doubling_cases as dc
 import lookback_cases as lc
 
 pytestmark = pytest.mark.cuda
@@ -222,6 +223,53 @@ def test_decode_kernels_on_corrupt_payloads(dev, seed):
     out = cvt.decompress(data, device="cuda", engine="device")
     torch.cuda.synchronize()
     assert tuple(out.shape) == (64, 64, 96)
+
+
+@pytest.mark.parametrize("cells", [64, 1 << 22, 1 << 24])
+def test_decode_kernels_on_doubling_cases(dev, cells):
+    """decode_maps against its plain version and the numpy model of its
+    pointer doubling, decode_emit against its plain version, on the streams
+    of tests/doubling_cases.py (every token class at every lane offset, a
+    VLESC3_8x from lane 7 to the end, tokens over the subsegment's end,
+    chains of 32 one-byte tokens, saturated runs, random streams), each
+    case a block of its own with a scalefac of its own."""
+    stream, reset, spans = dc.stream_of(dc.cases())
+    nsub, nnn = reset.size, len(spans)
+    st = torch.from_numpy(stream).to(dev)
+    M, P = entropy_decode.parse_maps(st, nsub, cells)
+    Mp, Pp = entropy_decode.parse_maps_plain(st, nsub, cells)
+    assert torch.equal(M, Mp) and torch.equal(P, Pp)
+    Mm, Pm = dc.doubling_maps(stream, nsub, cells)
+    np.testing.assert_array_equal(M.cpu().numpy(), Mm)
+    np.testing.assert_array_equal(P.cpu().numpy(), Pm)
+    sub_block = np.full(nsub, nnn, np.int32)
+    for i, (a, b) in enumerate(spans.values()):
+        sub_block[a:b] = i
+    rt = torch.from_numpy(reset).to(dev)
+    starts = torch.from_numpy(np.flatnonzero(reset).astype(np.int32)).to(dev)
+    e32, c32 = entropy_decode.chase(P, rt, starts, cells)
+    sf = torch.tensor([0.5 * (i + 1) for i in range(nnn)], dtype=torch.float32, device=dev)
+    args = (st, M, e32, c32, torch.from_numpy(sub_block).to(dev), sf, nnn, cells)
+    dense = entropy_decode.emit(*args)
+    assert torch.equal(dense.view(torch.int32),
+                       entropy_decode.emit_plain(*args).view(torch.int32))
+    assert bool((dense != 0).any())
+
+
+def test_decode_wrappers_reject_misaligned_stream(dev):
+    """The decode kernels read the stream as aligned words: a stream view
+    off the 16-byte boundary `upload` gives raises, as does a block over
+    P's packing."""
+    st = torch.zeros(64 * 32 + 48, dtype=torch.uint8, device=dev)[1:]
+    with pytest.raises(ValueError):
+        entropy_decode.parse_maps(st, 64, 4096)
+    with pytest.raises(ValueError):
+        entropy_decode.parse_maps(torch.zeros(64 * 32 + 48, dtype=torch.uint8, device=dev),
+                                  64, entropy_decode.MAX_CELLS)
+    z = torch.zeros(64, dtype=torch.int32, device=dev)
+    with pytest.raises(ValueError):
+        entropy_decode.emit(st, torch.zeros((64, 32), dtype=torch.int32, device=dev), z, z,
+                            z, torch.ones(1, device=dev), 1, 4096)
 
 
 @pytest.mark.parametrize("walk", [True, False], ids=["walk", "pieces"])

@@ -108,7 +108,7 @@ def main():
 
     def turns(label, run, iters, kernel, keys):
         t = ab_common.turns(order_of(keys), run, iters)
-        dev_t = {lib: ab_common.device_ms(lambda: run(lib), iters, kernel)
+        dev_t = {lib: cs.device_ms(lambda: run(lib), iters, kernel)
                  for lib in ("earlier", "this")}
         print(f"  {label}: " + ", ".join(f"{k} " + " / ".join(f"{x:.4f}" for x in v)
                                          for k, v in t.items())

@@ -1,8 +1,9 @@
 """What the A/B timing scripts share (tools/ab_block128.py, ab_block32.py,
-ab_stripe.py, ab_chase_stripe.py, variants_stripe.py): the card's name and
-power limit, a library built from chosen csrc/ sources (an earlier
-checkout's, or a text-substituted copy of this one's), timing in turns by
-CUDA events, and the profiler's device time of a kernel.  Imported by those
+ab_stripe.py, ab_chase_stripe.py, ab_decode.py, variants_stripe.py): the
+card's name and power limit, a library built from chosen csrc/ sources (an
+earlier checkout's, or a text-substituted copy of this one's) and timing in
+turns by CUDA events (the profiler's device time of a kernel is
+chip_smoke.py `device_ms`).  Imported by those
 scripts, which put the repo root on sys.path first; torch is imported
 inside the functions that need it."""
 
@@ -98,20 +99,3 @@ def turns(order, run, iters):
         t.setdefault(k, []).append(cs.cuda_ms(lambda: run(k), iters))
     return t
 
-
-def device_ms(fn, iters, match):
-    """Mean device time per call of fn's kernels (and memsets) whose name
-    holds `match`, a string or a tuple of them (the profiler's, without the
-    host's launch overhead)."""
-    match = (match,) if isinstance(match, str) else match
-    import torch
-    from torch.profiler import ProfilerActivity, profile
-
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    return sum(e.device_time_total for e in prof.key_averages()
-               if any(m in e.key for m in match)) / iters / 1e3

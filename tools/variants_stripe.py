@@ -82,8 +82,8 @@ def main():
             return fused_inverse.stripe_fused_inverse(ref[0], vol.shape, block)
 
         print(f"{cell} shipped wrappers: encode {cs.cuda_ms(w_enc, 20):.4f} ms (device "
-              f"{ab_common.device_ms(w_enc, 10, 'sf_'):.4f}), inverse {cs.cuda_ms(w_inv, 20):.4f} "
-              f"(device {ab_common.device_ms(w_inv, 10, 'sf_'):.4f}) on {card}", flush=True)
+              f"{cs.device_ms(w_enc, 10, 'sf_'):.4f}), inverse {cs.cuda_ms(w_inv, 20):.4f} "
+              f"(device {cs.device_ms(w_inv, 10, 'sf_'):.4f}) on {card}", flush=True)
         outs = (torch.empty((nnn, cells), device=dev),
                 torch.empty((nnn, cells), dtype=torch.int32, device=dev),
                 torch.empty(nnn * cells // 128, dtype=torch.int32, device=dev),
