@@ -12,8 +12,10 @@ Builds the CUDA kernels (csrc/, nvcc for sm_90a) and the native host library
   at scale 1e-2 with 128^3 blocks (phases 2b and 3b);
 - both with the local RMS, `use_local_rms=True` (phases 2c, 3c and 3d; the
   kernels also on a "ramp" volume whose block RMS span 10^4, with an
-  all-zero, a ~1e-38 and a NaN block; the ratio and the mulfac table held
-  against the native library's local codec run in the same script);
+  all-zero, a ~1e-38 and a NaN block, and the 128^3 local kernels on the
+  (512, 256, 256) volume whose upper half is zero; the ratio and the
+  mulfac table held against the native library's local codec run in the
+  same script);
 - every other block geometry (phases 2d and 3e): the kernels of the
   stripe route (`tokenize_stripe`) and of the fused stripe route
   (`stripe_fused_encode`, `_local`, `stripe_fused_inverse`) and
@@ -34,8 +36,9 @@ Builds the CUDA kernels (csrc/, nvcc for sm_90a) and the native host library
   split at x,z | y, held bit-equal to `block_encode`'s z | x,y and timed
   beside it), CVX_FUSED_W=0 at B (`tokenize_stripe`, K15's home),
   CVX_STRIPE=patch at A with 32^3 and 64^3 blocks (`patch_extract` and
-  `block_emit_rows`) and CVX_FUSED_COMPACT=1 at A, A-local and B
-  (`tokenize_compact` and `block_emit_rows`), each kernel against its plain
+  `block_emit_rows`) and CVX_FUSED_COMPACT=1 at A, A-local, B and the
+  half-zero volume at 256^3 blocks (`tokenize_compact` and
+  `block_emit_rows`), each kernel against its plain
   version and the rows emit against the in-place one; each switch through
   the public API: its kernels launch, the container byte-equal to the
   default route's where the coefficients are, else the ratio within 1 % of
@@ -1110,6 +1113,12 @@ def main():
     lrep.update(local_b("config B local", vol_b, 10, 2))
     for k, r in local_b("config B local ramp", ramp(vol_b, 128), 3, 1).items():
         lrep[k].update(ramp_ms=r["ms"], ramp_plain_ms=r["plain_ms"])
+    # whole all-zero blocks: the slices' zero-run look-back walks far
+    vol_half = sinusoid(*SHAPE_HALF, PERIODS)
+    vol_half[SHAPE_HALF[0] // 2:] = 0.0
+    for k, r in local_b("half-zero 128^3 local", vol_half, 3, 1).items():
+        lrep[k].update(half_zero_ms=r["ms"], half_zero_plain_ms=r["plain_ms"],
+                       half_zero_bound_ms=r["bound_ms"])
     for k, r in lrep.items():
         print(f"  {k} kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.3f} ms, bound "
               f"{r['bound_ms']:.4f} ms ({r['bound_by']}) on {card}")
@@ -1272,8 +1281,6 @@ def main():
                   f" ms, bound {rep['bound_ms']:.4f} ms ({rep['bound_by']}) on {card}")
         return out
 
-    vol_half = sinusoid(*SHAPE_HALF, PERIODS)
-    vol_half[SHAPE_HALF[0] // 2:] = 0.0
     vol_s = sinusoid(*SHAPE_S, PERIODS)
     noise_u = np.random.default_rng(3).standard_normal(SHAPE_U, dtype=np.float32)
     vol_mib = sinusoid(64, 128, 128, PERIODS)  # one cluster of 8 CTAs a block
@@ -1339,7 +1346,7 @@ def main():
         **bound(8 * c.numel() + 4 * cbk.numel() + 9 * mk.numel(), 0))
     print(f"  {label}: tokenize_stripe kernel "
           f"{report['tokenize_stripe']['inputs'][label]['ms']:.4f} ms on {card}")
-    del vol_half, noise_u, vol_mib, vt, c, dk, cbk, sk, rk, mk
+    del noise_u, vol_mib, vt, c, dk, cbk, sk, rk, mk
 
     # -- phase 2e: the opt-in encode routes' kernels against their plain
     # versions (the JAX package's CVX_FUSED_W=1, CVX_STRIPE=patch and
@@ -1560,8 +1567,11 @@ def main():
     crep = {}
     for label, v, block, local in (("A", vol, (32, 32, 32), False),
                                    ("A-local", vol, (32, 32, 32), True),
-                                   ("B", vol_b, BLOCK_B, False)):
+                                   ("B", vol_b, BLOCK_B, False),
+                                   # two blocks of 1,024 tiles each, the second all zero
+                                   ("half-zero 256^3", vol_half, (256, 256, 256), False)):
         crep[label] = compact_kernels(f"compact {label}", v, block, local, 5)
+    del vol_half
     optin["patch_extract"] = dict(prep["A 32^3"]["patch_extract"])
     optin["block_emit_rows"] = dict(prep["A 32^3"]["block_emit_rows"])
     optin["tokenize_compact"] = dict(crep["A"]["tokenize_compact"])
@@ -2164,7 +2174,8 @@ def main():
                       "in_place_ms", "library_call", "noise_library_ms",
                       "chunk_sparse_ms", "chunk_sparse_bound_ms", "device_ms",
                       "noise_device_ms", "noise_bound_ms", "zeroing_device_ms",
-                      "noise_zeroing_device_ms"):
+                      "noise_zeroing_device_ms", "half_zero_ms", "half_zero_plain_ms",
+                      "half_zero_bound_ms"):
             if extra in r:
                 row[extra] = r[extra]
         if also:

@@ -295,8 +295,8 @@ __device__ __forceinline__ int32_t quantized(const float* s, int c,
   return cvtt(__fmul_rn(s[(c >> 7) * PITCH + (c & (BB - 1))], mulfac));
 }
 
-// The tokenize of one z-slice, shared by block_encode_xy (global RMS) and
-// block_scale_tok (local RMS).  `s` holds the slice's UNSCALED coefficients
+// The tokenize of one z-slice, shared by block_encode_xy and block_encode_y
+// (the global RMS).  `s` holds the slice's UNSCALED coefficients
 // at the padded pitch, `tile` = block * 128 + z comes from the launch's
 // atomic ticket, `mulfac` is the block's.  fv = c * mulfac (one f32
 // rounding), cvttps, the classes, group-of-8 modes and per-cell descriptors

@@ -14,8 +14,8 @@
 //      contiguous cells: the x cascade, then the y cascade (slice_xy); the
 //      UNSCALED coefficients go out (in place: the CTA holds its slice in
 //      shared memory before it writes); then the slice's tokenize with the
-//      global mulfac (slice_tokenize in block_common.cuh, shared with the
-//      local-RMS block_scale_tok: descriptors, chunk byte counts, block
+//      global mulfac (slice_tokenize in block_common.cuh, shared with
+//      block_encode_y: descriptors, chunk byte counts, block
 //      sizes, and the zero-run carry across slices by decoupled look-back
 //      on an atomic ticket).  The raw-fallback decision (size > 4 * cells)
 //      follows in the wrapper.

@@ -196,12 +196,12 @@ __device__ __forceinline__ void store_lines(const float (&v)[LINES][B], float* d
 // cell before the segment (-1: none), end_last whether a zero run in the
 // segment's last cell ends there (the block's end, or a non-zero cell
 // next).  A group of 8 cells is 8 lanes, its mode from ballots of the four
-// classes; a segment of zeros skips those.
-__device__ __forceinline__ int32_t seg_desc(int32_t q, unsigned m, int lane, int c,
-                                            int carry, bool end_last) {
+// classes; a segment of zeros skips those.  mb, where the caller has it:
+// the segment's ballot of byte-sized values.
+__device__ __forceinline__ int32_t seg_desc(int32_t q, unsigned m, unsigned mb, int lane,
+                                            int c, int carry, bool end_last) {
   if (m == 0) return zero_desc(lane == 31 && end_last, c - carry);
   const unsigned grp = 0xffu << (lane & 24), below = (1u << lane) - 1u;
-  const unsigned mb = __ballot_sync(~0u, is_byte(q));
   const unsigned ms = __ballot_sync(~0u, is_short(q));
   const unsigned m3 = __ballot_sync(~0u, is_i3(q));
   const int mode = group_mode_counts(8 - __popc(m & grp), __popc(mb & grp),
@@ -210,6 +210,12 @@ __device__ __forceinline__ int32_t seg_desc(int32_t q, unsigned m, int lane, int
   const int last = lower ? c - lane + 31 - __clz((int)lower) : carry;
   const bool end = lane < 31 ? ((m >> (lane + 1)) & 1) != 0 : end_last;
   return q != 0 ? value_cost(mode, lane & 7, q) : zero_desc(end, c - last);
+}
+
+__device__ __forceinline__ int32_t seg_desc(int32_t q, unsigned m, int lane, int c,
+                                            int carry, bool end_last) {
+  if (m == 0) return zero_desc(lane == 31 && end_last, c - carry);
+  return seg_desc(q, m, __ballot_sync(~0u, is_byte(q)), lane, c, carry, end_last);
 }
 
 // The tokenize of one block from its UNSCALED coefficients in the

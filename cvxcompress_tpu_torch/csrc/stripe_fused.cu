@@ -522,9 +522,9 @@ sf_encode_tile(const __grid_constant__ CUtensorMap tmap, int tma, const float* _
     __syncthreads();
     tok_summaries(s, SF_TILE, n, lc, s_mf, g.smask, rows);
     __syncthreads();
-    tok_scan(rows, SF_TILE / 32, scan_buf);
-    tok_descs<4>(s, SF_TILE, n, lc, s_mf, g.smask, rows, blk << lc, 0, blk, -1, false, desc,
-              chunk_bytes, sizes);
+    const int top = tok_scan(rows, SF_TILE / 32, scan_buf);
+    tok_descs<4>(s, SF_TILE, n, lc, s_mf, g.smask, rows, top, blk << lc, 0, blk, -1, false,
+                 DescOut{desc, chunk_bytes}, sizes);
     fence_proxy_async();  // this tile's accesses before a later copy into it
     __syncthreads();
   }
@@ -641,8 +641,8 @@ sf_encode_cluster(const __grid_constant__ CUtensorMap tmap, int tma,
   int carry = -1;
   for (int r = 0; r < rank; ++r) carry = max(carry, *cl.map_shared_rank(&last, (unsigned)r) - 1);
   const bool next_first = rank + 1 < nr && *cl.map_shared_rank(&first, (unsigned)rank + 1) != 0;
-  tok_descs<4>(s, n, n, lc, &s_mf, g.smask, rows, gbase, boff, blk, carry, next_first, desc,
-            chunk_bytes, sizes);
+  tok_descs<4>(s, n, n, lc, &s_mf, g.smask, rows, top, gbase, boff, blk, carry, next_first,
+               DescOut{desc, chunk_bytes}, sizes);
   cl.sync();  // the peers have read `last`, `first` and `part`
 }
 

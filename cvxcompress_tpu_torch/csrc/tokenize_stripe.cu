@@ -35,16 +35,12 @@
 // ballots, a max-scan over the 512 segments' last non-zero cells.
 //
 // A block larger than a tile carries its zero run from tile to tile by a
-// decoupled look-back on one status word per tile: right after its scan a
-// tile publishes its last non-zero cell as an inclusive value, or, having
-// none, "aggregate: no non-zero cell"; a tile whose first cell is zero then
-// reads its block's earlier tiles' words 32 at a time (a lane each), back
-// to the nearest inclusive one, and (if it had none of its own) publishes
-// that value as its inclusive one.  So a tile in an all-zero stretch stops
-// at the nearest tile that has finished, not at the stretch's start.  The
-// ticket order means every earlier tile's CTA has started, and it publishes
-// before it waits, so the walk ends.  A run's end needs the cell after the
-// tile, in the same block: one read from the plane.
+// decoupled look-back on one status word per tile (stripe_tok.cuh
+// run_carry, shared with tokenize_compact.cu and block_scale_tok): a tile
+// whose first cell is zero reads its block's earlier tiles' words 32 at a
+// time, back to the nearest one that knows the block's last non-zero cell.
+// A run's end needs the cell after the tile, in the same block: one read
+// from the plane.
 //
 // What bounds it on an H100: the bytes set the bound (4 B in, 4 B of
 // descriptor out per cell, 4 B per chunk), but the kernel is bound by
@@ -53,7 +49,6 @@
 
 #include <cstring>
 
-#include "lookback.cuh"
 #include "stripe_map.cuh"
 #include "stripe_tok.cuh"
 
@@ -65,9 +60,6 @@ constexpr int TBT = 512;      // threads per CTA
 // two tile buffers and the slack to align them to 1,024 bytes
 constexpr size_t TSMEM = 2 * TT * sizeof(float) + 1024;
 static_assert(TT / 64 <= TBT, "a thread per block's box");
-constexpr unsigned TS_AGG = 1u << 30;   // the tile has no non-zero cell
-constexpr unsigned TS_INCL = 2u << 30;  // payload: 1 + the block's last
-                                        // non-zero cell up to the tile's end
 
 __global__ void __launch_bounds__(TBT, 1)
 tokenize_stripe_kernel(const __grid_constant__ CUtensorMap tmap, const float* __restrict__ src,
@@ -158,36 +150,19 @@ tokenize_stripe_kernel(const __grid_constant__ CUtensorMap tmap, const float* __
     const int top = tok_scan(rows, TT / 32, scan_buf);  // 1 + last non-zero, 0: none
 
     if (ltpb && threadIdx.x < 32) {
-      const int lane = threadIdx.x;
-      const int zt = (int)(t & ((1 << ltpb) - 1));  // the tile's place in its block
-      if (lane == 0)
-        st_relaxed(&status[t], top ? TS_INCL | (unsigned)(boff + top)
-                                   : zt ? TS_AGG : TS_INCL);
-      int carry = -1;  // the block's last non-zero cell before the tile
-      if (zt && !(rows[0] >> 16)) {
-        for (int64_t base = t - 1;; base -= 32) {
-          const int64_t r = base - lane;
-          const unsigned f = r >= t - zt ? wait_status(&status[r]) : TS_INCL;
-          const unsigned incl = __ballot_sync(~0u, (f & TS_INCL) != 0);
-          if (incl) {
-            carry = (int)(__shfl_sync(~0u, f, __ffs(incl) - 1) & (TS_AGG - 1)) - 1;
-            break;
-          }
-        }
-        if (!top && lane == 0) st_relaxed(&status[t], TS_INCL | (unsigned)(carry + 1));
-      }
-      if (lane == 0) s_carry = carry;
+      const int c = run_carry(status, t, (int)(t & ((1 << ltpb) - 1)), boff, top,
+                              (rows[0] >> 16) != 0);
+      if (threadIdx.x == 0) s_carry = c;
     }
     __syncthreads();
+    const DescOut out{desc, chunk_bytes};
     if (ltpb)
-      tok_descs<4>(s, TT, n, lc, mf, 0, rows, t << LTT, boff, blk0, s_carry, s_next != 0,
-                   desc, chunk_bytes, sizes);
+      tok_descs<4>(s, TT, n, lc, mf, 0, rows, top, t << LTT, boff, blk0, s_carry,
+                   s_next != 0, out, sizes);
     else if (lc == 6)  // (8, 8, 1): 64-cell chunks
-      tok_descs<2>(s, TT, n, lc, mf, 0, rows, t << LTT, 0, blk0, -1, false, desc,
-                   chunk_bytes, sizes);
+      tok_descs<2>(s, TT, n, lc, mf, 0, rows, top, t << LTT, 0, blk0, -1, false, out, sizes);
     else
-      tok_descs<4>(s, TT, n, lc, mf, 0, rows, t << LTT, 0, blk0, -1, false, desc,
-                   chunk_bytes, sizes);
+      tok_descs<4>(s, TT, n, lc, mf, 0, rows, top, t << LTT, 0, blk0, -1, false, out, sizes);
     fence_proxy_async();  // this tile's reads before a later copy into it
     __syncthreads();
   }

@@ -221,9 +221,12 @@ def encode_xy(tmp, mulfac, out=None):
 
 
 def _tokenize_outputs(nnn, dev):
-    """The look-back scratch (ticket + status words) and the tokenize's
-    outputs of nnn blocks; the launchers zero what needs it."""
-    return (torch.empty(1 + nnn * B, dtype=torch.int32, device=dev),
+    """The look-back scratch and the tokenize's outputs of nnn blocks; the
+    launchers zero what needs it.  The scratch fits both launchers: the
+    ticket and a status word a slice (`block_encode_xy`, `block_encode_y`),
+    or the ticket, a pad word, a 64-bit mulfac word a block and a status
+    word a slice (`block_scale_tok`)."""
+    return (torch.empty(2 + 2 * nnn + nnn * B, dtype=torch.int32, device=dev),
             torch.empty((nnn, CELLS), dtype=torch.int32, device=dev),
             torch.empty(nnn * (CELLS // CHUNK), dtype=torch.int32, device=dev),
             torch.empty(nnn, dtype=torch.int32, device=dev),

@@ -97,7 +97,7 @@ def fused_encode(vol, mulfac=None, *, scale=None):
 
 # -- every other geometry ------------------------------------------------------
 
-TILE = 1 << 14  # cells per CTA of csrc/tokenize_stripe.cu
+TILE = 1 << 14  # cells per tile of csrc/tokenize_stripe.cu and tokenize_compact.cu
 
 
 def raw_fallback(desc, chunk_bytes, sizes):
@@ -285,6 +285,8 @@ def tokenize_compact(coeffs, mulfacs):
     if coeffs.device.type == "cpu":
         return tokenize_compact_plain(coeffs, mulfacs)
     _kernels.check_cuda(coeffs, mulfacs, dtypes=(torch.float32, torch.float32))
+    if coeffs.data_ptr() % 16:  # the kernel copies its tiles by bulk copies
+        coeffs = coeffs.clone()
     dev = coeffs.device
     nchunks = coeffs.numel() // 128
     _, chunk_bytes, sizes = _outputs(nnn, cells, dev)
@@ -293,7 +295,8 @@ def tokenize_compact(coeffs, mulfacs):
     ids = torch.empty(nchunks, dtype=torch.int32, device=dev)
     row_bytes = torch.empty(nchunks, dtype=torch.int32, device=dev)
     nrows = torch.zeros(1, dtype=torch.int32, device=dev)
-    scratch = torch.empty(1 + -(-coeffs.numel() // TILE), dtype=torch.int64,
+    # the ticket, then two status words a tile
+    scratch = torch.empty(1 + 2 * -(-coeffs.numel() // TILE), dtype=torch.int32,
                           device=dev)
     _kernels.launch(
         "tokenize_compact", coeffs.data_ptr(), mulfacs.data_ptr(), nnn,

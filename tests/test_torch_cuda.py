@@ -21,6 +21,7 @@ from cvxcompress_tpu_torch.ops import (
 
 import doubling_cases as dc
 import lookback_cases as lc
+import tile_tokenize_cases as tc
 
 pytestmark = pytest.mark.cuda
 
@@ -919,6 +920,51 @@ def test_tokenize_compact_matches_plain(dev, block, shape, mode):
     desc = tokenize.tokenize_blocks_plain(coeffs, mk)[0]
     assert torch.equal(got, pack.emit_chunks(coeffs, mk, desc, cbk, base, total))
     assert bool(out[2].any()) == (mode == "raw")
+
+
+@pytest.mark.parametrize("kind", tc.COMPACT_KINDS)
+def test_tokenize_compact_across_tile_seams(dev, kind):
+    """K14 against its plain version on the cases of
+    tests/tile_tokenize_cases.py (zero stretches over many tiles, tiles with
+    no live chunk between live ones, a 256^3 block over 1,024 tiles, a half
+    full last tile, raw blocks, a NaN cell), the coefficients also at a
+    misaligned view (the wrapper copies it for the bulk copies)."""
+    c, mf = tc.compact_case(kind)
+    ct = torch.from_numpy(c).to(dev)
+    mk = torch.from_numpy(mf).to(dev)
+    ref = tokenize.tokenize_compact_plain(ct, mk)
+    view = torch.zeros(ct.numel() + 1, device=dev)[1:].view(ct.shape)
+    view.copy_(ct)
+    for x in (ct, view):
+        _kernels.reset_counts()
+        out = tokenize.tokenize_compact(x, mk)
+        torch.cuda.synchronize()
+        assert _kernels.launches["tokenize_compact"] == 1
+        n = int(out[7])
+        assert n == ref[3].shape[0]
+        for got, want in zip(out[:3], ref[:3]):
+            assert torch.equal(got, want)
+        assert torch.equal(out[3][:n].view(torch.int32), ref[3].view(torch.int32))
+        for got, want in zip(out[4:7], ref[4:7]):
+            assert torch.equal(got[:n], want)
+
+
+@pytest.mark.parametrize("kind", tc.LOCAL_KINDS)
+def test_block_scale_tok_across_slice_seams(dev, kind):
+    """K10b against its plain version on the cases of
+    tests/tile_tokenize_cases.py: a zero stretch of 96 slices, an all-zero
+    block (mulfac 1.0), a NaN cell, a raw block."""
+    c, scale = tc.local_case(kind)
+    ck = torch.from_numpy(c).to(dev)
+    pk = quant.cta_sumsq(ck.view(-1, 128 * 128), 256).view(-1, 128)
+    _kernels.reset_counts()
+    got = fused_compress.scale_tok(ck, pk, scale)
+    torch.cuda.synchronize()
+    assert _kernels.launches["block_scale_tok"] == 1
+    ref = fused_compress.scale_tok_plain(ck, pk, scale)
+    for a, b in zip(got, ref):
+        assert torch.equal(a, b)
+    assert bool(ref[3].any()) == (kind == "raw_nan")
 
 
 @pytest.mark.parametrize("env,block,shape,local,kernels", [
