@@ -53,11 +53,13 @@ and on and beside the kernel's piece seams) and times a device-engine
 decompress of B's noise container through the public API (phase 2b);
 
 it compares every kernel of the path with its plain PyTorch version at the
-path's shapes (`fused_encode`, `fused_encode_local` and `fused_inverse`,
-dense and chunk-sparse, bit for bit on A's sinusoid, noise, the ramp and a
-(100, 130, 75) volume whose nx % 4 != 0 takes the encode's 4-byte copy
-route; the seven 128^3 transform launches bit for bit, on the B sinusoid,
-noise and ramp; each transform within 1e-5 of the f64 dense operator; the
+path's shapes (`fused_encode`, `fused_encode_local` with their chunk
+counts, and `fused_inverse`, dense and chunk-sparse, bit for bit on A's
+sinusoid, noise, the ramp and a (100, 130, 75) volume whose nx % 4 != 0
+takes the encode's 4-byte copy route; `block_emit` over the 32^3 encode's
+chunk counts, bit for bit and against the native encoder block by block,
+at A and A-local; the seven 128^3 transform launches bit for bit, on the
+B sinusoid, noise and ramp; each transform within 1e-5 of the f64 dense operator; the
 card's decompress of A's and B's containers bit-equal to native's parity
 decompress, and A's container against native's parity codec's) (also on
 an N(0,1) noise volume of the same shape, the
@@ -113,13 +115,13 @@ REF_B = dict(ratio=21411.6, err=3.511e-5, snr=89.1)
 HBM_BPS = 3.35e12
 F32_FLOPS = 67e12
 F64_FLOPS = 34e12
-KERNELS_A = ("fused_encode", "emit_payload", "fused_inverse")
+KERNELS_A = ("fused_encode", "block_emit", "fused_inverse")
 DECODE_KERNELS = ("decode_maps", "decode_chase", "decode_emit")
 CHASE_BYTES = 100 + 1 + 8  # a subsegment's P and reset flag in, e32 and c32 out
 KERNELS_B = ("block_fwd_z", "block_encode_xy", "block_emit", "block_inv_xy",
              "block_inv_z")
 # the local-RMS paths: config A and B with use_local_rms=True
-KERNELS_C = ("fused_encode_local", "emit_payload", "fused_inverse")
+KERNELS_C = ("fused_encode_local", "block_emit", "fused_inverse")
 KERNELS_D = ("block_fwd_z", "block_casc_local", "block_scale_tok", "block_emit",
              "block_inv_xy", "block_inv_z")
 # the other geometries (phases 2d and 3e): the half-zero volume (its upper
@@ -330,9 +332,9 @@ def block32(label, v, scale, local):
     check(nd == 0, f"{label}: {name} coefficients uint32-equal to its plain version "
           f"({nd} of {k[0].numel()} cells differ)")
     check(all(torch.equal(a, b) for a, b in zip(k[1:], p[1:])),
-          f"{label}: {name} descriptors, sizes, raw flags ({int(k[3].sum())} raw of {nnn})"
-          f" and table (mulfacs {float(k[4].min()):.4g} to {float(k[4].max()):.4g}) "
-          "equal to its plain version's")
+          f"{label}: {name} descriptors, chunk counts, sizes, raw flags "
+          f"({int(k[4].sum())} raw of {nnn}) and table (mulfacs {float(k[5].min()):.4g} "
+          f"to {float(k[5].max()):.4g}) equal to its plain version's")
     del p
     e, out = rel_rms_finite(
         k[0], dense_f64(blocks.to_blocks(vt, BLOCK_A), (3, 2, 1), False, 32), nnn)
@@ -590,33 +592,37 @@ def main():
         (f"unaligned {SHAPE_U} noise", vol_u, NOISE_SCALE))
     for label, v, sc in inputs32:
         block32(label, v, sc, local=False)
-    ck, dk, sk, rk, mk = tokenize.fused_encode(vt, mulfac)
-    cp = tokenize.fused_encode_plain(vt, mulfac)[0]
+    ck, dk, cbk, sk, rk, mk = tokenize.fused_encode(vt, mulfac)
+    cp, _, cbp, *_ = tokenize.fused_encode_plain(vt, mulfac)
     torch.cuda.synchronize()
     d2, s2, r2 = rle_device.tokenize(tokenize.scaled(ck, mulfac))
     check(torch.equal(sk, s2) and torch.equal(rk, r2) and torch.equal(dk, d2),
           "fused_encode descriptors, sizes and raw flags bit-equal to the plain "
           "tokenize of its coefficients")
+    check(torch.equal(cbk, cbp), f"fused_encode chunk counts ({int((cbk > 0).sum())} "
+          f"live of {cbk.numel()} chunks) bit-equal to fused_encode_plain's")
     cells = ck.numel()
     report["fused_encode"] = dict(
         max_abs_err=float((ck - cp).abs().max()),
         ms=cuda_ms(lambda: tokenize.fused_encode(vt, mulfac), 20),
         plain_ms=cuda_ms(lambda: tokenize.fused_encode_plain(vt, mulfac), 3),
-        # volume in; coefficients and descriptors out; three cascades and
-        # the scale per cell (the tokenize's integer work is not counted)
-        **bound(4 * vol.size + 8 * cells + 5 * sk.numel(), (3 * C32 + 1) * cells),
+        # volume in; coefficients, descriptors and chunk counts out; three
+        # cascades and the scale per cell (the tokenize's integer work is
+        # not counted)
+        **bound(4 * vol.size + 8 * cells + 4 * cbk.numel() + 9 * sk.numel(),
+                (3 * C32 + 1) * cells),
         library_ms=cuda_ms(lambda: einsum3(vt, SHAPE, BLOCK_A, False), 20),
         library_call="one three-operator torch.einsum (full f32): the transform, "
                      "no tokenize",
     )
-    del cp, d2, s2, r2
+    del cp, cbp, d2, s2, r2
 
-    nr = torch.where(rk, 0, sk).to(torch.int64)
-    base = torch.cumsum(nr, 0) - nr
-    total = int(nr.sum())
-    stk = pack.emit_payload(ck, mk, dk, base, rk, total)
-    stp = pack.emit_payload_plain(ck, mk, dk, base, rk, total)
-    check(torch.equal(stk, stp), f"emit_payload stream ({total} B) bit-equal to plain")
+    base = pack.chunk_bases(cbk)
+    total = int(cbk.sum())
+    stk = pack.emit_chunks(ck, mk, dk, cbk, base, total)
+    stp = pack.emit_chunks_plain(ck, mk, dk, cbk, base, total)
+    check(torch.equal(stk, stp), f"block_emit stream at 32^3 ({total} B) bit-equal to "
+          "plain")
     streams, nsizes, nraw = rle_host.encode_payloads(ck.cpu().numpy(), mulfac)
     native = np.concatenate([s for s, r in zip(streams, nraw) if not r])
     check(np.array_equal(nraw, rk.cpu().numpy())
@@ -624,17 +630,18 @@ def main():
           "native cvx_encode_payloads sizes/raw equal the kernel's")
     check(np.array_equal(native, stk.cpu().numpy()),
           "stream bit-equal to native cvx_encode_payloads, block by block")
-    live_groups = int(((dk & 7).view(-1, 8).sum(1) > 0).sum())
-    report["emit_payload"] = dict(
+    report["block_emit"] = dict(
         max_abs_err=float((stk.int() - stp.int()).abs().max()) if total else 0.0,
-        ms=cuda_ms(lambda: pack.emit_payload(ck, mk, dk, base, rk, total), 20),
+        ms=cuda_ms(lambda: pack.emit_chunks(ck, mk, dk, cbk, base, total), 20),
         plain_ms=cuda_ms(
-            lambda: pack.emit_payload_plain(ck, mk, dk, base, rk, total), 3),
-        # every descriptor, the coefficients of the groups with a token, the
-        # stream out
-        **bound(4 * cells + 32 * live_groups + 9 * sk.numel() + total, 0),
+            lambda: pack.emit_chunks_plain(ck, mk, dk, cbk, base, total), 3),
+        **bound(emit_chunks_bytes(dk, cbk, total), 0),
+        # the chunk bases: the exclusive cumsum the codec runs before the emit
+        base_ms=cuda_ms(lambda: pack.chunk_bases(cbk), 20),
     )
-    del ck, dk, mk, stk, stp
+    report["block_emit"]["inputs"] = {"A 32^3": {k: report["block_emit"][k] for k in (
+        "ms", "plain_ms", "bound_ms", "base_ms")}}
+    del ck, dk, cbk, mk, stk, stp
 
     data, _ = codec.compress(vt, SCALE)
     del vt
@@ -939,6 +946,8 @@ def main():
     e2e = {}  # end-to-end times taken in the kernel phases
     vol_b = sinusoid(*SHAPE_B, PERIODS)
     breport, *_ = block_kernels("config B", vol_b, SCALE, 10, 2, native=True)
+    # block_emit's row is A's (the main path), B's an input beside it
+    report["block_emit"]["inputs"]["B"] = breport.pop("block_emit")
     report.update(breport)
     noise_b = np.random.default_rng(0).standard_normal(SHAPE_B, dtype=np.float32)
     nreport, nbtimes, nbbounds = block_kernels("config B noise", noise_b, NOISE_SCALE, 3,
@@ -948,6 +957,7 @@ def main():
             ms=nbtimes[k][0], plain_ms=nbtimes[k][1], device_ms=nbtimes[k][2],
             bound_ms=nbbounds[k]["bound_ms"])
     del noise_b
+    report["block_emit"]["inputs"]["B noise"] = nreport.pop("block_emit")
     for k, r in nreport.items():
         report[k].update(noise_ms=r["ms"], noise_plain_ms=r["plain_ms"])
         if "library_ms" in r:
@@ -995,12 +1005,16 @@ def main():
           flush=True)
 
     def local_a(label, v, iters, plain_iters):
-        """fused_encode_local and emit_payload at its table, on `v` at A's
-        shape; returns the kernel's report."""
+        """fused_encode_local and block_emit at its table, on `v` at A's
+        shape; returns the encode's report and the emit's."""
         vt = torch.from_numpy(v).to(dev)
-        ck, dk, sk, rk, mk = tokenize.fused_encode(vt, scale=SCALE)
-        cp = tokenize.fused_encode_plain(vt, scale=SCALE)[0]
+        ck, dk, cbk, sk, rk, mk = tokenize.fused_encode(vt, scale=SCALE)
+        cp, _, cbp, *_ = tokenize.fused_encode_plain(vt, scale=SCALE)
         torch.cuda.synchronize()
+        check(torch.equal(cbk, cbp), f"{label}: fused_encode_local chunk counts "
+              f"({int((cbk > 0).sum())} live of {cbk.numel()}) bit-equal to "
+              "fused_encode_plain's")
+        del cbp
         fin = torch.isfinite(cp).all(1)
         err = float((ck[fin] - cp[fin]).abs().max())
         del cp
@@ -1013,12 +1027,12 @@ def main():
               f"{label}: fused_encode_local descriptors, sizes and raw flags "
               f"({int(rk.sum())} raw) bit-equal to the plain tokenize at the table")
         del d2, s2, r2
-        nr = torch.where(rk, 0, sk).to(torch.int64)
-        base = torch.cumsum(nr, 0) - nr
-        total = int(nr.sum())
-        stk = pack.emit_payload(ck, mk, dk, base, rk, total)
-        check(torch.equal(stk, pack.emit_payload_plain(ck, mk, dk, base, rk, total)),
-              f"{label}: emit_payload stream ({total} B) at the table bit-equal to plain")
+        base = pack.chunk_bases(cbk)
+        total = int(cbk.sum())
+        stk = pack.emit_chunks(ck, mk, dk, cbk, base, total)
+        check(torch.equal(stk, pack.emit_chunks_plain(ck, mk, dk, cbk, base, total)),
+              f"{label}: block_emit stream at 32^3 ({total} B) at the table bit-equal "
+              "to plain")
         streams, nsizes, nraw = rle_host.encode_payloads(ck.cpu().numpy(),
                                                          mk.cpu().numpy())
         native = np.concatenate([st for st, r in zip(streams, nraw) if not r])
@@ -1026,16 +1040,21 @@ def main():
               native, stk.cpu().numpy()), f"{label}: stream bit-equal to native "
               "cvx_encode_payloads on the kernel's coefficients and table")
         cells = ck.numel()
-        del ck, dk, stk
-        return dict(
+        emit = dict(ms=cuda_ms(lambda: pack.emit_chunks(ck, mk, dk, cbk, base, total),
+                               iters),
+                    plain_ms=cuda_ms(lambda: pack.emit_chunks_plain(ck, mk, dk, cbk, base,
+                                                                    total), plain_iters),
+                    **bound(emit_chunks_bytes(dk, cbk, total), 0))
+        del ck, dk, cbk, stk
+        return emit, dict(
             max_abs_err=err,
             ms=cuda_ms(lambda: tokenize.fused_encode(vt, scale=SCALE), iters),
             plain_ms=cuda_ms(lambda: tokenize.fused_encode_plain(vt, scale=SCALE),
                              plain_iters),
-            # fused_encode's bytes and FLOP, the table out, the f64 square
-            # and add of every coefficient
-            **bound(4 * v.size + 8 * cells + 9 * sk.numel(), (3 * C32 + 1) * cells,
-                    2 * cells),
+            # fused_encode's bytes and FLOP, the f64 square and add of every
+            # coefficient
+            **bound(4 * v.size + 8 * cells + cells // 32 + 9 * sk.numel(),
+                    (3 * C32 + 1) * cells, 2 * cells),
             library_ms=cuda_ms(lambda: einsum3(vt, v.shape, BLOCK_A, False), iters),
             library_call="one three-operator torch.einsum (full f32): the transform, "
                          "no table, no tokenize")
@@ -1106,8 +1125,10 @@ def main():
     for label, v, sc in inputs32:
         block32(label, v, sc, local=True)
     del inputs32, vol_u
-    lrep = {"fused_encode_local": local_a("config A local", vol, 20, 3)}
-    rep_ramp = local_a("config A local ramp", ramp(vol, 32), 3, 1)
+    emit_local, enc_local = local_a("config A local", vol, 20, 3)
+    report["block_emit"]["inputs"]["A-local 32^3"] = emit_local
+    lrep = {"fused_encode_local": enc_local}
+    rep_ramp = local_a("config A local ramp", ramp(vol, 32), 3, 1)[1]
     lrep["fused_encode_local"].update(ramp_ms=rep_ramp["ms"],
                                       ramp_plain_ms=rep_ramp["plain_ms"])
     lrep.update(local_b("config B local", vol_b, 10, 2))
@@ -1326,10 +1347,10 @@ def main():
         report[k] = dict(generic[cell][k])
     for k in ("tokenize_stripe", "stripe_fused_encode", "stripe_fused_encode_local",
               "stripe_fused_inverse", "block_emit"):
-        report[k]["inputs"] = {
+        report[k].setdefault("inputs", {}).update({
             label: {f: r[k][f] for f in ("ms", "plain_ms", "bound_ms", "library_ms")
                     if f in r[k]}
-            for label, r in generic.items() if k in r}
+            for label, r in generic.items() if k in r})
     # the stripe tokenize on the unaligned noise's 64^3 plane, edge blocks
     # (its public route is the fused stripe kernel's, held above)
     label = f"unaligned {SHAPE_U} noise 64^3 plane"
@@ -1508,7 +1529,8 @@ def main():
         print(f"  {label}: block_emit in place {in_place_ms:.4f} ms, rows mode "
               f"{erep['ms']:.4f} ms (+ patch_extract {out['patch_extract']['ms']:.4f}) "
               f"on {card}")
-        out["block_emit_rows"]["in_place_ms"] = in_place_ms
+        out["block_emit_rows"].update(in_place_ms=in_place_ms, in_place_bound_ms=bound(
+            emit_chunks_bytes(dk, cbk, total), 0)["bound_ms"])
         del c, dk, cbk, rows, drows, ids, stk, in_place
         torch.cuda.empty_cache()
         return out
@@ -1538,6 +1560,7 @@ def main():
         in_place = pack.emit_chunks(coeffs, mk, desc, cbk, cbase, total)
         in_place_ms = cuda_ms(lambda: pack.emit_chunks(coeffs, mk, desc, cbk, cbase,
                                                        total), iters)
+        in_place_bound_ms = bound(emit_chunks_bytes(desc, cbk, total), 0)["bound_ms"]
         del desc
         stk, erep = rows_emit(label, rows[:n], drows[:n], ids[:n], mk, cbk, cbase, total,
                               in_place, iters)
@@ -1553,7 +1576,7 @@ def main():
                 **bound(4 * ncell + 4 * nnn + 4 * nchunks + 4 * nnn + n * (1024 + 8), 0)),
             "block_emit_rows": erep,
         }
-        erep["in_place_ms"] = in_place_ms
+        erep.update(in_place_ms=in_place_ms, in_place_bound_ms=in_place_bound_ms)
         print(f"  {label}: block_emit in place {in_place_ms:.4f} ms, rows mode "
               f"{erep['ms']:.4f} ms on {card}")
         del coeffs, rows, drows, ids, stk, in_place
@@ -1580,7 +1603,8 @@ def main():
                               for lb, r in reps.items()}
     optin["block_emit_rows"]["inputs"] = {
         f"{route} {lb}": {f: r["block_emit_rows"][f]
-                         for f in ("ms", "in_place_ms", "plain_ms", "bound_ms")}
+                         for f in ("ms", "in_place_ms", "plain_ms", "bound_ms",
+                                   "in_place_bound_ms")}
         for route, reps in (("patch", prep), ("compact", crep)) for lb, r in reps.items()}
 
     # K15's home: tokenize_stripe at B, the route CVX_FUSED_W=0 takes
@@ -1982,7 +2006,7 @@ def main():
           "device) on", name, flush=True)
     t_phase = time.perf_counter()
     switches = ("CVX_FUSED_COMPACT", "CVX_STRIPE", "CVX_FUSED_W")
-    default_encode = ("fused_encode", "fused_encode_local", "emit_payload", "block_fwd_z",
+    default_encode = ("fused_encode", "fused_encode_local", "block_fwd_z",
                       "block_encode_xy", "block_casc_local", "block_scale_tok",
                       "stripe_fused_encode", "stripe_fused_encode_local", "block_emit")
 
@@ -2092,9 +2116,6 @@ def main():
     meta = {
         "fused_encode": ("csrc/fused_encode.cu",
                          "cvxcompress_tpu/ops/tokenize_pallas.py:939", None),
-        "emit_payload": ("csrc/emit_payload.cu",
-                         "cvxcompress_tpu/ops/pack_pallas.py:479",
-                         "cvxcompress_tpu/ops/pack_pallas.py:605"),
         "fused_inverse": ("csrc/fused_inverse.cu",
                           "cvxcompress_tpu/ops/fused_inverse.py:128", None),
         "decode_maps": ("csrc/decode_maps.cu",
@@ -2109,7 +2130,9 @@ def main():
         "block_encode_xy": ("csrc/block_encode.cu",
                             "cvxcompress_tpu/ops/fused_compress.py:422", None),
         "block_emit": ("csrc/block_emit.cu",
-                       "cvxcompress_tpu/ops/pack_pallas.py:515", None),
+                       "cvxcompress_tpu/ops/pack_pallas.py:515",
+                       "cvxcompress_tpu/ops/pack_pallas.py:479, "
+                       "cvxcompress_tpu/ops/pack_pallas.py:605"),
         "block_inv_xy": ("csrc/block_inverse.cu",
                          "cvxcompress_tpu/ops/fused_inverse.py:65", None),
         "block_inv_z": ("csrc/block_inverse.cu",
@@ -2151,7 +2174,7 @@ def main():
         # kernels (B under CVX_FUSED_W=1, A under CVX_STRIPE=patch and
         # CVX_FUSED_COMPACT=1), the local paths for theirs, config B for the
         # other 128^3 kernels, A at 64^3 for the stripe tokenize, S at 16^3
-        # for the fused stripe kernels, A for the rest
+        # for the fused stripe kernels, A for the rest (block_emit included)
         launches = (counts_f["B CVX_FUSED_W=1"][k]
                     if k in ("block_fwd_xz", "block_encode_y")
                     else counts_f["A CVX_STRIPE=patch"][k]
@@ -2161,6 +2184,7 @@ def main():
                     counts_e["S 16x16x16 local"][k] if k == "stripe_fused_encode_local"
                     else counts_e["S 16x16x16 global"][k] if k.startswith("stripe_fused")
                     else counts_c[k] if k == "fused_encode_local" else
+                    counts_a[k] if k in KERNELS_A else
                     counts_d[k] if k in KERNELS_D and k not in KERNELS_B else
                     counts_b[k] if k in KERNELS_B else counts_a[k])
         # a library call only for the transform kernels (einsum3); no single
@@ -2175,7 +2199,7 @@ def main():
                       "chunk_sparse_ms", "chunk_sparse_bound_ms", "device_ms",
                       "noise_device_ms", "noise_bound_ms", "zeroing_device_ms",
                       "noise_zeroing_device_ms", "half_zero_ms", "half_zero_plain_ms",
-                      "half_zero_bound_ms"):
+                      "half_zero_bound_ms", "base_ms"):
             if extra in r:
                 row[extra] = r[extra]
         if also:

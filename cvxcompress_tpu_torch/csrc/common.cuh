@@ -1,5 +1,4 @@
-// Shared pieces of the 32^3 block kernels (fused_encode, emit_payload,
-// fused_inverse): the swizzled shared-memory block, its asynchronous
+// Shared pieces of the 32^3 block kernels (fused_encode, fused_inverse): the swizzled shared-memory block, its asynchronous
 // copies, the passes of the 7/9 cascade over it and the row-wise tokenize.
 // The cascade's arithmetic is cascade.cuh's, the token grammar tokens.cuh's.
 //
@@ -23,7 +22,6 @@ namespace cvx {
 constexpr int B = 32;                  // block edge (32^3 blocks only)
 constexpr int CELLS = B * B * B;       // 32768 cells, 128 KiB of f32
 constexpr int THREADS = 512;           // 16 warps
-constexpr int CELLS_PER_THREAD = CELLS / THREADS;  // emit_payload's walk
 constexpr int CHUNK = 128;             // decode chunk: 128 cells, 4 x-rows
 constexpr int CHUNKS_PER_BLOCK = CELLS / CHUNK;
 constexpr int LINES = B * B / THREADS;  // z-lines per thread
@@ -234,7 +232,14 @@ __device__ __forceinline__ int32_t seg_desc(int32_t q, unsigned m, int lane, int
 // group of 8 cells is 8 lanes, its mode from ballots of the four classes;
 // a row of zeros (the same on every lane) skips those.  The descriptors
 // (cost | run_end << 3 | min(run_len, 2^24-1) << 4) go to `dblk`, 128 bytes
-// per warp and row; the threads' costs add up to the block's payload size.
+// per warp and row.
+// The costs also go to the shared `halves`, 2 * CHUNKS_PER_BLOCK ints laid
+// out [warp][z]: warp w sums, lane by lane, its two rows (z, 2w) and
+// (z, 2w + 1) of 8 z-planes in registers, then each plane's sum over the
+// warp (a reduce each), stored by lane 0 as two int4s; the 128-cell chunk j
+// (rows 4j .. 4j + 3: z = j / 8, warps 2 (j % 8) and 2 (j % 8) + 1) holds
+// halves[2 (j % 8) B + j / 8] + halves[(2 (j % 8) + 1) B + j / 8] bytes
+// once the block is tokenized, and the chunks' sum is the block's size.
 // The loops stay rolled: unrolled over the block, the kernel's code
 // outgrows the instruction cache.  `rows` holds 1,024 ints, `scan_buf` 32,
 // both shared; the caller has published `s` (a barrier).
@@ -269,16 +274,19 @@ __device__ __forceinline__ void tokenize_carries(const float* s, float mulfac, i
   __syncthreads();
 }
 
-// The descriptors of the rows of half h (z in [16h, 16h + 16)); returns
-// this thread's share of the block's payload size.
-__device__ __forceinline__ int tokenize_half(const float* s, float mulfac, const int* rows,
-                                             int h, int32_t* __restrict__ dblk) {
-  const int lane = threadIdx.x & 31, y0 = 2 * (threadIdx.x >> 5);
-  int cost = 0;
+// The descriptors of the rows of half h (z in [16h, 16h + 16)), and their
+// costs' sums into `halves`.  Not inlined: one copy of the code serves both
+// halves (inlined twice, the count's few instructions a row cost the local
+// RMS encode 13 % through the instruction cache: PERF.md).
+static __device__ __noinline__ void tokenize_half(const float* s, float mulfac, const int* rows,
+                                              int h, int32_t* __restrict__ dblk,
+                                              int* __restrict__ halves) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5, y0 = 2 * warp;
 #pragma unroll 1
-  for (int i = 0; i < LINES; ++i)
+  for (int z0 = HALF * h; z0 < HALF * (h + 1); z0 += 8) {
+    int cc[8] = {0, 0, 0, 0, 0, 0, 0, 0};  // the lane's cost in plane z0 + k
 #pragma unroll 1
-    for (int z0 = HALF * h; z0 < HALF * (h + 1); z0 += 8) {
+    for (int i = 0; i < LINES; ++i) {
       int32_t q[8];
       unsigned m[8];
 #pragma unroll
@@ -295,10 +303,24 @@ __device__ __forceinline__ int tokenize_half(const float* s, float mulfac, const
         const bool end_last = r == B * B - 1 || (rows[r < B * B - 1 ? r + 1 : r] >> 16) != 0;
         const int32_t d = seg_desc(q[k], m[k], lane, c, carry, end_last);
         dblk[c] = d;
-        cost += d & 7;
+        cc[k] += d & 7;
       }
     }
-  return cost;
+    const int4 lo = make_int4(__reduce_add_sync(~0u, cc[0]), __reduce_add_sync(~0u, cc[1]),
+                              __reduce_add_sync(~0u, cc[2]), __reduce_add_sync(~0u, cc[3]));
+    const int4 hi = make_int4(__reduce_add_sync(~0u, cc[4]), __reduce_add_sync(~0u, cc[5]),
+                              __reduce_add_sync(~0u, cc[6]), __reduce_add_sync(~0u, cc[7]));
+    if (lane == 0) {
+      int4* p = reinterpret_cast<int4*>(halves + warp * B + z0);
+      p[0] = lo;
+      p[1] = hi;
+    }
+  }
+}
+
+// Chunk j's byte count from `halves` (tokenize_half), j < CHUNKS_PER_BLOCK.
+__device__ __forceinline__ int chunk_cost(const int* halves, int j) {
+  return halves[2 * (j & 7) * B + (j >> 3)] + halves[(2 * (j & 7) + 1) * B + (j >> 3)];
 }
 
 // cuTensorMapEncodeTiled from libcuda, looked up at run time so that the

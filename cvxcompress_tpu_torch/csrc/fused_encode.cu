@@ -35,8 +35,12 @@
 //      after the block;
 //   5. per cell the descriptor cost | run_end << 3 | run_len << 4, stored
 //      128 bytes per warp and row; per block the payload size and the raw
-//      flag (size > 4*cells).
-// What bounds it on an H100: the 128 KiB read and 256 KiB written per block
+//      flag (size > 4*cells); per 128-cell chunk its byte count (0 in a raw
+//      block), from each warp's per-plane sums in 512 shared slots (common.cuh
+//      tokenize_half) stored as one coalesced 1 KiB row, so that the emit
+//      (block_emit.cu) reads only the live chunks, as on every other route;
+//      the chunks' sum is the block's size.
+// What bounds it on an H100: the 128 KiB read and 257 KiB written per block
 // (0.17 ms at A); the cascades' ~2.2 M separately rounded f32 operations
 // per block (no FMA: native's parity order) take about 0.11 ms at A, the
 // tokenize's integer work about as long.  One 128 KiB block fills an SM's
@@ -59,12 +63,14 @@ __global__ void __launch_bounds__(THREADS, 1)
 fused_encode_kernel(const __grid_constant__ CUtensorMap tmap, int tma,
                     const float* __restrict__ vol, int nx, int ny, int nz,
                     int64_t nnn, float factor, float* __restrict__ coeffs,
-                    int32_t* __restrict__ desc, int32_t* __restrict__ sizes,
-                    uint8_t* __restrict__ raw, float* __restrict__ mulfacs) {
+                    int32_t* __restrict__ desc, int32_t* __restrict__ chunk_bytes,
+                    int32_t* __restrict__ sizes, uint8_t* __restrict__ raw,
+                    float* __restrict__ mulfacs) {
   extern __shared__ __align__(16) unsigned char dsmem[];
   float* s = block_buffer(dsmem);
   __shared__ uint64_t full[2];  // the TMA copies' barriers, one a half
   __shared__ int rows[B * B];   // tokenize_carries' row summaries
+  __shared__ __align__(16) int halves[2 * CHUNKS_PER_BLOCK];  // tokenize_half's sums
   __shared__ int scan_buf[32];
   __shared__ double sum_buf[32];
 
@@ -125,13 +131,20 @@ fused_encode_kernel(const __grid_constant__ CUtensorMap tmap, int tma,
     tokenize_carries(s, mulfac, rows, scan_buf);
     int32_t* dblk = desc + blk * CELLS;
     const bool more = blk + gridDim.x < nnn;
-    int cost = tokenize_half(s, mulfac, rows, 0, dblk);
+    tokenize_half(s, mulfac, rows, 0, dblk, halves);
     fence_proxy_async();  // this block's accesses before the next one's copy
     __syncthreads();
     if (more) load(blk + gridDim.x, 0);
-    cost += tokenize_half(s, mulfac, rows, 1, dblk);
+    tokenize_half(s, mulfac, rows, 1, dblk, halves);
+    __syncthreads();  // halves complete
+    // the chunk counts out, and their sum the block's size; a raw block's
+    // counts are zeroed after the barrier below by the thread that decides
+    const int count =
+        threadIdx.x < CHUNKS_PER_BLOCK ? chunk_cost(halves, threadIdx.x) : 0;
+    if (threadIdx.x < CHUNKS_PER_BLOCK)
+      chunk_bytes[blk * CHUNKS_PER_BLOCK + threadIdx.x] = count;
     int size;
-    block_exclusive_scan(cost, 0, SumOp(), scan_buf, &size);
+    block_exclusive_scan(count, 0, SumOp(), scan_buf, &size);
     fence_proxy_async();
     __syncthreads();
     if (more) load(blk + gridDim.x, 1);
@@ -140,6 +153,8 @@ fused_encode_kernel(const __grid_constant__ CUtensorMap tmap, int tma,
       sizes[blk] = is_raw ? 4 * CELLS : size;
       raw[blk] = is_raw;
       mulfacs[blk] = mulfac;
+      if (is_raw)
+        for (int j = 0; j < CHUNKS_PER_BLOCK; ++j) chunk_bytes[blk * CHUNKS_PER_BLOCK + j] = 0;
     }
   }
 }
@@ -152,8 +167,9 @@ static bool tma_route(const float* vol, int nx) {
 
 template <bool LOCAL>
 static int launch_fused_encode(const float* vol, int nx, int ny, int nz, float factor,
-                               float* coeffs, int32_t* desc, int32_t* sizes,
-                               uint8_t* raw, float* mulfacs, void* stream) {
+                               float* coeffs, int32_t* desc, int32_t* chunk_bytes,
+                               int32_t* sizes, uint8_t* raw, float* mulfacs,
+                               void* stream) {
   const int64_t nnn = (int64_t)((nx + B - 1) / B) * ((ny + B - 1) / B) *
                       ((nz + B - 1) / B);
   if (nnn == 0) return 0;
@@ -181,25 +197,27 @@ static int launch_fused_encode(const float* vol, int nx, int ny, int nz, float f
   if (e != cudaSuccess) return (int)e;
   const unsigned grid = (unsigned)(nnn < sms ? nnn : sms);
   fused_encode_kernel<LOCAL><<<grid, THREADS, SMEM_BYTES, (cudaStream_t)stream>>>(
-      tmap, tma, vol, nx, ny, nz, nnn, factor, coeffs, desc, sizes, raw, mulfacs);
+      tmap, tma, vol, nx, ny, nz, nnn, factor, coeffs, desc, chunk_bytes, sizes, raw,
+      mulfacs);
   return (int)cudaGetLastError();
 }
 
 }  // namespace cvx
 
 extern "C" int cvx_fused_encode(const float* vol, int nx, int ny, int nz, float mulfac,
-                                float* coeffs, int32_t* desc, int32_t* sizes,
-                                uint8_t* raw, float* mulfacs, void* stream) {
-  return cvx::launch_fused_encode<false>(vol, nx, ny, nz, mulfac, coeffs, desc, sizes,
-                                         raw, mulfacs, stream);
+                                float* coeffs, int32_t* desc, int32_t* chunk_bytes,
+                                int32_t* sizes, uint8_t* raw, float* mulfacs,
+                                void* stream) {
+  return cvx::launch_fused_encode<false>(vol, nx, ny, nz, mulfac, coeffs, desc,
+                                         chunk_bytes, sizes, raw, mulfacs, stream);
 }
 
 extern "C" int cvx_fused_encode_local(const float* vol, int nx, int ny, int nz,
                                       float scale, float* coeffs, int32_t* desc,
-                                      int32_t* sizes, uint8_t* raw, float* mulfacs,
-                                      void* stream) {
-  return cvx::launch_fused_encode<true>(vol, nx, ny, nz, scale, coeffs, desc, sizes, raw,
-                                        mulfacs, stream);
+                                      int32_t* chunk_bytes, int32_t* sizes,
+                                      uint8_t* raw, float* mulfacs, void* stream) {
+  return cvx::launch_fused_encode<true>(vol, nx, ny, nz, scale, coeffs, desc,
+                                        chunk_bytes, sizes, raw, mulfacs, stream);
 }
 
 extern "C" const char* cvx_cuda_error_string(int code) {

@@ -35,13 +35,12 @@ _VP = ctypes.c_void_p
 _SIGNATURES = {
     "cvx_fused_encode": [
         _VP, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_float,
-        _VP, _VP, _VP, _VP, _VP, _VP,
+        _VP, _VP, _VP, _VP, _VP, _VP, _VP,
     ],
     "cvx_fused_encode_local": [
         _VP, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_float,
-        _VP, _VP, _VP, _VP, _VP, _VP,
+        _VP, _VP, _VP, _VP, _VP, _VP, _VP,
     ],
-    "cvx_emit_payload": [_VP, _VP, _VP, _VP, _VP, ctypes.c_int64, _VP, _VP],
     "cvx_fused_inverse": [
         _VP, ctypes.c_int64, _VP, ctypes.c_int, ctypes.c_int, ctypes.c_int, _VP, _VP,
     ],

@@ -20,12 +20,11 @@ ops/geometry.py):
      (`CVX_FUSED_COMPACT=1`: ops/tokenize.py `compact_encode`);
   3. one small read-back of the per-block sizes, raw flags and mulfacs (on
      the patch and compact routes with the number of live chunks);
-  4. the exclusive cumsum of the non-raw blocks' sizes (32^3) or chunks'
-     byte counts (the rest) gives every block's or chunk's base in the
-     stream;
+  4. the exclusive cumsum of the chunks' byte counts gives every chunk's
+     base in the stream;
   5. the emit kernel writes a stream of exactly that many bytes, each
-     block's tokens from its coefficients and its entry of the table
-     (ops/pack.py `emit_payload`, `emit_chunks`; on the stripe route it
+     live chunk's tokens from its coefficients and its block's entry of the
+     table (ops/pack.py `emit_chunks`; on the stripe route it
      reads the volume-order coefficients through the stripe map; on the
      patch route `pack.patch_extract` first gathers the live chunks' rows,
      and there and on the compact route `pack.emit_rows` writes the stream
@@ -197,7 +196,8 @@ def _compress(vol, scale, block, use_local_rms, device):
     nlive = None  # the live chunks' count, on the rows routes
     if path == "fused32":
         with record_function("cvx.fused_encode"):
-            coeffs, desc, sizes, raw, mulfacs = tokenize.fused_encode(t, **args)
+            coeffs, desc, chunk_bytes, sizes, raw, mulfacs = tokenize.fused_encode(
+                t, **args)
     elif path == "block128":
         with record_function("cvx.block_encode"):
             coeffs, desc, chunk_bytes, sizes, raw, mulfacs = (
@@ -227,28 +227,22 @@ def _compress(vol, scale, block, use_local_rms, device):
     sizes_h, raw_h = sr[:nnn].astype(np.int64), sr[nnn:2 * nnn].astype(bool)
     mulfacs_h = sr[2 * nnn:3 * nnn].view(np.float32)
     total = int(sizes_h[~raw_h].sum())
-    if path == "fused32":
-        with record_function("cvx.emit_payload"):
-            nr_sizes = torch.where(raw, 0, sizes).to(torch.int64)
-            base = torch.cumsum(nr_sizes, 0) - nr_sizes
-            stream = pack.emit_payload(coeffs, mulfacs, desc, base, raw, total)
+    with record_function("cvx.chunk_bases"):
+        base = pack.chunk_bases(chunk_bytes)
+    if path in ("patch", "compact"):
+        n = int(sr[3 * nnn])
+        if path == "patch":
+            with record_function("cvx.patch_extract"):
+                rows, drows, ids = pack.patch_extract(coeffs, desc, chunk_bytes,
+                                                      block, n)
+        with record_function("cvx.emit_rows"):
+            stream = pack.emit_rows(rows[:n], drows[:n], ids[:n], mulfacs,
+                                    chunk_bytes, base, total)
     else:
-        cb = chunk_bytes.to(torch.int64)
-        base = torch.cumsum(cb, 0) - cb
-        if path in ("patch", "compact"):
-            n = int(sr[3 * nnn])
-            if path == "patch":
-                with record_function("cvx.patch_extract"):
-                    rows, drows, ids = pack.patch_extract(coeffs, desc, chunk_bytes,
-                                                          block, n)
-            with record_function("cvx.emit_rows"):
-                stream = pack.emit_rows(rows[:n], drows[:n], ids[:n], mulfacs,
-                                        chunk_bytes, base, total)
-        else:
-            with record_function("cvx.emit_chunks"):
-                stream = pack.emit_chunks(
-                    coeffs, mulfacs, desc, chunk_bytes, base, total,
-                    block if path == "stripe" else None)
+        with record_function("cvx.emit_chunks"):
+            stream = pack.emit_chunks(
+                coeffs, mulfacs, desc, chunk_bytes, base, total,
+                block if path == "stripe" else None)
     with record_function("cvx.stream_d2h"):
         stream_h = stream.cpu().numpy()
         raw_bytes_h = None

@@ -1,25 +1,21 @@
-"""The payload emitter: tokens -> block-ordered byte stream (K2 + K3 port).
+"""The payload emitter: tokens -> block-ordered byte stream (the K2 + K3
+and K7 port).
 
-`emit_payload` launches csrc/emit_payload.cu on CUDA tensors and runs
-`emit_payload_plain` on CPU tensors.  Inputs are fused_encode's outputs for
-the (nnn) blocks, its (nnn,) mulfac table among them (one value repeated
-under the global RMS), plus the byte base of each block in the stream (the
-exclusive cumsum of the non-raw blocks' sizes); the output is the dense
-(total,) uint8 payload of the non-raw blocks in container block order —
-what `cvxcompress_tpu/ops/rle_device.py:547-575` `pack_active_stripe_seg`
-returns on its default path.  Raw-fallback blocks are absent; the host
-splices their coefficients in (`rle_device.assemble_payload_blockorder`).
-
-TPU counterparts: `pack_pallas.pack_staging_seg` (:479) and
-`pack_pallas.tile_compact` (:605).
-
-`emit_chunks` (csrc/block_emit.cu, plain version `emit_chunks_plain`) is
-the same stream for every other geometry (the 128^3 blocks of
+`emit_chunks` launches csrc/block_emit.cu on CUDA tensors and runs
+`emit_chunks_plain` on CPU tensors, for every geometry: the 32^3 blocks
+of ops/tokenize.py `fused_encode`, the 128^3 blocks of
 ops/fused_compress.py, ops/tokenize.py `stripe_fused_encode` and the stripe
-route's `encode`), laid out by min(128, cells)-cell chunk: each
-chunk's tokens land at its own base, the exclusive cumsum of the chunk
-byte counts (0 in raw blocks).  TPU counterpart: `pack_pallas.pack_staging`
-(:515) inside `rle_device.pack_active` (:401).
+route's `encode`.  The stream is laid out by min(128, cells)-cell chunk:
+each chunk's tokens land at its own base, the exclusive cumsum of the
+chunk byte counts (0 in raw blocks), and the kernel reads only the chunks
+whose count is not 0.  The output is the dense (total,) uint8 payload of
+the non-raw blocks in container block order; raw-fallback blocks are
+absent and the host splices their coefficients in
+(`rle_device.assemble_payload_blockorder`).  TPU counterparts:
+`pack_pallas.pack_staging` (:515) inside `rle_device.pack_active` (:401),
+and at 32^3 `pack_pallas.pack_staging_seg` (:479) and
+`pack_pallas.tile_compact` (:605) inside
+`rle_device.pack_active_stripe_seg` (:547).
 
 `emit_rows` (the same kernel in its rows mode) writes that stream from
 gathered chunk rows instead, as K7 does in the JAX package's
@@ -101,46 +97,17 @@ def token_bytes(coeffs, mulfacs, desc):
     return (plane0, plane1, plane2, plane3, plane4), cost
 
 
-def emit_payload_plain(coeffs, mulfacs, desc, base, raw, total):
-    """Plain PyTorch version of the kernel (same stream)."""
-    planes, cost = token_bytes(coeffs, mulfacs, desc)
-    cost = torch.where(raw[:, None], 0, cost)
-    pos = base[:, None] + (torch.cumsum(cost, dim=1) - cost)
-    out = torch.zeros(total, dtype=torch.uint8, device=coeffs.device)
-    for k, plane in enumerate(planes):
-        m = cost > k
-        out[pos[m] + k] = plane[m].to(torch.uint8)
-    return out
+def chunk_bases(chunk_bytes):
+    """Each chunk's base in the stream: the exclusive cumsum of the (nchunks,)
+    int32 chunk byte counts, as int64."""
+    cb = chunk_bytes.to(torch.int64)
+    return torch.cumsum(cb, 0) - cb
 
 
 def _check_table(mulfacs, nnn):
     if mulfacs.shape != (nnn,):
         raise ValueError(f"the mulfac table must be ({nnn},), got "
                          f"{tuple(mulfacs.shape)}")
-
-
-def emit_payload(coeffs, mulfacs, desc, base, raw, total):
-    """Block-ordered payload stream (total,) uint8 of the non-raw blocks.
-
-    coeffs (nnn, 32768) f32, mulfacs (nnn,) f32, desc (nnn, 32768) int32,
-    base (nnn,) int64, raw (nnn,) bool; `total` is the sum of the non-raw
-    blocks' sizes.
-    """
-    _check_table(mulfacs, coeffs.shape[0])
-    if coeffs.device.type == "cpu":
-        return emit_payload_plain(coeffs, mulfacs, desc, base, raw, total)
-    _kernels.check_cuda(
-        coeffs, mulfacs, desc, base, raw,
-        dtypes=(torch.float32, torch.float32, torch.int32, torch.int64,
-                torch.bool),
-    )
-    nnn = coeffs.shape[0]
-    out = torch.empty(total, dtype=torch.uint8, device=coeffs.device)
-    _kernels.launch(
-        "emit_payload", coeffs.data_ptr(), mulfacs.data_ptr(), desc.data_ptr(),
-        base.data_ptr(), raw.data_ptr(), nnn, out.data_ptr(),
-    )
-    return out
 
 
 def _emit_rows_plain(rows, row_mulfacs, drows, row_bytes, row_base, total):

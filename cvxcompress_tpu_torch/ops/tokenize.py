@@ -5,11 +5,15 @@ port).
 `fused_encode_plain` on a CPU volume.  Both return, for the (nnn) 32^3
 blocks in raster order:
 
-    coeffs  (nnn, 32768) f32   UNSCALED wavelet coefficients, block-major
-    desc    (nnn, 32768) int32 per-cell token descriptor (ops/rle_device.py)
-    sizes   (nnn,) int32       payload bytes per block (4*cells when raw)
-    raw     (nnn,) bool        raw-fallback flag
-    mulfacs (nnn,) f32         the mulfac each block was quantized with
+    coeffs      (nnn, 32768) f32   UNSCALED wavelet coefficients, block-major
+    desc        (nnn, 32768) int32 per-cell token descriptor (ops/rle_device.py)
+    chunk_bytes (nnn * 256,) int32 payload bytes per 128-cell chunk (0 when
+                                   raw), what `pack.emit_chunks` takes
+    sizes       (nnn,) int32       payload bytes per block (4*cells when raw)
+    raw         (nnn,) bool        raw-fallback flag
+    mulfacs     (nnn,) f32         the mulfac each block was quantized with
+
+(the order of `stripe_fused_encode`'s outputs).
 
 Under the global RMS every block has the given mulfac; under the local RMS
 each block's comes from its own coefficients (ops/quant.py `local_rms`),
@@ -64,15 +68,14 @@ def fused_encode_plain(vol, mulfac=None, *, scale=None):
     else:
         mulfacs = torch.full((coeffs.shape[0],), mulfac, dtype=torch.float32,
                              device=coeffs.device)
-    desc, sizes, raw = rle_device.tokenize(scaled(coeffs, mulfacs))
-    return coeffs, desc, sizes, raw, mulfacs
+    return (coeffs, *tokenize_blocks_plain(coeffs, mulfacs), mulfacs)
 
 
 def fused_encode(vol, mulfac=None, *, scale=None):
-    """(nz, ny, nx) f32 volume -> (coeffs, desc, sizes, raw, mulfacs); see
-    the module doc.  Global RMS: every block at `mulfac`.  Local RMS: give
-    `scale` instead, and each block's mulfac is 1/(rms*scale) of its own
-    coefficients."""
+    """(nz, ny, nx) f32 volume -> (coeffs, desc, chunk_bytes, sizes, raw,
+    mulfacs); see the module doc.  Global RMS: every block at `mulfac`.
+    Local RMS: give `scale` instead, and each block's mulfac is
+    1/(rms*scale) of its own coefficients."""
     local = quant.is_local(mulfac, scale)
     if vol.device.type == "cpu":
         return fused_encode_plain(vol, mulfac, scale=scale)
@@ -82,17 +85,16 @@ def fused_encode(vol, mulfac=None, *, scale=None):
     nnn = nbz * nby * nbx
     dev = vol.device
     coeffs = torch.empty((nnn, CELLS), dtype=torch.float32, device=dev)
-    desc = torch.empty((nnn, CELLS), dtype=torch.int32, device=dev)
-    sizes = torch.empty((nnn,), dtype=torch.int32, device=dev)
+    desc, chunk_bytes, sizes = _outputs(nnn, CELLS, dev)
     raw = torch.empty((nnn,), dtype=torch.bool, device=dev)
     mulfacs = torch.empty((nnn,), dtype=torch.float32, device=dev)
     _kernels.launch(
         "fused_encode_local" if local else "fused_encode",
         vol.data_ptr(), nx, ny, nz, float(scale if local else mulfac),
-        coeffs.data_ptr(), desc.data_ptr(), sizes.data_ptr(), raw.data_ptr(),
-        mulfacs.data_ptr(),
+        coeffs.data_ptr(), desc.data_ptr(), chunk_bytes.data_ptr(), sizes.data_ptr(),
+        raw.data_ptr(), mulfacs.data_ptr(),
     )
-    return coeffs, desc, sizes, raw, mulfacs
+    return coeffs, desc, chunk_bytes, sizes, raw, mulfacs
 
 
 # -- every other geometry ------------------------------------------------------

@@ -19,6 +19,7 @@ from cvxcompress_tpu_torch.ops import (
     quant, rle_device, rle_host, tokenize,
 )
 
+import chunk_emit_cases as ec
 import doubling_cases as dc
 import lookback_cases as lc
 import tile_tokenize_cases as tc
@@ -61,11 +62,12 @@ def test_fused_encode_matches_plain(dev, rng, shape, scale):
     vol = volume(rng, shape)
     vt = torch.from_numpy(vol).to(dev)
     mulfac = quant.global_mulfac(vol, scale)
-    ck, dk, sk, rk, mk = tokenize.fused_encode(vt, mulfac)
-    cp, _, _, _, _ = tokenize.fused_encode_plain(vt, mulfac)
+    ck, dk, cbk, sk, rk, mk = tokenize.fused_encode(vt, mulfac)
+    cp, _, cbp, _, _, _ = tokenize.fused_encode_plain(vt, mulfac)
     torch.cuda.synchronize()
     assert rel_rms(ck, cp) < TRANSFORM_TOL
     assert torch.equal(ck.view(torch.int32), cp.view(torch.int32))  # the same cascade
+    assert torch.equal(cbk, cbp)
     d2, s2, r2 = rle_device.tokenize(tokenize.scaled(ck, mulfac))
     assert torch.equal(dk, d2) and torch.equal(sk, s2) and torch.equal(rk, r2)
     assert bool(rk.any()) == (scale < 1e-6)
@@ -82,14 +84,15 @@ def test_fused_encode_nonfinite_volume(dev, rng):
     vol[3, 3, 3] = np.nan
     vol[35, 45, 65] = np.inf
     mulfac = quant.global_mulfac(np.where(np.isfinite(vol), vol, 0), 1e-2)
-    ck, dk, sk, rk, mk = tokenize.fused_encode(torch.from_numpy(vol).to(dev), mulfac)
-    d2, s2, r2 = rle_device.tokenize(tokenize.scaled(ck, mulfac))
+    ck, dk, cbk, sk, rk, mk = tokenize.fused_encode(torch.from_numpy(vol).to(dev),
+                                                    mulfac)
+    d2, cb2, s2, r2 = tokenize.tokenize_blocks_plain(ck, mk)
     assert torch.equal(dk, d2) and torch.equal(sk, s2) and torch.equal(rk, r2)
+    assert torch.equal(cbk, cb2)
     bad = (~torch.isfinite(ck)).sum(1)
     assert bool(bad[0] > 0) and bool(bad[-1] > 0) and not bool(rk.any())
-    nr = torch.where(rk, 0, sk).to(torch.int64)
-    base = torch.cumsum(nr, 0) - nr
-    got = pack.emit_payload(ck, mk, dk, base, rk, int(nr.sum()))
+    base = torch.cumsum(cbk.long(), 0) - cbk.long()
+    got = pack.emit_chunks(ck, mk, dk, cbk, base, int(cbk.sum()))
     streams, _, nraw = rle_host.encode_payloads(ck.cpu().numpy(), mulfac)
     np.testing.assert_array_equal(nraw, rk.cpu().numpy())
     native = np.concatenate([s for s, r in zip(streams, nraw) if not r])
@@ -97,20 +100,76 @@ def test_fused_encode_nonfinite_volume(dev, rng):
 
 
 @pytest.mark.parametrize("scale", [1e-2, 1e-4, 1e-12])
-def test_emit_payload_matches_plain_and_native(dev, rng, scale):
+def test_emit_32_matches_plain_and_native(dev, rng, scale):
+    """The 32^3 route's emit: `block_emit` over the encode's chunk counts,
+    bit-equal to its plain version and to the native encoder, block by
+    block (at 1e-12 every block raw)."""
     vol = volume(rng, (40, 50, 70))
     mulfac = quant.global_mulfac(vol, scale)
-    ck, dk, sk, rk, mk = tokenize.fused_encode(torch.from_numpy(vol).to(dev), mulfac)
-    nr = torch.where(rk, 0, sk).to(torch.int64)
-    base = torch.cumsum(nr, 0) - nr
-    total = int(nr.sum())
-    got = pack.emit_payload(ck, mk, dk, base, rk, total)
-    ref = pack.emit_payload_plain(ck, mk, dk, base, rk, total)
+    ck, dk, cbk, sk, rk, mk = tokenize.fused_encode(torch.from_numpy(vol).to(dev),
+                                                    mulfac)
+    base = torch.cumsum(cbk.long(), 0) - cbk.long()
+    total = int(cbk.sum())
+    assert total == int(torch.where(rk, 0, sk).sum())
+    _kernels.reset_counts()
+    got = pack.emit_chunks(ck, mk, dk, cbk, base, total)
+    assert _kernels.launches["block_emit"] == 1
+    ref = pack.emit_chunks_plain(ck, mk, dk, cbk, base, total)
     assert torch.equal(got, ref)
     streams, _, nraw = rle_host.encode_payloads(ck.cpu().numpy(), mulfac)
     parts = [s for s, r in zip(streams, nraw) if not r]
     native = np.concatenate(parts) if parts else np.zeros(0, np.uint8)
     np.testing.assert_array_equal(got.cpu().numpy(), native)
+
+
+@pytest.mark.parametrize("local", [False, True], ids=["global", "local"])
+@pytest.mark.parametrize("kind", ["sinusoid", "noise", "ramp"])
+def test_fused_encode_chunk_bytes_at_a(dev, kind, local):
+    """fused_encode(_local) at A's shape (352, 416, 320): the per-chunk byte
+    counts bit-equal to the plain version's (on A's sinusoid, N(0,1) noise
+    and `ramp`), and their sums the sizes."""
+    shape = (352, 416, 320)
+    if kind == "noise":
+        vol = np.random.default_rng(9).standard_normal(shape, dtype=np.float32)
+    elif kind == "ramp":
+        vol = ramp(shape, 32)
+    else:
+        z = np.sin(np.arange(shape[0]) * np.pi * 10 / shape[0]).astype(np.float32)
+        vol = np.broadcast_to(z[:, None, None], shape).copy()
+    vt = torch.from_numpy(vol).to(dev)
+    scale = 1e-1 if kind == "noise" else 1e-2
+    args = dict(scale=scale) if local else dict(mulfac=quant.global_mulfac(vol, scale))
+    ck, dk, cbk, sk, rk, mk = tokenize.fused_encode(vt, **args)
+    cp, dp, cbp, sp, rp, mp = tokenize.fused_encode_plain(vt, **args)
+    torch.cuda.synchronize()
+    assert torch.equal(ck.view(torch.int32), cp.view(torch.int32))
+    assert torch.equal(dk, dp) and torch.equal(cbk, cbp) and torch.equal(mk, mp)
+    assert torch.equal(sk, sp) and torch.equal(rk, rp)
+    assert torch.equal(cbk.view(-1, 256).sum(1, dtype=torch.int32)[~rk], sk[~rk])
+    assert not bool(cbk.view(-1, 256)[rk].any())
+
+
+@pytest.mark.parametrize("name", list(ec.CASES))
+def test_block_emit_cases(dev, name):
+    """block_emit on the cases of tests/chunk_emit_cases.py (no live chunk;
+    only window lane 31's; odd counts of live chunks and raw blocks in a
+    window; a last window cut short; 64-cell chunks; the stripe map at 8^3
+    and (128, 8, 8); 32^3 with a raw block), bit-equal to its plain
+    version; in rows mode too (ids shuffled, raw blocks' rows among them)."""
+    c = ec.make(name, dev)
+    args = (c["coeffs"], c["mulfacs"], c["desc"], c["chunk_bytes"], c["chunk_base"],
+            c["total"], c["block"])
+    _kernels.reset_counts()
+    got = pack.emit_chunks(*args)
+    assert _kernels.launches["block_emit"] == 1
+    want = pack.emit_chunks_plain(*args)
+    assert torch.equal(got, want)
+    if name in ec.ROWS:
+        rows, drows, ids = ec.rows_of(c)
+        got = pack.emit_rows(rows, drows, ids, c["mulfacs"], c["chunk_bytes"],
+                             c["chunk_base"], c["total"])
+        assert _kernels.launches["block_emit_rows"] == 1
+        assert torch.equal(got, want)
 
 
 @pytest.mark.parametrize("route", ["tma", "view_at_offset_1", "nx_75"])
@@ -165,7 +224,7 @@ def test_main_path_counts_and_agrees_with_cpu(dev, rng):
     data, _ = cvt.compress(vol, 1e-2, device="cuda")
     out = cvt.decompress(data, device="cuda")
     torch.cuda.synchronize()
-    once = ("fused_encode", "emit_payload", "fused_inverse", "decode_maps",
+    once = ("fused_encode", "block_emit", "fused_inverse", "decode_maps",
             "decode_chase", "decode_emit")
     assert _kernels.launches == {k: int(k in once) for k in _kernels.launches}
     ref, _ = cvt.compress(vol, 1e-2, device="cpu")
@@ -511,15 +570,17 @@ def test_fused_encode_local_matches_plain(dev):
     the table, descriptors, sizes and raw flags bit-equal to the plain
     local RMS and tokenize of the kernel's coefficients (the NaN block's
     NaN coefficients code as VLESC4 tokens in less than its raw size, as in
-    native's codec); emit_payload at the table bit-equal to its plain
-    version and to the native encoder."""
+    native's codec); the chunk counts bit-equal to the plain version's;
+    block_emit at the table bit-equal to its plain version and to the
+    native encoder."""
     vol = ramp((64, 96, 96), 32)
     vt = torch.from_numpy(vol).to(dev)
     _kernels.reset_counts()
-    ck, dk, sk, rk, mk = tokenize.fused_encode(vt, scale=1e-2)
+    ck, dk, cbk, sk, rk, mk = tokenize.fused_encode(vt, scale=1e-2)
     assert _kernels.launches["fused_encode_local"] == 1
     assert _kernels.launches["fused_encode"] == 0
-    cp = tokenize.fused_encode_plain(vt, scale=1e-2)[0]
+    cp, _, cbp, *_ = tokenize.fused_encode_plain(vt, scale=1e-2)
+    assert torch.equal(cbk, cbp)
     torch.cuda.synchronize()
     fin = torch.isfinite(cp).all(1)
     assert rel_rms(ck[fin], cp[fin]) < TRANSFORM_TOL
@@ -530,11 +591,10 @@ def test_fused_encode_local_matches_plain(dev):
     assert rk.tolist() == [False] * 18
     d2, s2, r2 = rle_device.tokenize(tokenize.scaled(ck, mk))
     assert torch.equal(dk, d2) and torch.equal(sk, s2) and torch.equal(rk, r2)
-    nr = torch.where(rk, 0, sk).to(torch.int64)
-    base = torch.cumsum(nr, 0) - nr
-    total = int(nr.sum())
-    got = pack.emit_payload(ck, mk, dk, base, rk, total)
-    assert torch.equal(got, pack.emit_payload_plain(ck, mk, dk, base, rk, total))
+    base = torch.cumsum(cbk.long(), 0) - cbk.long()
+    total = int(cbk.sum())
+    got = pack.emit_chunks(ck, mk, dk, cbk, base, total)
+    assert torch.equal(got, pack.emit_chunks_plain(ck, mk, dk, cbk, base, total))
     streams, nsizes, nraw = rle_host.encode_payloads(ck.cpu().numpy(), mk.cpu().numpy())
     np.testing.assert_array_equal(nraw, rk.cpu().numpy())
     np.testing.assert_array_equal(nsizes, sk.cpu().numpy())
@@ -593,8 +653,7 @@ def test_local_roundtrip_on_the_card(dev, block):
     torch.cuda.synchronize()
     local = ("fused_encode_local",) if b == 32 else ("block_fwd_z", "block_casc_local",
                                                       "block_scale_tok")
-    emit = "emit_payload" if b == 32 else "block_emit"
-    for k in local + (emit, "decode_maps", "decode_chase", "decode_emit"):
+    for k in local + ("block_emit", "decode_maps", "decode_chase", "decode_emit"):
         assert _kernels.launches[k] == 1, k
     assert _kernels.launches["fused_encode"] == _kernels.launches["block_encode_xy"] == 0
     hdr, _, blkmf, _ = ctn.unpack(data)

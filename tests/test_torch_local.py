@@ -204,7 +204,7 @@ def test_k9_table_matches_jax(jax_k9):
     1e-5 of JAX K9's, over blocks whose mulfacs span 10^4; the tokenize
     used that table (bit-equal to the plain tokenize at it)."""
     vol, j = jax_k9
-    coeffs, desc, sizes, raw, mulfacs = tokenize.fused_encode(
+    coeffs, desc, _, sizes, raw, mulfacs = tokenize.fused_encode(
         torch.from_numpy(vol), scale=SCALE)
     np.testing.assert_allclose(mulfacs.numpy(), j["mf"], rtol=TABLE_RTOL)
     assert mulfacs.max() / mulfacs.min() > 5e3
@@ -215,28 +215,28 @@ def test_k9_table_matches_jax(jax_k9):
 
 def test_k9_tokenize_and_emit_stage_exact(jax_k9):
     """Level 1: the port's tokenize fed JAX K9's fv gives its descriptors,
-    sizes and raw flags bit for bit, and emit_payload_plain writes the
-    native encoder's stream of that fv; on the port's own coefficients and
-    per-block table the stream equals native's at the same table."""
+    sizes and raw flags bit for bit, and emit_chunks_plain at its chunk
+    counts writes the native encoder's stream of that fv; on the port's own
+    coefficients, chunk counts and per-block table the stream equals
+    native's at the same table."""
     vol, j = jax_k9
     fv = torch.from_numpy(j["fv"])
     desc, sizes, raw = rle_device.tokenize(fv)
     np.testing.assert_array_equal(desc.numpy(), j["desc"])
     np.testing.assert_array_equal(sizes.numpy(), j["sizes"])
     np.testing.assert_array_equal(raw.numpy(), j["raw"])
-    nr = torch.where(raw, 0, sizes).long()
     ones = torch.ones(fv.shape[0])
-    stream = pack.emit_payload_plain(fv, ones, desc, torch.cumsum(nr, 0) - nr, raw,
-                                     int(nr.sum()))
+    _, cb, _, _ = tokenize.tokenize_blocks_plain(fv, ones)
+    base = torch.cumsum(cb.long(), 0) - cb.long()
+    stream = pack.emit_chunks_plain(fv, ones, desc, cb, base, int(cb.sum()))
     native, nsizes, _ = native_stream(j["fv"], 1.0)
     np.testing.assert_array_equal(nsizes, j["sizes"])
     np.testing.assert_array_equal(stream.numpy(), native)
 
-    coeffs, desc, sizes, raw, mulfacs = tokenize.fused_encode(
+    coeffs, desc, cb, sizes, raw, mulfacs = tokenize.fused_encode(
         torch.from_numpy(vol), scale=SCALE)
-    nr = torch.where(raw, 0, sizes).long()
-    stream = pack.emit_payload(coeffs, mulfacs, desc, torch.cumsum(nr, 0) - nr, raw,
-                               int(nr.sum()))
+    base = torch.cumsum(cb.long(), 0) - cb.long()
+    stream = pack.emit_chunks(coeffs, mulfacs, desc, cb, base, int(cb.sum()))
     native, nsizes, _ = native_stream(coeffs.numpy(), mulfacs.numpy())
     np.testing.assert_array_equal(nsizes, sizes.numpy())
     np.testing.assert_array_equal(stream.numpy(), native)

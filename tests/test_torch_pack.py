@@ -10,7 +10,7 @@ torch.set_num_threads(1)  # one thread a process: the suite runs in parallel wor
 
 from cvxcompress_tpu.ops import rle_device as jrle
 from cvxcompress_tpu.oracle import rle as orle
-from cvxcompress_tpu_torch.ops import pack, rle_device, rle_host
+from cvxcompress_tpu_torch.ops import pack, rle_device, rle_host, tokenize
 
 CELLS = 32 * 32 * 32
 
@@ -29,15 +29,14 @@ def coefficient_blocks(rng, n=6):
 
 
 def _emit(coeffs, mulfac):
-    desc, sizes, raw = rle_device.tokenize(
-        torch.from_numpy(coeffs) * torch.tensor(mulfac, dtype=torch.float32)
-    )
-    nr = torch.where(raw, 0, sizes).to(torch.int64)
-    base = torch.cumsum(nr, 0) - nr
-    stream = pack.emit_payload(
-        torch.from_numpy(coeffs), torch.full((coeffs.shape[0],), mulfac), desc,
-        base, raw, int(nr.sum())
-    )
+    """The emit of 32^3 blocks as the compress runs it: the tokenize's
+    per-chunk byte counts (0 in a raw block), their exclusive cumsum the
+    chunk bases, then `pack.emit_chunks`."""
+    c = torch.from_numpy(coeffs)
+    mf = torch.full((coeffs.shape[0],), mulfac)
+    desc, chunk_bytes, sizes, raw = tokenize.tokenize_blocks_plain(c, mf)
+    stream = pack.emit_chunks(c, mf, desc, chunk_bytes, pack.chunk_bases(chunk_bytes),
+                              int(chunk_bytes.sum()))
     return stream.numpy(), sizes.numpy(), raw.numpy()
 
 

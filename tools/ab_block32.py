@@ -98,8 +98,8 @@ def main():
         c, d, s, r, m = outs[local]
         e = cs.rel_rms(c, this[0])
         cs.check(e < cs.TRANSFORM_TOL, f"earlier {name} within rel RMS {e:.3e} of this one")
-        same = (torch.equal(d, this[1]) and torch.equal(s, this[2])
-                and torch.equal(r.bool(), this[3]) and torch.equal(m, this[4]))
+        same = (torch.equal(d, this[1]) and torch.equal(s, this[3])
+                and torch.equal(r.bool(), this[4]) and torch.equal(m, this[5]))
         print(f"  earlier {name}: descriptors, sizes, raw flags and table "
               f"{'equal' if same else 'differ (the coefficients differ in their last bits)'}")
         if not local:

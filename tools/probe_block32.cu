@@ -230,6 +230,7 @@ new_fwd(const __grid_constant__ CUtensorMap tmap, int nx, int ny, int64_t nnn,
   float* s = block_buffer(dsmem);
   __shared__ uint64_t full[2];
   __shared__ int rows[B * B];
+  __shared__ __align__(16) int halves[2 * CHUNKS_PER_BLOCK];
   __shared__ int scan_buf[32];
   auto load = [&](int64_t blk, int h) {
     if (threadIdx.x == 0) load_tma(s, &tmap, origin32(blk, nx, ny), h, smem_addr(&full[h]));
@@ -257,17 +258,16 @@ new_fwd(const __grid_constant__ CUtensorMap tmap, int nx, int ny, int64_t nnn,
     }
     store_lines(v, coeffs + blk * CELLS);
     __syncthreads();
-    int cost = 0;
 #pragma unroll 1
     for (int rep = 0; rep < MODE - 1; ++rep) {
       tokenize_carries(s, mulfac, rows, scan_buf);
-      cost += tokenize_half(s, mulfac, rows, 0, desc + blk * CELLS);
+      tokenize_half(s, mulfac, rows, 0, desc + blk * CELLS, halves);
       if (rep == MODE - 2) {
         fence_proxy_async();
         __syncthreads();
         if (more) load(blk + gridDim.x, 0);
       }
-      cost += tokenize_half(s, mulfac, rows, 1, desc + blk * CELLS);
+      tokenize_half(s, mulfac, rows, 1, desc + blk * CELLS, halves);
     }
     if (MODE < 2) {
       fence_proxy_async();
@@ -277,7 +277,7 @@ new_fwd(const __grid_constant__ CUtensorMap tmap, int nx, int ny, int64_t nnn,
     fence_proxy_async();
     __syncthreads();
     if (more) load(blk + gridDim.x, 1);
-    if (MODE >= 2 && threadIdx.x == 0) sizes[blk] = cost;
+    if (MODE >= 2 && threadIdx.x < 32) sizes[blk] = halves[threadIdx.x];  // keeps the work
   }
 }
 

@@ -104,7 +104,7 @@ def main():
                                              mf, coeffs.data_ptr(), desc.data_ptr(),
                                              sizes.data_ptr(), st()))
 
-    ck, dk, sk, _, _ = tokenize.fused_encode(vt, mf)
+    ck, dk, _, sk, _, _ = tokenize.fused_encode(vt, mf)
     old_fwd(3, vt)()
     torch.cuda.synchronize()
     e = cs.rel_rms(coeffs, ck)
