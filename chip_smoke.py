@@ -34,9 +34,11 @@ Builds the CUDA kernels (csrc/, nvcc for sm_90a) and the native host library
 - the JAX package's opt-in encode routes (phases 2e and 3f): under
   CVX_FUSED_W=1 at B (`block_fwd_xz` + `block_encode_y`, the 128^3 encode
   split at x,z | y, held bit-equal to `block_encode`'s z | x,y and timed
-  beside it), CVX_FUSED_W=0 at B (`tokenize_stripe`, K15's home),
-  CVX_STRIPE=patch at A with 32^3 and 64^3 blocks (`patch_extract` and
-  `block_emit_rows`) and CVX_FUSED_COMPACT=1 at A, A-local, B and the
+  beside it; `block_fwd_xz` also beside one two-operator einsum),
+  CVX_FUSED_W=0 at B (`tokenize_stripe`, K15's home), CVX_STRIPE=patch at
+  A with 32^3 and 64^3 blocks (`patch_extract` and `block_emit_rows`; in
+  phase 2e also on A's ramp, A's N(0,1) noise, every chunk live, and A at
+  (8, 16, 8)) and CVX_FUSED_COMPACT=1 at A, A-local, B and the
   half-zero volume at 256^3 blocks (`tokenize_compact` and
   `block_emit_rows`), each kernel against its plain
   version and the rows emit against the in-place one; each switch through
@@ -381,6 +383,22 @@ def einsum3(t, shape, block, inverse):
         else:
             out = torch.einsum("azbycx,Zz,Yy,Xx->aZbYcX",
                                t.view(g[0], bz, g[1], by, g[2], bx), oz, oy, ox)
+    return out.reshape(shape)
+
+
+def einsum_xz(t, shape, block):
+    """One torch.einsum with the x and z f32 operators of `block` in full
+    f32 over a (nz, ny, nx) volume of whole blocks, volume order out:
+    `block_fwd_xz`'s function (K16a), the library call timed beside it."""
+    import torch
+    from cvxcompress_tpu_torch.ops import wavelet
+
+    bx, by, bz = block
+    nz, ny, nx = shape
+    ox, oz = (wavelet.operator(n, False, t.device) for n in (bx, bz))
+    with wavelet.full_f32():
+        out = torch.einsum("azbycx,Zz,Xx->aZbycX",
+                           t.view(nz // bz, bz, ny // by, by, nx // bx, bx), oz, ox)
     return out.reshape(shape)
 
 
@@ -1463,6 +1481,9 @@ def main():
             "block_fwd_xz": dict(
                 max_abs_err=err_xz, ms=cuda_ms(lambda: fused_compress.fwd_xz(vtb), iters),
                 plain_ms=cuda_ms(lambda: fused_compress.fwd_xz_plain(vtb), 1),
+                library_ms=cuda_ms(lambda: einsum_xz(vtb, v.shape, BLOCK_B), iters),
+                library_call="one two-operator torch.einsum (full f32), x and z",
+                einsum3_ms=cuda_ms(lambda: einsum3(vtb, v.shape, BLOCK_B, False), iters),
                 # volume in, plane out; two cascades per cell
                 **bound(8 * ncell, 2 * C128 * ncell)),
             "block_encode_y": dict(
@@ -1490,17 +1511,22 @@ def main():
     del noise_b
     for k, r in rep.items():
         r.update(noise_ms=nrep[k]["ms"], noise_plain_ms=nrep[k]["plain_ms"])
+        if "library_ms" in nrep[k]:
+            r.update(noise_library_ms=nrep[k]["library_ms"])
     optin.update(rep)
     fused_w_kernels("config B ramp", ramp(vol_b, 128), SCALE, 1, timed=False)
 
-    def patch_kernels(label, v, block, iters):
+    def patch_kernels(label, v, block, iters, scale=SCALE):
         """patch_extract and the rows emit on the stripe route's encode of
         `v` at `block` (the route CVX_STRIPE=patch takes)."""
         vt = torch.from_numpy(v).to(dev)
-        c, dk, cbk, sk, rk, mk = tokenize.encode(vt, block, quant.global_mulfac(v, SCALE))
+        c, dk, cbk, sk, rk, mk = tokenize.encode(vt, block, quant.global_mulfac(v, scale))
         del vt
         n = int((cbk > 0).sum())
+        launched = _kernels.launches["patch_extract"]
         rows, drows, ids = pack.patch_extract(c, dk, cbk, block, n)
+        check(_kernels.launches["patch_extract"] == launched + 1,
+              f"{label}: patch_extract is one launch")
         plain = pack.patch_extract_plain(c, dk, cbk, block, n)
         check(all(torch.equal(a, b) for a, b in zip((rows, drows, ids), plain)),
               f"{label}: patch_extract rows, descriptors and ids ({n} live of "
@@ -1521,9 +1547,9 @@ def main():
                 ms=cuda_ms(lambda: pack.patch_extract(c, dk, cbk, block, n), iters),
                 plain_ms=cuda_ms(lambda: pack.patch_extract_plain(c, dk, cbk, block, n),
                                  1),
-                # every chunk's count and position; per live chunk 1 KiB in,
-                # 1 KiB and its id out
-                **bound(8 * cbk.numel() + n * (2048 + 4), 0)),
+                # every chunk's count; per live chunk 1 KiB in, 1 KiB and
+                # its id out
+                **bound(4 * cbk.numel() + n * (2048 + 4), 0)),
             "block_emit_rows": erep,
         }
         print(f"  {label}: block_emit in place {in_place_ms:.4f} ms, rows mode "
@@ -1584,9 +1610,15 @@ def main():
         return out
 
     prep = {}
-    for label, v, block in (("A 32^3", vol, (32, 32, 32)), ("A 64^3", vol, (64, 64, 64)),
-                            ("A 32^3 ramp", ramp(vol, 32), (32, 32, 32))):
-        prep[label] = patch_kernels(f"patch {label}", v, block, 5)
+    noise_a = np.random.default_rng(0).standard_normal(SHAPE, dtype=np.float32)
+    for label, v, block, scale in (
+            ("A 32^3", vol, (32, 32, 32), SCALE), ("A 64^3", vol, (64, 64, 64), SCALE),
+            ("A 32^3 ramp", ramp(vol, 32), (32, 32, 32), SCALE),
+            # every chunk live
+            ("A 32^3 noise", noise_a, (32, 32, 32), NOISE_SCALE),
+            ("A (8, 16, 8)", vol, (8, 16, 8), SCALE)):
+        prep[label] = patch_kernels(f"patch {label}", v, block, 5, scale)
+    del noise_a
     crep = {}
     for label, v, block, local in (("A", vol, (32, 32, 32), False),
                                    ("A-local", vol, (32, 32, 32), True),
@@ -2187,15 +2219,16 @@ def main():
                     counts_a[k] if k in KERNELS_A else
                     counts_d[k] if k in KERNELS_D and k not in KERNELS_B else
                     counts_b[k] if k in KERNELS_B else counts_a[k])
-        # a library call only for the transform kernels (einsum3); no single
-        # PyTorch call computes the others' functions (PERF.md)
+        # a library call only for the transform kernels (einsum3; the x, z
+        # einsum for block_fwd_xz); no single PyTorch call computes the
+        # others' functions (PERF.md)
         row = {"name": k, "route": "cuda",
                "source": f"cvxcompress_tpu_torch/{src}", "replaces": rep,
                "launches": launches, "max_abs_err": r["max_abs_err"],
                "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                "bound_by": r["bound_by"], "library_ms": r.get("library_ms")}
         for extra in ("noise_ms", "noise_plain_ms", "ramp_ms", "ramp_plain_ms", "inputs",
-                      "in_place_ms", "library_call", "noise_library_ms",
+                      "in_place_ms", "library_call", "noise_library_ms", "einsum3_ms",
                       "chunk_sparse_ms", "chunk_sparse_bound_ms", "device_ms",
                       "noise_device_ms", "noise_bound_ms", "zeroing_device_ms",
                       "noise_zeroing_device_ms", "half_zero_ms", "half_zero_plain_ms",

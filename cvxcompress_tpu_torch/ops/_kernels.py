@@ -89,9 +89,9 @@ _SIGNATURES = {
         _VP, _VP, _VP, _VP, _VP,
     ],
     "cvx_patch_extract": [
-        _VP, _VP, _VP, _VP, ctypes.c_int64, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-        ctypes.c_int64, ctypes.c_int64, ctypes.c_int64, ctypes.c_int64, _VP, _VP, _VP,
-        _VP,
+        _VP, _VP, _VP, ctypes.c_int64, ctypes.c_int64, ctypes.c_int, ctypes.c_int,
+        ctypes.c_int, ctypes.c_int64, ctypes.c_int64, ctypes.c_int64, ctypes.c_int64, _VP,
+        _VP, _VP, _VP, _VP,
     ],
     "cvx_block_emit_rows": [
         _VP, _VP, _VP, ctypes.c_int64, _VP, _VP, _VP, ctypes.c_int, _VP, _VP,

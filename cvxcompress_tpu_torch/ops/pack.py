@@ -223,6 +223,9 @@ def emit_rows(rows, drows, ids, mulfacs, chunk_bytes, chunk_base, total):
     return out
 
 
+PATCH_TILE = 256  # chunks a tile of csrc/patch_extract.cu
+
+
 def patch_extract_plain(plane, desc, chunk_bytes, block, nlive):
     """Plain PyTorch version of `patch_extract` (same rows)."""
     ids = torch.nonzero(chunk_bytes > 0).view(-1)
@@ -244,7 +247,10 @@ def patch_extract(plane, desc, chunk_bytes, block, nlive):
     its 128 descriptors of the block-major desc (nnn, cells).  `nlive` is
     the number of live chunks (from the codec's one read-back).  Returns
     rows (nlive, 128) f32, drows (nlive, 128) int32, ids (nlive,) int32.
-    The plain version runs for CPU tensors."""
+    One launch, no other kernel: it counts the live chunks, ranks them
+    across tiles of PATCH_TILE chunks by a decoupled look-back on a scratch
+    the launcher zeroes, and copies each once.  The plain version runs for
+    CPU tensors."""
     nnn, cells = desc.shape
     if (cells < 128 or plane.numel() != nnn * cells
             or chunk_bytes.numel() != nnn * cells // 128):
@@ -255,14 +261,20 @@ def patch_extract(plane, desc, chunk_bytes, block, nlive):
         return patch_extract_plain(plane, desc, chunk_bytes, block, nlive)
     _kernels.check_cuda(plane, desc, chunk_bytes,
                         dtypes=(torch.float32, torch.int32, torch.int32))
-    live = (chunk_bytes > 0).to(torch.int32)
-    pos = torch.cumsum(live, 0, dtype=torch.int32) - live  # each live chunk's row
+    _kernels.check_aligned(desc)
+    if plane.data_ptr() % 16:  # the kernel reads the plane as float4s
+        plane = plane.clone()
     rows = torch.empty((nlive, 128), dtype=torch.float32, device=plane.device)
     drows = torch.empty((nlive, 128), dtype=torch.int32, device=plane.device)
     ids = torch.empty(nlive, dtype=torch.int32, device=plane.device)
+    if nlive == 0:
+        return rows, drows, ids
+    nchunks = chunk_bytes.numel()
+    scratch = torch.empty(1 + -(-nchunks // PATCH_TILE), dtype=torch.int32,
+                          device=plane.device)
     _kernels.launch(
         "patch_extract", plane.data_ptr(), desc.data_ptr(), chunk_bytes.data_ptr(),
-        pos.data_ptr(), chunk_bytes.numel(), *geometry.map_args(plane.shape, block),
+        nchunks, nlive, *geometry.map_args(plane.shape, block), scratch.data_ptr(),
         rows.data_ptr(), drows.data_ptr(), ids.data_ptr(),
     )
     return rows, drows, ids

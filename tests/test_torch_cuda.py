@@ -22,6 +22,7 @@ from cvxcompress_tpu_torch.ops import (
 import chunk_emit_cases as ec
 import doubling_cases as dc
 import lookback_cases as lc
+import patch_walk_cases as pc
 import tile_tokenize_cases as tc
 
 pytestmark = pytest.mark.cuda
@@ -917,13 +918,14 @@ def test_block_encode_w_matches_plain_and_block_encode(dev, kind):
 @pytest.mark.parametrize("block,shape", [
     ((16, 16, 16), (40, 50, 70)), ((32, 32, 32), (64, 96, 96)),
     ((64, 64, 64), (70, 90, 100)), ((8, 16, 8), (20, 40, 60)),
+    ((8, 16, 8), (16, 416, 320)),  # A's width: 65 tiles
 ], ids=lambda v: "x".join(map(str, v)))
 @pytest.mark.parametrize("scale", [1e-2, 1e-12])
 def test_patch_extract_and_emit_rows_match_plain(dev, block, shape, scale):
     """K17 and the rows emit: `patch_extract`'s rows, descriptors and ids
-    bit-equal to its plain version on the stripe route's plane, and the
-    stream of `emit_rows` bit-equal to its plain version's and to the
-    in-place `emit_chunks` stream (at 1e-12 with raw blocks)."""
+    bit-equal to its plain version on the stripe route's plane (one
+    launch; none where every block is raw), and the stream of `emit_rows` bit-equal to its plain version's
+    and to the in-place `emit_chunks` stream (at 1e-12 with raw blocks)."""
     vol = generic_volume("sine", shape, block)
     vt = torch.from_numpy(vol).to(dev)
     c, dk, cbk, sk, rk, mk = tokenize.encode(vt, block, quant.global_mulfac(vol, scale))
@@ -931,7 +933,7 @@ def test_patch_extract_and_emit_rows_match_plain(dev, block, shape, scale):
     _kernels.reset_counts()
     rows, drows, ids = pack.patch_extract(c, dk, cbk, block, n)
     torch.cuda.synchronize()
-    assert _kernels.launches["patch_extract"] == 1
+    assert _kernels.launches["patch_extract"] == (1 if n else 0)  # none when all raw
     plain = pack.patch_extract_plain(c, dk, cbk, block, n)
     for got, ref in zip((rows, drows, ids), plain):
         assert torch.equal(got, ref)
@@ -943,6 +945,55 @@ def test_patch_extract_and_emit_rows_match_plain(dev, block, shape, scale):
     assert torch.equal(got, pack.emit_chunks(c, mk, dk, cbk, base, total, block))
     if scale == 1e-12:
         assert bool(rk.any())
+
+
+@pytest.mark.parametrize("name", list(pc.CASES))
+def test_patch_extract_walk_cases(dev, name):
+    """K17 on the cases of tests/patch_walk_cases.py (no live chunk: no
+    launch; every chunk live; one live chunk in the last window; raw blocks
+    between live ones; the patch route's blocks), bit-equal to its plain
+    version in one launch; twice in a row (the launcher zeroes its scratch
+    each call)."""
+    c = pc.make(name, dev)
+    args = (c["plane"], c["desc"], c["chunk_bytes"], c["block"], c["nlive"])
+    want = pack.patch_extract_plain(*args)
+    for _ in range(2):
+        _kernels.reset_counts()
+        got = pack.patch_extract(*args)
+        torch.cuda.synchronize()
+        assert _kernels.launches["patch_extract"] == (1 if c["nlive"] else 0)
+        for g, w in zip(got, want):
+            assert g.shape == w.shape and torch.equal(g, w)
+
+
+@pytest.mark.parametrize("block,shape,live", [
+    ((8, 16, 8), (80, 400, 1016), 0.1), ((8, 16, 8), (80, 400, 1016), 1.0),
+    ((16, 16, 16), (80, 400, 1008), 1.0),
+], ids=lambda v: "x".join(map(str, v)) if isinstance(v, tuple) else str(v))
+def test_patch_extract_many_tiles(dev, block, shape, live):
+    """K17 over more tiles than the card holds CTAs (993 and 985 tiles, the
+    last cut short), synthetic counts (any chunk live with probability
+    `live`: both of the launcher's shapes, the x-neighbour order at 8
+    chunks a block) and a view of the plane at a 4-byte offset (the wrapper
+    copies it to 16-byte alignment): bit-equal to its plain version, which
+    takes any counts."""
+    cells = block[0] * block[1] * block[2]
+    nnn = shape[0] * shape[1] * shape[2] // cells
+    g = torch.Generator(device=dev).manual_seed(3)
+    plane = torch.randn(nnn * cells + 1, device=dev, generator=g)[1:].view(shape)
+    desc = torch.randint(-2**31, 2**31 - 1, (nnn, cells), device=dev, generator=g,
+                         dtype=torch.int32)
+    nchunks = nnn * cells // 128
+    cb = ((torch.rand(nchunks, device=dev, generator=g) < live)
+          * torch.randint(1, 600, (nchunks,), device=dev, generator=g)).to(torch.int32)
+    n = int((cb > 0).sum())
+    assert -(-nchunks // pack.PATCH_TILE) in (993, 985)
+    _kernels.reset_counts()
+    got = pack.patch_extract(plane, desc, cb, block, n)
+    torch.cuda.synchronize()
+    assert _kernels.launches["patch_extract"] == 1
+    for a, b in zip(got, pack.patch_extract_plain(plane, desc, cb, block, n)):
+        assert torch.equal(a, b)
 
 
 @pytest.mark.parametrize("block,shape", [
