@@ -46,6 +46,16 @@ Builds the CUDA kernels (csrc/, nvcc for sm_90a) and the native host library
   default route's where the coefficients are, else the ratio within 1 % of
   native's and the CI bars; and an 8^3 compress under the caller's
   set_float32_matmul_precision("high") equal to one under "highest";
+- the RTM snapshot path (phase 3g), on volumes born on the card:
+  `compress_many` of 4 A volumes, 2 A-local and 2 B volumes and
+  `decompress_many` of their containers (device engine), the four stream
+  functions of `pipeline` over 8 A volumes (workers 4; batch 4,
+  lookahead 1), a `DeviceSnapshotStack` at A fed the 8 volumes (append,
+  get, to_container, from_container, a forced capacity overflow, pop in
+  reverse) and one at B of 2: every container byte-equal to a single
+  compress, every volume bit-equal to a single device-engine decompress,
+  the kernels' launches on each path, and the times a volume of a batch
+  against single calls, of an append and of a get;
 
 and holds `decode_chase`, the route the wrapper picks and each of its two
 routes (the walk, the pieces), bit-equal to its plain version on every
@@ -547,6 +557,223 @@ def profiled(run_compress, run_decompress, tag, card, tries=4):
     return spans, idle
 
 
+def card_sinusoid(torch, dev, shape, phase, local=False):
+    """sin(z*pi*PERIODS/nz + phase) broadcast over (y, x), born on the card;
+    `local` scales its lower half by 1e-3 (block RMS far apart)."""
+    nz = shape[0]
+    z = torch.arange(nz, dtype=torch.float32, device=dev) * np.float32(np.pi * PERIODS / nz)
+    v = torch.sin(z + np.float32(phase))[:, None, None].expand(shape).contiguous()
+    if local:
+        v[: nz // 2] *= 1e-3
+    return v
+
+
+def phase_3g(torch, cvt, codec, pipeline, kernels, dev, card):
+    """The batched codecs, the streams and the snapshot stack at full width
+    (A's shape at 32^3, B's at 128^3), on volumes born on the card: every
+    container byte-equal to a single compress, every volume bit-equal to a
+    single device-engine decompress; the times a volume of a batch against
+    single calls (host clock, medians of 3), of an append and a get; the
+    launches of each kernel on each path."""
+    from cvxcompress_tpu_torch import DeviceSnapshotStack
+
+    res = {"card": card}
+
+    def counted(tag, fn, expect):
+        kernels.reset_counts()
+        out = fn()
+        torch.cuda.synchronize()
+        cnt = {k: v for k, v in kernels.launches.items() if v}
+        print(f"  3g launches, {tag}: {cnt}")
+        check(all(cnt.get(k, 0) == n for k, n in expect.items()),
+              f"3g {tag}: launches {expect}")
+        res.setdefault("launches", {})[tag] = cnt
+        return out
+
+    def per_volume_ms(tag, fn, k):
+        med, times = wall_ms(lambda: (fn(), torch.cuda.synchronize()), 3)
+        res.setdefault("ms_per_volume", {})[tag] = med / k
+        print(f"  3g {tag}: {med / k:.3f} ms a volume (median of 3 runs of {k}: "
+              f"{[round(x, 2) for x in times]} ms) on {card}")
+
+    def equal_vols(a, b):
+        return all(bits_same(x, y) for x, y in zip(a, b)) and len(a) == len(b)
+
+    dec_kernels = dict(decode_maps=1, decode_chase=1, decode_emit=1)
+    A = [card_sinusoid(torch, dev, SHAPE, 0.7 * j) for j in range(8)]
+    AL = [card_sinusoid(torch, dev, SHAPE, 0.3 + 0.7 * j, local=True) for j in range(2)]
+    B = [card_sinusoid(torch, dev, SHAPE_B, 0.5 * j) for j in range(2)]
+    groups = (("A", A[:4], BLOCK_A, False, dict(fused_encode=4, block_emit=4),
+               dict(fused_inverse=4)),
+              ("A-local", AL, BLOCK_A, True, dict(fused_encode_local=2, block_emit=2),
+               dict(fused_inverse=2)),
+              ("B", B, BLOCK_B, False,
+               dict(block_fwd_z=2, block_encode_xy=2, block_emit=2),
+               dict(block_inv_xy=2, block_inv_z=2)))
+    singles = {}
+    for tag, vols, block, local, enc, inv in groups:
+        ds = [cvt.compress(v, SCALE, block=block, use_local_rms=local)[0] for v in vols]
+        singles[tag] = ds
+        got = counted(f"compress_many {tag} x{len(vols)}",
+                      lambda: codec.compress_many(vols, SCALE, block, local), enc)
+        check(all(np.array_equal(d, g) for d, (g, _) in zip(ds, got)),
+              f"3g compress_many {tag} x{len(vols)}: every container byte-equal to "
+              "a single compress")
+        refs = [cvt.decompress(d, engine="device") for d in ds]
+        k = len(ds)
+        outs = counted(f"decompress_many {tag} x{k}",
+                       lambda: codec.decompress_many(ds, "cuda", to_host=False),
+                       {**{n: k * c for n, c in dec_kernels.items()}, **inv})
+        check(equal_vols(outs, refs), f"3g decompress_many {tag} x{k}: every volume "
+              "bit-equal to a single device-engine decompress")
+        del outs, refs
+    sa = singles["A"]
+    per_volume_ms("compress A single", lambda: [cvt.compress(v, SCALE) for v in A[:4]], 4)
+    per_volume_ms("compress_many A x4", lambda: codec.compress_many(A[:4], SCALE), 4)
+    per_volume_ms("decompress A single (device engine)",
+                  lambda: [cvt.decompress(d, engine="device") for d in sa], 4)
+    per_volume_ms("decompress_many A x4 (on the card)",
+                  lambda: codec.decompress_many(sa, "cuda", to_host=False), 4)
+    per_volume_ms("decompress A single + .cpu()",
+                  lambda: [cvt.decompress(d, engine="device").cpu() for d in sa], 4)
+    per_volume_ms("decompress_many A x4 to host",
+                  lambda: codec.decompress_many(sa, "cuda", to_host=True), 4)
+
+    # the streams over 8 A volumes: order kept, containers and volumes equal
+    ds8 = sa + [cvt.compress(v, SCALE)[0] for v in A[4:]]
+    refs8 = [cvt.decompress(d, engine="device") for d in ds8]
+    torch.cuda.synchronize()
+    for tag, fn in (
+            ("compress_stream workers=4",
+             lambda: list(pipeline.compress_stream(iter(A), SCALE, workers=4))),
+            ("compress_stream_batched batch=4 lookahead=1",
+             lambda: list(pipeline.compress_stream_batched(iter(A), SCALE, batch=4,
+                                                           lookahead=1)))):
+        got = counted(tag + " x8", fn, dict(fused_encode=8, block_emit=8))
+        check(len(got) == 8 and all(np.array_equal(d, g) for d, (g, _) in zip(ds8, got)),
+              f"3g {tag} x8: containers in order, byte-equal to single compresses")
+        per_volume_ms(tag, fn, 8)
+    per_volume_ms("compress A single x8", lambda: [cvt.compress(v, SCALE) for v in A], 8)
+    for tag, fn in (
+            ("decompress_stream workers=4",
+             lambda: list(pipeline.decompress_stream(iter(ds8), workers=4,
+                                                     engine="device"))),
+            ("decompress_stream_batched batch=4 lookahead=1 (on the card)",
+             lambda: list(pipeline.decompress_stream_batched(
+                 iter(ds8), batch=4, lookahead=1, to_host=False)))):
+        outs = counted(tag + " x8", fn, {**{n: 8 for n in dec_kernels}, "fused_inverse": 8})
+        check(equal_vols(outs, refs8), f"3g {tag} x8: volumes in order, bit-equal to "
+              "single device-engine decompresses")
+        del outs
+        per_volume_ms(tag, fn, 8)
+    outs = list(pipeline.decompress_stream_batched(iter(ds8), batch=4, lookahead=1))
+    check(equal_vols([torch.from_numpy(o).to(dev) for o in outs], refs8),
+          "3g decompress_stream_batched to host x8: numpy volumes bit-equal")
+    del outs
+    per_volume_ms("decompress_stream_batched batch=4 lookahead=1 to host",
+                  lambda: list(pipeline.decompress_stream_batched(iter(ds8), batch=4,
+                                                                  lookahead=1)), 8)
+    per_volume_ms("decompress A single x8 (device engine)",
+                  lambda: [cvt.decompress(d, engine="device") for d in ds8], 8)
+    # a probe of the worker threads' cost: the interpreter's switch interval
+    # (5 ms by default) bounds how soon a thread that left the GIL for a
+    # short call gets it back while another runs Python
+    interval = sys.getswitchinterval()
+    try:
+        sys.setswitchinterval(1e-4)
+        per_volume_ms("compress_stream workers=4, switch interval 0.1 ms (probe)",
+                      lambda: list(pipeline.compress_stream(iter(A), SCALE, workers=4)),
+                      8)
+        per_volume_ms("decompress_stream workers=4, switch interval 0.1 ms (probe)",
+                      lambda: list(pipeline.decompress_stream(iter(ds8), workers=4,
+                                                              engine="device")), 8)
+    finally:
+        sys.setswitchinterval(interval)
+
+    # the snapshot stack at A, 32^3: 8 volumes born on the card
+    st = DeviceSnapshotStack(SHAPE, SCALE)
+    app, get = [], []
+    kernels.reset_counts()
+    for v in A:
+        t = time.perf_counter()
+        st.append(v)
+        torch.cuda.synchronize()
+        app.append((time.perf_counter() - t) * 1e3)
+    st.flush()
+    res.setdefault("launches", {})["stack append x8"] = {
+        k: n for k, n in kernels.launches.items() if n}
+    check(kernels.launches["fused_encode"] == 8, "3g stack: 8 appends, 8 fused_encode")
+    kernels.reset_counts()
+    gets = []
+    for i in range(8):
+        t = time.perf_counter()
+        gets.append(st.get(i))
+        torch.cuda.synchronize()
+        get.append((time.perf_counter() - t) * 1e3)
+    res["launches"]["stack get x8"] = {k: n for k, n in kernels.launches.items() if n}
+    check(kernels.launches["fused_inverse"] == 8, "3g stack: 8 gets, 8 fused_inverse")
+    res["append_ms"], res["get_ms"] = statistics.median(app), statistics.median(get)
+    print(f"  3g stack A: append median {res['append_ms']:.3f} ms "
+          f"{[round(x, 2) for x in app]}, get median {res['get_ms']:.3f} ms "
+          f"{[round(x, 2) for x in get]} on {card}")
+    res["nbytes"], res["ratio"] = st.nbytes(), st.ratio()
+    print(f"  3g stack A: {len(st)} snapshots hold {res['nbytes']} B on the card, "
+          f"ratio {res['ratio']:.1f} on {card}")
+    for i in (0, 3, 7):  # through the host: native's encoder on 47 M cells each
+        c = st.to_container(i)
+        check(np.array_equal(c, ds8[i]), f"3g stack: to_container({i}) byte-equal to "
+              "the single compress of its volume")
+        check(bits_same(gets[i], cvt.decompress(c, engine="device")),
+              f"3g stack: get({i}) bit-equal to decompress(to_container({i}), "
+              "engine='device')")
+    j = st.from_container(ds8[5])
+    check(bits_same(st.get(j), refs8[5]), "3g stack: from_container of a port container, "
+          "get bit-equal to its device-engine decompress")
+    check(bits_same(st.pop(), gets[5]) and len(st) == 8,
+          "3g stack: popped the from_container snapshot")
+    spike = torch.zeros(SHAPE, device=dev)
+    spike[0, 0, 0] = 1.0
+    st2 = DeviceSnapshotStack(SHAPE, SCALE, max_pending=1)
+    st2.append(spike)
+    st2.append(A[0])
+    st2.flush()
+    check(st2._snaps[1][3] > st2._snaps[0][0].shape[0]
+          and st2._snaps[1][0].shape[0] >= st2._snaps[1][3]
+          and bits_same(st2.get(1), gets[0]),
+          f"3g stack: forced capacity overflow ({st2._snaps[1][3]} live chunks over "
+          f"a capacity of {st2._snaps[0][0].shape[0]}) compacted again, get "
+          "bit-equal")
+    del st2
+    pops = []
+    for i in reversed(range(8)):
+        t = time.perf_counter()
+        p = st.pop()
+        torch.cuda.synchronize()
+        pops.append((time.perf_counter() - t) * 1e3)
+        check(bits_same(p, gets[i]), f"3g stack: pop {i} equals get({i})")
+    res["pop_ms"] = statistics.median(pops)
+    del gets, refs8
+
+    # a 128^3 stack at B, 2 snapshots
+    sb = DeviceSnapshotStack(SHAPE_B, SCALE, BLOCK_B)
+    kernels.reset_counts()
+    for v in B:
+        sb.append(v)
+    torch.cuda.synchronize()
+    check(kernels.launches["block_encode_xy"] == 2, "3g stack B: 2 appends, "
+          "2 block_encode_xy")
+    for i in range(2):
+        c = sb.to_container(i)
+        check(np.array_equal(c, singles["B"][i]), f"3g stack B: to_container({i}) "
+              "byte-equal to the single compress")
+        check(bits_same(sb.get(i), cvt.decompress(c, engine="device")),
+              f"3g stack B: get({i}) bit-equal to its device-engine decompress")
+    res["B_nbytes"], res["B_ratio"] = sb.nbytes(), sb.ratio()
+    print(f"  3g stack B: 2 snapshots hold {res['B_nbytes']} B, ratio "
+          f"{res['B_ratio']:.1f} on {card}")
+    return res
+
+
 def main():
     t_start = time.perf_counter()
     card = subprocess.run(
@@ -562,6 +789,7 @@ def main():
         return 2
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     import cvxcompress_tpu_torch as cvt
+    from cvxcompress_tpu_torch import pipeline
     from cvxcompress_tpu_torch.ops import (
         _kernels, blocks, codec, entropy_decode, fused_compress, fused_inverse,
         pack, quant, rle_device, rle_host, tokenize, wavelet,
@@ -2141,6 +2369,15 @@ def main():
     res_f["tf32_container_equal"] = True
     print(f"  phase 3f {time.perf_counter() - t_phase:.1f} s", flush=True)
 
+    # -- phase 3g: the batched codecs, the streams and the snapshot stack --
+    print(f"  at {time.perf_counter() - t_start:.1f} s", flush=True)
+    print("phase 3g: compress_many / decompress_many, the streams and "
+          "DeviceSnapshotStack at", SHAPE, "and", SHAPE_B, "on", name, flush=True)
+    t_phase = time.perf_counter()
+    res_g = phase_3g(torch, cvt, codec, pipeline, _kernels, dev, card)
+    print(f"  phase 3g {time.perf_counter() - t_phase:.1f} s", flush=True)
+    check("jax" not in sys.modules, "the port imported no jax after phase 3g")
+
     for k, r in report.items():
         print(f"  {k}: kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.3f} ms, bound "
               f"{r['bound_ms']:.4f} ms ({r['bound_by']}) on {card}")
@@ -2246,7 +2483,7 @@ def main():
                                        **res_b),
                       "config_a_local": res_c, "config_b_local": res_d,
                       "other_geometries": res_e, "optin_routes": res_f,
-                      "kernel_phase_e2e_ms": e2e,
+                      "kernel_phase_e2e_ms": e2e, "batched_streams_snapshots": res_g,
                       "encode_128_split_ms": dict(zip(
                           ("z|xy", "xz|y", "xz|y again", "z|xy again"), split_ms))}))
     print(json.dumps({"ok": True, "device": {

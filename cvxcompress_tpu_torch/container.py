@@ -94,6 +94,23 @@ class Header:
         return block_grid(self.nx, self.ny, self.nz, self.bx, self.by, self.bz)
 
 
+def pack(header, payloads, raw_flags, blkmulfac=None):
+    """Assemble the container from per-block payloads (block order).
+
+    `payloads` is a sequence of bytes-like per-block streams, `raw_flags`
+    marks blocks stored as raw coefficients.  Returns a uint8 ndarray of
+    exactly the reference-accounted length (`pack_stream` of the
+    concatenated payloads).
+    """
+    nnn = header.grid[3]
+    if len(payloads) != nnn or len(raw_flags) != nnn:
+        raise ValueError(f"{len(payloads)} payloads and {len(raw_flags)} raw flags "
+                         f"for {nnn} blocks")
+    sizes = np.array([len(p) for p in payloads], dtype=np.int64)
+    stream = np.frombuffer(b"".join(bytes(p) for p in payloads), dtype=np.uint8)
+    return pack_stream(header, sizes, raw_flags, stream, blkmulfac)
+
+
 def pack_stream(header, sizes, raw_flags, stream, blkmulfac=None):
     """Assemble the container from a pre-concatenated payload stream.
 

@@ -8,8 +8,8 @@ pass as `c_void_p`.  The library lands in
 of the sources so an edited kernel is never served from a stale build.
 
 Each kernel has a plain-integer launch counter, `launches[name]`, raised
-only where the kernel is launched, so a run can show which kernels its main
-path went through.  A failed build, a missing nvcc or card, and any launch
+(under a lock: launches come from several threads) only where the kernel
+is launched, so a run can show which kernels its main path went through.  A failed build, a missing nvcc or card, and any launch
 that returns a `cudaError_t` other than 0 raise; nothing falls back.
 """
 
@@ -32,6 +32,8 @@ BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build", "kernels")
 ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
 
 _VP = ctypes.c_void_p
+# each launcher's C parameters, the stream last (`launch` appends it): a
+# parameter left out here would pass as a C int, truncating the pointer
 _SIGNATURES = {
     "cvx_fused_encode": [
         _VP, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_float,
@@ -47,7 +49,7 @@ _SIGNATURES = {
     "cvx_decode_maps": [_VP, ctypes.c_int64, ctypes.c_int, _VP, _VP, _VP],
     "cvx_decode_chase": [
         _VP, _VP, _VP, ctypes.c_int64, ctypes.c_int64, ctypes.c_int, ctypes.c_int,
-        ctypes.c_int, _VP, _VP, _VP,
+        ctypes.c_int, _VP, _VP, _VP, _VP,
     ],
     "cvx_decode_emit": [
         _VP, _VP, _VP, _VP, _VP, ctypes.c_int64, _VP, ctypes.c_int,
@@ -115,8 +117,9 @@ _lock = threading.Lock()
 
 
 def reset_counts():
-    for k in launches:
-        launches[k] = 0
+    with _lock:
+        for k in launches:
+            launches[k] = 0
 
 
 def _sources():
@@ -215,7 +218,8 @@ def launch(name, *args):
     if rc != 0:
         msg = lb.cvx_cuda_error_string(rc).decode()
         raise RuntimeError(f"{name} launch failed: cudaError {rc} ({msg})")
-    launches[name] += 1
+    with _lock:  # the stream pipelines launch from several threads
+        launches[name] += 1
 
 
 def check_cuda(*tensors, dtypes):

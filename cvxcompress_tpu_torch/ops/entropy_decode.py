@@ -178,10 +178,19 @@ _TORCH_DTYPES = {np.uint8: torch.uint8, np.int32: torch.int32,
 
 def upload(p, device):
     """One host-to-device copy of the plan blob; its fields as views."""
-    blob = torch.from_numpy(p["blob"]).to(device)
+    return fields(torch.from_numpy(p["blob"]).to(device), p["layout"])
+
+
+def fields(blob, layout, base=0):
+    """A plan's fields as views of the uint8 tensor `blob`, which holds the
+    plan's blob at byte `base` (a multiple of the field alignment): several
+    plans can share one upload (ops/codec.py `decompress_many`)."""
+    if base % _ALIGN:
+        raise ValueError(f"a plan's blob must start on a {_ALIGN}-byte boundary")
     out = {}
-    for name, (o, dt, shape) in p["layout"].items():
+    for name, (o, dt, shape) in layout.items():
         n = int(np.prod(shape)) * np.dtype(dt).itemsize
+        o += base
         out[name] = blob[o: o + n].view(_TORCH_DTYPES[dt]).reshape(shape)
     return out
 

@@ -55,18 +55,26 @@ def global_mulfac(vol, scale):
     """mulfac = 1/(rms*scale) of a (nz, ny, nx) f32 tensor or array.
 
     Host data takes the reference's exact numpy reduction.  A CUDA tensor
-    is reduced on the card, still in float64, so only the summation order
-    differs from the host's (a last-bit difference in the f64 sum, which
-    the f32 cast almost always absorbs) and the volume never leaves the
-    card.
+    is reduced on the card, still in float64 (`sumsq`), so only the
+    summation order differs from the host's (a last-bit difference in the
+    f64 sum, which the f32 cast almost always absorbs) and the volume never
+    leaves the card.
     """
     if isinstance(vol, torch.Tensor) and vol.device.type != "cpu":
-        acc = torch.sum(torch.square(vol.to(torch.float64))).item()
-        rms = np.float32(math.sqrt(acc / vol.numel()))
-    else:
-        host = vol.numpy() if isinstance(vol, torch.Tensor) else vol
-        rms = global_rms_host(host)
-    return ctn.compute_glob_mulfac(rms, scale)
+        return mulfac_from_sumsq(sumsq(vol).item(), vol.numel(), scale)
+    host = vol.numpy() if isinstance(vol, torch.Tensor) else vol
+    return ctn.compute_glob_mulfac(global_rms_host(host), scale)
+
+
+def sumsq(vol):
+    """The f64 sum of squares of a tensor, on its device (0-dim, not read
+    back): what `global_mulfac` reduces a CUDA volume to."""
+    return torch.sum(torch.square(vol.to(torch.float64)))
+
+
+def mulfac_from_sumsq(acc, n, scale):
+    """The global mulfac from an f64 sum of squares `acc` over `n` cells."""
+    return ctn.compute_glob_mulfac(np.float32(math.sqrt(float(acc) / n)), scale)
 
 
 # cells per block -> (z-slices reduced by one CTA each, threads of a CTA)

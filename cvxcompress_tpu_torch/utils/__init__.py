@@ -1,1 +1,1 @@
-"""Container IO helpers."""
+"""Container file IO and synthetic volumes."""

@@ -1,6 +1,9 @@
-"""Structural validation of a container before any decode work.
+"""Container file IO: the compressed container IS the persistence format.
 
-A numpy copy of `cvxcompress_tpu/utils/io.py:validate`.
+A numpy copy of `cvxcompress_tpu/utils/io.py`.  The reference has no
+in-library checkpointing: its benchmark CLIs fwrite the container to disk
+(Test_Compression.cpp:201-207).  These helpers make that a first-class
+operation, plus validated loading.
 """
 
 from __future__ import annotations
@@ -8,6 +11,11 @@ from __future__ import annotations
 import numpy as np
 
 from .. import container as ctn
+
+
+def save(path, data):
+    """Write a compressed container to disk."""
+    np.asarray(data, dtype=np.uint8).tofile(path)
 
 
 def validate(data):
@@ -37,3 +45,35 @@ def validate(data):
             f"{int(reach.max()) if reach.size else 0} of {avail}"
         )
     return hdr
+
+
+def load(path):
+    """Read and validate a compressed container; returns the uint8 array.
+
+    Raises ValueError on a corrupt or truncated container.
+    """
+    data = np.fromfile(path, dtype=np.uint8)
+    validate(data)
+    return data
+
+
+def probe(data_or_path):
+    """Header summary of a container (or of the file at a path): dims,
+    block, mode, sizes, as a dict for CLIs and debugging."""
+    if isinstance(data_or_path, (str, bytes)):
+        data = np.fromfile(data_or_path, dtype=np.uint8)
+    else:
+        data = np.asarray(data_or_path, dtype=np.uint8)
+    hdr, blkoffs, _, payload_base = ctn.unpack(data)
+    ncells = hdr.nx * hdr.ny * hdr.nz
+    return {
+        "shape_zyx": (hdr.nz, hdr.ny, hdr.nx),
+        "block_xyz": (hdr.bx, hdr.by, hdr.bz),
+        "blocks": hdr.grid[3],
+        "glob_mulfac": float(hdr.glob_mulfac),
+        "use_local_rms": hdr.use_local_rms,
+        "raw_blocks": int((blkoffs < 0).sum()),
+        "container_bytes": int(data.size),
+        "payload_bytes": int(data.size - payload_base - ctn.SLACK_BYTES),
+        "ratio": ncells * 4 / data.size,
+    }

@@ -1177,3 +1177,136 @@ def test_volume_on_another_card(dev):
         assert out.device == last and torch.cuda.current_device() == 0
         want = cvt.decompress(ref, device="cuda:0")
         assert torch.equal(out.cpu(), want.cpu())
+
+
+# -- the batched codecs, the streams and the snapshot stack on the card -------
+
+SHAPE_A = (352, 416, 320)
+
+
+def card_sinusoids(dev, shape, k, local=False):
+    """k sinusoids of different phase, born on the card."""
+    nz = shape[0]
+    z = torch.arange(nz, dtype=torch.float32, device=dev) * (np.pi * 10 / nz)
+    out = []
+    for j in range(k):
+        v = torch.sin(z + 0.7 * j)[:, None, None].expand(shape).contiguous()
+        if local:
+            v[: nz // 2] *= 1e-3  # block RMS far apart
+        out.append(v)
+    return out
+
+
+@pytest.mark.parametrize("local", [False, True])
+def test_compress_decompress_many_equal_single_at_a(dev, local):
+    """compress_many / decompress_many at A's shape: each container
+    byte-equal to a single compress, each volume bit-equal to a single
+    device-engine decompress."""
+    vols = card_sinusoids(dev, SHAPE_A, 3, local)
+    singles = [cvt.compress(v, 1e-2, use_local_rms=local)[0] for v in vols]
+    got = codec.compress_many(vols, 1e-2, use_local_rms=local)
+    for d, (g, _) in zip(singles, got):
+        assert np.array_equal(d, g)
+    outs = codec.decompress_many(singles, "cuda", to_host=False)
+    host = codec.decompress_many(singles, "cuda", to_host=True)
+    for d, o, h in zip(singles, outs, host):
+        ref = cvt.decompress(d, engine="device")
+        assert torch.equal(o.view(torch.int32), ref.view(torch.int32))
+        assert np.array_equal(h.view(np.uint32), ref.cpu().numpy().view(np.uint32))
+
+
+def test_compress_stream_from_four_threads(dev):
+    """compress_stream with 4 worker threads, each on its own CUDA stream,
+    20 rounds over volumes born on the card: every container byte-equal to
+    the single compress, in order, every round."""
+    from cvxcompress_tpu_torch import pipeline
+
+    vols = card_sinusoids(dev, (128, 160, 192), 8)
+    refs = [cvt.compress(v, 1e-2)[0] for v in vols]
+    for r in range(20):
+        got = list(pipeline.compress_stream(iter(vols), 1e-2, workers=4))
+        assert len(got) == len(refs)
+        for i, ((d, _), ref) in enumerate(zip(got, refs)):
+            assert np.array_equal(d, ref), (r, i)
+    outs = list(pipeline.decompress_stream(refs, workers=4))
+    for d, o in zip(refs, outs):
+        ref = cvt.decompress(d)
+        assert torch.equal(o.view(torch.int32), ref.view(torch.int32))
+
+
+def test_stream_batched_on_the_card(dev):
+    """The batched streams on their CUDA streams, inputs made on the
+    caller's stream: containers and volumes equal the single calls."""
+    from cvxcompress_tpu_torch import pipeline
+
+    vols = card_sinusoids(dev, (128, 160, 192), 7)
+    refs = [cvt.compress(v, 1e-2)[0] for v in vols]
+    got = list(pipeline.compress_stream_batched(iter(vols), 1e-2, batch=3))
+    assert all(np.array_equal(d, r) for (d, _), r in zip(got, refs))
+    for to_host in (False, True):
+        outs = list(pipeline.decompress_stream_batched(iter(refs), batch=3,
+                                                       to_host=to_host))
+        assert len(outs) == len(refs)
+        for d, o in zip(refs, outs):
+            ref = cvt.decompress(d, engine="device")
+            o = torch.as_tensor(o).to(dev)
+            assert torch.equal(o.view(torch.int32), ref.view(torch.int32))
+
+
+def test_snapshot_pending_after_volumes_freed(dev):
+    """A stack whose pending checks resolve after the volumes they came
+    from were freed and their memory written over: every snapshot still
+    equals the device-engine decompress of its container, and its
+    container the single compress of a copy of the volume."""
+    from cvxcompress_tpu_torch import DeviceSnapshotStack
+
+    shape = (128, 160, 192)
+    st = DeviceSnapshotStack(shape, 1e-2, max_pending=4)
+    refs = []
+    for j in range(4):
+        v = card_sinusoids(dev, shape, j + 1)[j]
+        refs.append(cvt.compress(v.clone(), 1e-2)[0])
+        st.append(v)
+        del v
+    torch.cuda.empty_cache()
+    junk = [torch.full(shape, float("nan"), device=dev) for _ in range(4)]
+    assert len(st._pending) == 4
+    st.flush()
+    del junk
+    for i, ref in enumerate(refs):
+        assert np.array_equal(st.to_container(i), ref)
+        out = st.get(i)
+        dec = cvt.decompress(ref, engine="device")
+        assert torch.equal(out.view(torch.int32), dec.view(torch.int32))
+
+
+@pytest.mark.parametrize("block", [(32, 32, 32), (16, 16, 16), (8, 8, 8)])
+def test_snapshot_stack_on_the_card(dev, block):
+    """The stack on the card: dense_fiv the codec's quantized values,
+    get equal to the device engine's decompress of to_container, a forced
+    capacity overflow, pop in reverse."""
+    from cvxcompress_tpu_torch import DeviceSnapshotStack
+
+    shape = (96, 128, 160)
+    vols = card_sinusoids(dev, shape, 3)
+    spike = torch.zeros(shape, device=dev)
+    spike[0, 0, 0] = 1.0
+    st = DeviceSnapshotStack(shape, 1e-2, block, max_pending=1)
+    st.append(spike)  # a capacity of one chunk: the next append overflows
+    for v in vols:
+        st.append(v)
+    gets = []
+    for i in range(len(st)):
+        c = st.to_container(i)
+        hdr, blkoffs, _, pbase = ctn.unpack(c)
+        payload = np.frombuffer(memoryview(c), dtype=np.uint8)[pbase:]
+        iv = rle_host.decode_payloads(payload, blkoffs, np.float32(1.0), st.cells)
+        assert np.array_equal(st.dense_fiv(i).view(np.uint32), iv.view(np.uint32))
+        if i:
+            assert np.array_equal(c, cvt.compress(vols[i - 1], 1e-2, block)[0])
+        g = st.get(i)
+        dec = cvt.decompress(c, engine="device")
+        assert torch.equal(g.view(torch.int32), dec.view(torch.int32))
+        gets.append(g)
+    for i in reversed(range(len(gets))):
+        assert torch.equal(st.pop().view(torch.int32), gets[i].view(torch.int32))
