@@ -774,6 +774,284 @@ def phase_3g(torch, cvt, codec, pipeline, kernels, dev, card):
     return res
 
 
+SHAPE_U128 = (320, 384, 384)  # unaligned 128^3: the stripe route, slabs 1-2 aligned
+MH_TIMEOUT = 300  # seconds a multihost worker may take
+
+MH_WORKER = r"""
+import json, sys, time
+sys.path.insert(0, {root!r})
+import torch
+import torch.distributed as dist
+dist.init_process_group("gloo", init_method={addr!r}, world_size=2, rank={rank})
+import chip_smoke as cs
+from cvxcompress_tpu_torch.ops import _kernels
+from cvxcompress_tpu_torch.parallel import multihost, sharded
+vol = cs.sinusoid(*cs.SHAPE, cs.PERIODS)
+z0, z1 = sharded.plan_shards(cs.SHAPE, cs.BLOCK_A, 2)[{rank}]
+slab = vol[z0:z1]  # this process's half of A
+out = {{}}
+for mode in ("allgather", "allgather", "files"):  # the first: warm-up
+    dist.barrier()
+    _kernels.reset_counts()
+    t = time.perf_counter()
+    r = multihost.compress(slab, cs.SCALE, cs.BLOCK_A, vol_shape=cs.SHAPE, gather=mode,
+                           file_prefix={prefix!r} + ".part", device="cuda:0")
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t) * 1e3
+    launches = {{k: v for k, v in _kernels.launches.items() if v}}
+    if mode == "files":
+        dist.barrier()
+        if {rank} == 0:
+            r = multihost.merge_segment_files(
+                [{prefix!r} + ".part.seg0", {prefix!r} + ".part.seg1"], cs.SHAPE,
+                cs.BLOCK_A)
+        ms_merged = (time.perf_counter() - t) * 1e3
+    else:
+        ms_merged = ms
+    if {rank} == 0:
+        r.tofile({prefix!r} + "." + mode)
+    else:
+        assert r is None or mode == "files"
+    out[mode] = dict(ms=ms, ms_merged=ms_merged, launches=launches)
+print("MH " + json.dumps(out), flush=True)
+dist.destroy_process_group()
+"""
+
+
+def differing_blocks(a, b):
+    """Blocks whose payload (or raw flag) differs between two containers of
+    one geometry."""
+    from cvxcompress_tpu_torch.parallel import sharded
+
+    _, pa, ra, sa, ba = sharded.block_sizes(a)
+    _, pb, rb, sb, bb = sharded.block_sizes(b)
+    return sum(1 for i in range(sa.size) if ra[i] != rb[i] or sa[i] != sb[i]
+               or not np.array_equal(a[ba + pa[i]:ba + pa[i] + sa[i]],
+                                     b[bb + pb[i]:bb + pb[i] + sb[i]]))
+
+
+def multihost_pair(card):
+    """Two processes on cuda:0 over gloo, each compressing its half of A in
+    both gather modes; returns (containers by mode, their reports, wall s)."""
+    import socket
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    prefix = os.path.join(root, "build", "chip_smoke_mh")
+    os.makedirs(os.path.dirname(prefix), exist_ok=True)
+    with socket.socket() as so:
+        so.bind(("127.0.0.1", 0))
+        addr = f"tcp://127.0.0.1:{so.getsockname()[1]}"
+    t = time.perf_counter()
+    procs = [subprocess.Popen(
+        [sys.executable, "-c", MH_WORKER.format(root=root, addr=addr, rank=r,
+                                                prefix=prefix)],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True) for r in (0, 1)]
+    logs = []
+    try:
+        for p in procs:
+            logs.append(p.communicate(timeout=MH_TIMEOUT)[0])
+    finally:
+        for p in procs:  # no worker outlives the phase
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    wall = time.perf_counter() - t
+    for r, (p, lg) in enumerate(zip(procs, logs)):
+        check(p.returncode == 0, f"3h multihost rank {r} exited 0"
+              + ("" if p.returncode == 0 else f" (log tail: {lg[-2000:]!r})"))
+    reps = [json.loads(next(x for x in lg.splitlines() if x.startswith("MH "))[3:])
+            for lg in logs]
+    datas = {m: np.fromfile(f"{prefix}.{m}", dtype=np.uint8) for m in ("allgather", "files")}
+    return datas, reps, wall
+
+
+def phase_3h(torch, cvt, codec, kernels, dev, card):
+    """The multi-device layer at full width: `parallel.compress` and
+    `decompress` over four shards on cuda:0 and over the default mesh, at A,
+    A-local, B (one empty shard) and the unaligned 128^3 volume, from numpy
+    and from the card, against the single codec; the launches per sharded
+    call; two processes on cuda:0 (`parallel.multihost`, gloo) in both
+    gather modes; `module_tests --quick` and the integration test at k = 1
+    on the card; the times of the sharded calls at A against single calls
+    (host clock, medians of turns)."""
+    from cvxcompress_tpu_torch import module_tests
+    from cvxcompress_tpu_torch.parallel import compress as pc
+    from cvxcompress_tpu_torch.parallel import mesh as ml
+    from cvxcompress_tpu_torch.parallel import sharded
+
+    sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), "tools"))
+    import integration_test_torch
+
+    res = {"card": card, "launches": {}, "differing_blocks": {}, "mulfac_flips": {}}
+    m4 = ml.make_mesh(["cuda:0"] * 4)
+    mdef = ml.make_mesh()
+    check(mdef == tuple(torch.device("cuda", i) for i in range(torch.cuda.device_count())),
+          f"3h make_mesh(): every visible card, {mdef}")
+
+    def counted(tag, fn, expect):
+        kernels.reset_counts()
+        out = fn()
+        torch.cuda.synchronize()
+        cnt = {k: v for k, v in kernels.launches.items() if v}
+        print(f"  3h launches, {tag}: {cnt}")
+        check(all(cnt.get(k, 0) == n for k, n in expect.items()), f"3h {tag}: launches "
+              f"{expect}")
+        res["launches"][tag] = cnt
+        return out
+
+    def level3(tag, got, ref, v):
+        """Level 3 of ROADMAP.md: the size within max(64 B, 1 %), the sharded
+        container's round trip no worse than the single one's."""
+        nd = differing_blocks(got, ref)
+        res["differing_blocks"][tag] = nd
+        print(f"  3h {tag}: {nd} of {sharded.block_sizes(ref)[3].size} blocks differ "
+              f"from the single compress ({got.size} B against {ref.size} B)")
+        check(abs(got.size - ref.size) <= max(64, 0.01 * ref.size),
+              f"3h {tag}: size within max(64 B, 1 %) of the single compress's")
+        eg = err_snr(v, codec.decompress(got, engine="device").cpu().numpy())[0]
+        er = err_snr(v, codec.decompress(ref, engine="device").cpu().numpy())[0]
+        check(eg <= er * 1.01 + 1e-7, f"3h {tag}: round-trip err {eg:.4e} within 1 % "
+              f"of the single container's {er:.4e}")
+
+    configs = (
+        ("A", sinusoid(*SHAPE, PERIODS), BLOCK_A, False,
+         ("fused_encode", "block_emit"), ("fused_inverse",)),
+        ("A-local", None, BLOCK_A, True, ("fused_encode_local", "block_emit"),
+         ("fused_inverse",)),
+        ("B", sinusoid(*SHAPE_B, PERIODS), BLOCK_B, False,
+         ("block_fwd_z", "block_encode_xy", "block_emit"), ("block_inv_xy", "block_inv_z")),
+        ("U128", sinusoid(*SHAPE_U128, PERIODS), BLOCK_B, False,
+         ("tokenize_stripe", "block_emit"), ()),
+    )
+    vol_a = configs[0][1]
+    singles = {}
+    for tag, v, block, local, enc, inv in configs:
+        v = vol_a if v is None else v
+        vt = torch.from_numpy(v).to(dev)
+        exact = codec.route(v.shape, block) != "stripe"
+        n_enc, n_def = (sum(z1 > z0 for z0, z1 in sharded.plan_shards(v.shape, block, k))
+                        for k in (4, len(mdef)))
+        single = codec.compress(v, SCALE, block, local)[0]
+        single_t = codec.compress(vt, SCALE, block, local)[0]
+        singles[tag] = single
+        for src, vin, ref in (("numpy", v, single), ("card", vt, single_t)):
+            for mtag, mesh, n in (("4 shards on cuda:0", m4, n_enc),
+                                  ("default mesh", mdef, n_def)):
+                ctag = f"{tag} compress from {src}, {mtag}"
+                got = counted(ctag, lambda: pc.compress(vin, SCALE, block, local,
+                                                        mesh=mesh)[0],
+                              {k: n for k in enc})
+                flip = (ctn_mulfac(cvt, got) != ctn_mulfac(cvt, ref))
+                if flip:  # the f64 partial sums' order moved the f32 mulfac
+                    res["mulfac_flips"][ctag] = [float(ctn_mulfac(cvt, got)),
+                                                 float(ctn_mulfac(cvt, ref))]
+                    print(f"  3h {ctag}: the header mulfac flipped, "
+                          f"{res['mulfac_flips'][ctag]}: held at level 3")
+                if exact and not flip:
+                    check(np.array_equal(got, ref), f"3h {ctag}: container byte-equal "
+                          f"to codec.compress ({n} shards)")
+                elif np.array_equal(got, ref):
+                    res["differing_blocks"][ctag] = 0
+                    print(f"  ok: 3h {ctag}: container byte-equal to codec.compress")
+                else:
+                    level3(ctag, got, ref, v)
+        del vt
+        ref_vol = codec.decompress(single, engine="device")
+        n_dec = len(pc.decode_ranges(single, 4))
+        check(tag != "A" or (n_enc == 4 and n_dec == 4), "3h A: 4 shards, 4 slabs")
+        check(tag != "B" or (n_enc == 3 and n_dec == 3), "3h B: 3 shards (one of 4 "
+              "empty), 3 slabs")
+        for mtag, mesh, n in (("4 shards on cuda:0", m4, n_dec),
+                              ("default mesh", mdef, len(pc.decode_ranges(single, len(mdef))))):
+            dtag = f"{tag} decompress, {mtag}"
+            out = counted(dtag, lambda: pc.decompress(single, mesh=mesh),
+                          {k: n for k in DECODE_KERNELS + inv})
+            check(out.shape == ref_vol.shape and out.device == torch.device(mesh[0]),
+                  f"3h {dtag}: shape {tuple(out.shape)} on {mesh[0]}")
+            if exact:
+                check(bits_same(out, ref_vol), f"3h {dtag}: bit-equal to "
+                      "codec.decompress (device engine)")
+            else:
+                nd = int((out.view(torch.int32) != ref_vol.view(torch.int32)).sum())
+                rr = rel_rms(out, ref_vol)
+                res["differing_blocks"][dtag] = nd
+                print(f"  3h {dtag}: {nd} cells differ from codec.decompress, rel RMS "
+                      f"{rr:.3e}")
+                check(rr < TRANSFORM_TOL, f"3h {dtag}: within {TRANSFORM_TOL} of "
+                      "codec.decompress")
+            del out
+        del ref_vol
+
+    # two processes on cuda:0 over gloo, each with half of A
+    datas, reps, wall = multihost_pair(card)
+    for mode, d in datas.items():
+        check(np.array_equal(d, singles["A"]), f"3h multihost {mode}: two processes' "
+              "container byte-equal to codec.compress of A")
+    for r, rep in enumerate(reps):
+        for mode in ("allgather", "files"):
+            check(rep[mode]["launches"].get("fused_encode") == 1
+                  and rep[mode]["launches"].get("block_emit") == 1,
+                  f"3h multihost rank {r} {mode}: its half on fused_encode and "
+                  "block_emit, once each")
+    res["multihost"] = dict(wall_s=wall, ranks=reps)
+    print(f"  3h multihost: two processes {wall:.1f} s wall (start, CUDA, warm-up); "
+          f"compress {[round(rep['allgather']['ms'], 2) for rep in reps]} ms "
+          f"(allgather), {[round(rep['files']['ms_merged'], 2) for rep in reps]} ms "
+          f"(files, merged) on {card}")
+
+    # the staged module tests and the integration test on the card
+    t = time.perf_counter()
+    failed = module_tests.run("cuda", quick=True)
+    check(not failed, f"3h module_tests --quick on the card ({failed or 'all passed'}, "
+          f"{time.perf_counter() - t:.1f} s)")
+    it = integration_test_torch.run(ks=(1,), device="cuda")[0]
+    check(it["ok"], f"3h integration test k = 1 on the card: err {it['err']:.4e}, "
+          f"SNR {it['snr_db']:.2f} dB, ratio {it['ratio']:.1f}")
+    res["integration_k1"] = it
+
+    # the times at A: single calls against one and four shards, in turns
+    vt = torch.from_numpy(vol_a).to(dev)
+    data = singles["A"]
+    variants = {
+        "compress from numpy, single": lambda: codec.compress(vol_a, SCALE),
+        "compress from numpy, 4 shards": lambda: pc.compress(vol_a, SCALE, mesh=m4),
+        "compress on the card, single": lambda: codec.compress(vt, SCALE),
+        "compress on the card, 1 shard": lambda: pc.compress(vt, SCALE, mesh=["cuda:0"]),
+        "compress on the card, 4 shards": lambda: pc.compress(vt, SCALE, mesh=m4),
+        "decompress, single (device engine)":
+            lambda: codec.decompress(data, engine="device"),
+        "decompress, 1 shard": lambda: pc.decompress(data, mesh=["cuda:0"]),
+        "decompress, 4 shards": lambda: pc.decompress(data, mesh=m4),
+    }
+    times = {k: [] for k in variants}
+    for _ in range(5):
+        for k, fn in variants.items():
+            t = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            times[k].append((time.perf_counter() - t) * 1e3)
+    res["ms"] = {k: statistics.median(v) for k, v in times.items()}
+    for k, v in times.items():
+        print(f"  3h A {k}: {res['ms'][k]:.3f} ms (median of 5 in turns: "
+              f"{[round(x, 2) for x in v]}) on {card}")
+    # where a sharded call's time goes: one profiled compress + decompress,
+    # single and over four shards, the card's volume
+    res["profile"] = {}
+    for ptag, mesh in (("single", None), ("4 shards", m4)):
+        comp = (lambda: codec.compress(vt, SCALE)) if mesh is None else (
+            lambda: pc.compress(vt, SCALE, mesh=mesh))
+        dec = (lambda: codec.decompress(data, engine="device")) if mesh is None else (
+            lambda: pc.decompress(data, mesh=mesh))
+        spans, idle = profiled(comp, lambda: (dec(), torch.cuda.synchronize()),
+                               f"3h A {ptag}", card)
+        res["profile"][ptag] = dict(spans_ms=spans, idle_share=idle)
+    return res
+
+
+def ctn_mulfac(cvt, data):
+    return cvt.container.unpack(data)[0].glob_mulfac.view(np.uint32)
+
+
 def main():
     t_start = time.perf_counter()
     card = subprocess.run(
@@ -2378,6 +2656,16 @@ def main():
     print(f"  phase 3g {time.perf_counter() - t_phase:.1f} s", flush=True)
     check("jax" not in sys.modules, "the port imported no jax after phase 3g")
 
+    # -- phase 3h: the multi-device layer ----------------------------------
+    print(f"  at {time.perf_counter() - t_start:.1f} s", flush=True)
+    print("phase 3h: parallel.compress / decompress over 4 shards on one card and "
+          "the default mesh, multihost in two processes, module_tests --quick, the "
+          "integration test, on", name, flush=True)
+    t_phase = time.perf_counter()
+    res_h = phase_3h(torch, cvt, codec, _kernels, dev, card)
+    print(f"  phase 3h {time.perf_counter() - t_phase:.1f} s", flush=True)
+    check("jax" not in sys.modules, "the port imported no jax after phase 3h")
+
     for k, r in report.items():
         print(f"  {k}: kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.3f} ms, bound "
               f"{r['bound_ms']:.4f} ms ({r['bound_by']}) on {card}")
@@ -2474,6 +2762,9 @@ def main():
                 row[extra] = r[extra]
         if also:
             row["also_replaces"] = also
+        sharded = {tag: cnt[k] for tag, cnt in res_h["launches"].items() if cnt.get(k)}
+        if sharded:  # phase 3h: the launches of each sharded call
+            row["sharded_launches"] = sharded
         kernels.append(row)
     print(f"  chip_smoke.py ran {time.perf_counter() - t_start:.1f} s on {card}")
     print(card)
@@ -2484,6 +2775,7 @@ def main():
                       "config_a_local": res_c, "config_b_local": res_d,
                       "other_geometries": res_e, "optin_routes": res_f,
                       "kernel_phase_e2e_ms": e2e, "batched_streams_snapshots": res_g,
+                      "multi_device": res_h,
                       "encode_128_split_ms": dict(zip(
                           ("z|xy", "xz|y", "xz|y again", "z|xy again"), split_ms))}))
     print(json.dumps({"ok": True, "device": {

@@ -218,7 +218,7 @@ def compress(vol, scale, block=BLOCK, use_local_rms=False, device=None):
 
 
 def compress_many(vols, scale, block=BLOCK, use_local_rms=False, glob_mulfacs=None,
-                  device=None):
+                  device=None, _route=None):
     """Compress K volumes. Returns [(container uint8, ratio)], each byte-equal
     to `compress` of that volume (the same launches on the same inputs).
 
@@ -229,14 +229,16 @@ def compress_many(vols, scale, block=BLOCK, use_local_rms=False, glob_mulfacs=No
     per volume, None entries allowed) overrides the header mulfacs, the
     multi-device layer's contract (the global RMS reduced across shards).
     Tensors bring their device (one for the batch), numpy volumes go to
-    `device` ("cuda" when None).
+    `device` ("cuda" when None).  `_route` (internal) forces the encode
+    route: a z-slab shard of a larger volume encodes on the whole volume's
+    (parallel/compress.py), whatever its own shape would pick.
     """
     return compress_finish(compress_stage(vols, scale, block, use_local_rms,
-                                          glob_mulfacs, device))
+                                          glob_mulfacs, device, _route))
 
 
 def compress_stage(vols, scale, block=BLOCK, use_local_rms=False, glob_mulfacs=None,
-                   device=None):
+                   device=None, _route=None):
     """The first half of `compress_many`, on the current stream: upload the
     numpy volumes, the header mulfacs (one read-back of the K f64 sums of
     the CUDA tensors), the K encodes, then a non-blocking copy of their K
@@ -254,7 +256,8 @@ def compress_stage(vols, scale, block=BLOCK, use_local_rms=False, glob_mulfacs=N
             ts = [_device_volume(v, dev) for v in vols]
         with record_function("cvx.mulfac"):
             mfs = _header_mulfacs(vols, ts, scale, use_local_rms, glob_mulfacs)
-        ctxs = [_encode(t, scale, block, use_local_rms, m) for t, m in zip(ts, mfs)]
+        ctxs = [_encode(t, scale, block, use_local_rms, m, _route)
+                for t, m in zip(ts, mfs)]
         with record_function("cvx.sizes_readback"):
             sr, ev = fetch(torch.cat([c.pop("bundle") for c in ctxs])) if ctxs \
                 else (None, None)
@@ -315,13 +318,14 @@ def _header_mulfacs(vols, ts, scale, use_local_rms, glob_mulfacs):
     return out
 
 
-def _encode(t, scale, block, use_local_rms, mulfac):
+def _encode(t, scale, block, use_local_rms, mulfac, path=None):
     """Launch one volume's encode on the current stream, the route's
-    kernels at the header `mulfac` (or each block's, under the local RMS).
+    kernels (`path`, else `encode_route` of its shape) at the header
+    `mulfac` (or each block's, under the local RMS).
     Returns its context: the encode's outputs, and `bundle`, its sizes,
     raw flags and mulfacs (on the patch and compact routes with the number
     of live chunks) as one int32 tensor, what the emit needs read back."""
-    path = encode_route(t.shape, block, use_local_rms)
+    path = path or encode_route(t.shape, block, use_local_rms)
     args = dict(scale=scale) if use_local_rms else dict(mulfac=mulfac)
     c = dict(shape=tuple(t.shape), block=block, path=path, mulfac=mulfac,
              use_local=use_local_rms, nlive=None)
@@ -431,15 +435,16 @@ def sparse_chunks(coeffs):
     return np.ascontiguousarray(flat[idx]), invmap
 
 
-def _inverse(dense, hdr):
+def _inverse(dense, hdr, path=None):
     """The inverse of the container's geometry on the dense block-major
     coefficients: a kernel at 32^3, aligned 128^3 and the "stripe_fused"
     blocks, else the inverse transform as library products (the JAX package's XLA branch of
     `_inverse_from_plane`, `cvxcompress_tpu/ops/codec.py:1151-1169`), then
-    the block-major -> volume relayout."""
+    the block-major -> volume relayout.  `path` forces the route (a slab
+    of a larger volume decodes on the whole volume's), else `route`."""
     shape = (hdr.nz, hdr.ny, hdr.nx)
     block = (hdr.bx, hdr.by, hdr.bz)
-    path = route(shape, block)
+    path = path or route(shape, block)
     if path == "fused32":
         with record_function("cvx.fused_inverse"):
             return fused_inverse.fused_inverse(dense.view(-1, 128), None, shape)
@@ -454,20 +459,20 @@ def _inverse(dense, hdr):
         return blocks.from_blocks(wavelet.inverse_blocks(coeffs), shape, block)
 
 
-def decompress_device(data, device):
+def decompress_device(data, device, path=None):
     """The device engine (`cvxcompress_tpu/ops/codec.py:1235`): the volume
     as a tensor on `device`, or None when `plan` rejects the container's
-    spans.  The container is already validated."""
+    spans.  The container is already validated; `path` as `_inverse`'s."""
     with record_function("cvx.plan"):
         p = entropy_decode.plan(data)
     if p is None:
         return None
     with record_function("cvx.plan_h2d"):
         b = entropy_decode.upload(p, device)
-    return _decode_planned(p, b)
+    return _decode_planned(p, b, path)
 
 
-def _decode_planned(p, b):
+def _decode_planned(p, b, path=None):
     """The device engine's launches on a plan `p` whose fields `b` lie on
     the device: parse, chase, emit, the raw blocks, the inverse."""
     hdr, cells = p["hdr"], p["cells"]
@@ -481,7 +486,7 @@ def _decode_planned(p, b):
                                     b["scalefac"], hdr.grid[3], cells)
     with record_function("cvx.overlay_raw"):
         entropy_decode.overlay_raw(dense, b["raw_rows"], b["raw_ids"])
-    return _inverse(dense, hdr)
+    return _inverse(dense, hdr, path)
 
 
 def decompress_many(datas, device="cuda", to_host=True):
@@ -549,7 +554,7 @@ def decompress_many_dispatch(prep):
                 for p, o in zip(prep["plans"], prep["bases"])]
 
 
-def _decode_host(data, hdr, blkoffs, blkmulfac, payload_base, device):
+def _decode_host(data, hdr, blkoffs, blkmulfac, payload_base, device, path=None):
     """The host engine: native decode, chunk-sparse upload, inverse."""
     raw = np.frombuffer(memoryview(data), dtype=np.uint8)
     shape = (hdr.nz, hdr.ny, hdr.nx)
@@ -573,7 +578,7 @@ def _decode_host(data, hdr, blkoffs, blkmulfac, payload_base, device):
         dense = torch.zeros((invmap.size, rows.shape[1]), dtype=torch.float32,
                             device=device)
         dense.index_copy_(0, ids_t, rows_t)
-    return _inverse(dense, hdr)
+    return _inverse(dense, hdr, path)
 
 
 ENGINES = ("auto", "device", "host")
@@ -604,13 +609,13 @@ def decompress(data, device="cuda", engine="auto"):
         return _decompress(data, device, engine)
 
 
-def _decompress(data, device, engine):
+def _decompress(data, device, engine, path=None):
     hdr, blkoffs, blkmulfac, payload_base = ctn.unpack(data)
     if engine == "device" or (engine == "auto" and device.type == "cuda"):
-        out = decompress_device(data, device)
+        out = decompress_device(data, device, path)
         if out is not None:
             return out
         if engine == "device":
             raise ValueError("container not decodable on the device engine "
                              "(degenerate payload spans)")
-    return _decode_host(data, hdr, blkoffs, blkmulfac, payload_base, device)
+    return _decode_host(data, hdr, blkoffs, blkmulfac, payload_base, device, path)

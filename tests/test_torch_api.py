@@ -18,7 +18,7 @@ from cvxcompress_tpu.oracle import rle as jorle
 from cvxcompress_tpu.oracle import wavelet as jowav
 from cvxcompress_tpu.utils import io as jio
 from cvxcompress_tpu.utils import volumes as jvolumes
-from cvxcompress_tpu_torch import api
+from cvxcompress_tpu_torch import api, module_tests
 from cvxcompress_tpu_torch import container as ctn
 from cvxcompress_tpu_torch.oracle import rle as orle
 from cvxcompress_tpu_torch.oracle import wavelet as owav
@@ -212,18 +212,27 @@ def test_volumes_equal_jax(tmp_path):
 
 def test_run_module_tests(monkeypatch):
     """Run_Module_Tests runs pytest on the port's test files and reports its
-    result; the exhaustive switch raises until its tool is ported."""
-    with pytest.raises(NotImplementedError, match="module_tests"):
-        cvt.CvxCompress.Run_Module_Tests(exhaustive=True)
-    calls = []
+    result; the exhaustive switch then runs the staged module tests
+    (module_tests.run, stubbed here) on the given device and reports theirs."""
+    calls, staged = [], []
 
     def fake(args):
         calls.append(args)
-        return len(calls) - 1  # 0 the first time, then a failure
+        return 0 if len(calls) in (1, 3, 4) else 1  # the second run fails
+
+    def fake_run(device, exhaustive=False, quick=False):
+        staged.append((device, exhaustive, quick))
+        return [] if len(staged) == 1 else ["[11] 2^24 zero-run split (256^3 block)"]
 
     monkeypatch.setattr(subprocess, "call", fake)
+    monkeypatch.setattr(module_tests, "run", fake_run)
     assert api.CvxCompress.Run_Module_Tests() is True
     assert api.CvxCompress.Run_Module_Tests(verbose=True) is False
+    assert staged == []
+    assert cvt.CvxCompress.Run_Module_Tests(exhaustive=True, device="cpu") is True
+    assert staged == [("cpu", True, False)]
+    assert cvt.CvxCompress.Run_Module_Tests(exhaustive=True) is False
+    assert staged[1] == ("cuda", True, False)
     files = [a for a in calls[0] if a.endswith(".py")]
     assert files and all("test_torch_" in f for f in files)
     assert "-q" in calls[0] and "-v" in calls[1]

@@ -1310,3 +1310,56 @@ def test_snapshot_stack_on_the_card(dev, block):
         gets.append(g)
     for i in reversed(range(len(gets))):
         assert torch.equal(st.pop().view(torch.int32), gets[i].view(torch.int32))
+
+
+@pytest.mark.parametrize("shape,block", [((130, 96, 96), (32, 32, 32)),
+                                         ((384, 128, 128), (128, 128, 128)),
+                                         ((200, 128, 128), (128, 128, 128))])
+def test_parallel_mesh_of_four_shards_on_one_card(dev, shape, block):
+    """Four shards on cuda:0, each on a stream of its own: the container of
+    a numpy volume and of a card tensor byte-equal to the single compress's
+    on the kernel routes (level 3 on the stripe route of the unaligned
+    128^3 volume), four launches of the route's encode, the decompress
+    bit-equal to the single device-engine one (within 1e-5 on the stripe
+    route), one decode launch a slab."""
+    from cvxcompress_tpu_torch.parallel import compress as pc
+    from cvxcompress_tpu_torch.parallel import mesh as ml
+    from cvxcompress_tpu_torch.parallel import sharded
+
+    mesh = ml.make_mesh(["cuda:0"] * 4)
+    vol = volume(np.random.default_rng(5), shape)
+    exact = codec.route(shape, block) != "stripe"
+    for v in (vol, torch.from_numpy(vol).to(dev)):
+        want = codec.compress(v, 1e-2, block)[0]
+        _kernels.reset_counts()
+        got, _ = pc.compress(v, 1e-2, block, mesh=mesh)
+        torch.cuda.synchronize()
+        plan = sharded.plan_shards(shape, block, 4)
+        assert _kernels.launches["block_emit"] == sum(z1 > z0 for z0, z1 in plan)
+        # a card tensor's f64 sums add per shard: the f32 mulfac may flip
+        same_mulfac = ctn.unpack(got)[0].glob_mulfac == ctn.unpack(want)[0].glob_mulfac
+        if exact and same_mulfac:
+            assert np.array_equal(got, want)
+        else:
+            assert abs(got.size - want.size) <= max(64, 0.01 * want.size)
+    ref = codec.decompress(want, engine="device")
+    _kernels.reset_counts()
+    out = pc.decompress(want, mesh=mesh)
+    torch.cuda.synchronize()
+    assert _kernels.launches["decode_emit"] == len(pc.decode_ranges(want, 4))
+    if exact:
+        assert torch.equal(out.view(torch.int32), ref.view(torch.int32))
+    else:
+        assert rel_rms(out, ref) < TRANSFORM_TOL
+
+
+@pytest.mark.parametrize("mode", ["allgather", "files"])
+def test_multihost_two_processes_on_the_card(dev, tmp_path, mode):
+    """Two processes on cuda:0 over gloo: the container byte-equal to the
+    single compress on the card."""
+    from test_torch_multihost_mp import BLOCK, SHAPE, run_pair
+    from cvxcompress_tpu_torch.utils import volumes
+
+    got = run_pair(tmp_path, mode, device="cuda:0")
+    want = codec.compress(volumes.radial_volume(*SHAPE), 1e-2, BLOCK)[0]
+    assert np.array_equal(got, want)
