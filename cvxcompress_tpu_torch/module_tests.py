@@ -6,12 +6,22 @@ runs, on `device` ("cuda" unless the caller names another):
 
   [2] forward transform: `wavelet.cascade_3d` (the plain version of the
       32^3, 128^3 and fused stripe kernels' cascade) and `forward_blocks`
-      (the stripe route's products) against the oracle's scalar cascade
+      (the stripe, patch and compact routes' transforms) against the
+      oracle's scalar cascade
       (oracle/wavelet.py), over the block sweep, rel RMS < 1e-5 (:695-745)
   [3] inverse transform, the same harness (:747-785)
+  [4] transform throughput: `forward_blocks` / `inverse_blocks` (on the
+      card the kernels `plane_cascade_fwd` / `_inv`, timed by CUDA events)
+      over 8^3 .. 128^3 blocks (32^3 and 128^3 with --quick), MC/s and
+      lifting-model GF/s (:803-891); 2^26 cells a size on the card (2^24
+      --quick), 2^21 on the CPU; floor 10 MC/s
   [5] block gather (`blocks.to_blocks`) bit-exact with edge clipping,
       fixtures cnx = bx+3, cny = by+5, cnz = bz+7 (:893-965)
   [6] block scatter (`blocks.from_blocks`) round trip (:967-1031)
+  [7] block layout throughput: `blocks.to_blocks` of a 512^3 pattern
+      volume (256^3 with --quick) at 32^3 blocks, the first and last
+      blocks bit-exact against numpy's, GB/s read + written (:1033-1099);
+      floor 0.5 GB/s
   [8] global RMS: `quant.global_rms_host` against an f64 loop, and
       `quant.sumsq` on the device, odd dims 37x41x43 (:1101-1131)
   [9] compress quality and throughput, synthetic radial volume (:1135-1187)
@@ -20,7 +30,8 @@ runs, on `device` ("cuda" unless the caller names another):
   [11] the 2^24-cell zero run of an all-zero 256^3 block (exhaustive)
   [12] a 256^3-block round trip of correlated noise (exhaustive)
 
-The throughput sweeps [4] and [7] are the benchmark's, not ported here.
+The floors of [4] and [7] are the JAX tool's CPU floors, on every device:
+guards against a hang or an eager path, not targets.
 
     python -m cvxcompress_tpu_torch.module_tests [--exhaustive] [--quick]
         [--device cpu]
@@ -40,6 +51,10 @@ import torch
 
 GREEN, RED, DIM, END = "\033[32m", "\033[31m", "\033[2m", "\033[0m"
 SIZES = (8, 16, 32, 64, 128, 256)
+# the JAX tool's CPU floors of [4] and [7], on every device: guards against a
+# hang or an eager path, not targets
+TRANSFORM_FLOOR_MCS = 10.0
+LAYOUT_FLOOR_GBS = 0.5
 
 
 class Stages:
@@ -103,6 +118,38 @@ def stage_2_3_transforms(st, exhaustive, sizes=None, max_cells=1 << 21):
              f"worst rel-RMS {worst_i:.2e}")
 
 
+def stage_4_transform_throughput(st, quick, sizes=None, total=None):
+    """[4] `forward_blocks` / `inverse_blocks` throughput over `sizes`
+    (cubic blocks), `total` cells a size."""
+    from .ops import wavelet
+    from .utils import profiling
+
+    cuda = st.device.type == "cuda"
+    if total is None:
+        total = ((1 << 24) if quick else (1 << 26)) if cuda else (1 << 21)
+    gen = torch.Generator(device=st.device).manual_seed(2)
+    worst = float("inf")
+    print(f"{DIM}  [4] transform throughput ({total >> 20} MCells a size) "
+          f"on {st.device}:{END}")
+    for bs in sizes or ((32, 128) if quick else (8, 16, 32, 64, 128)):
+        n = max(1, total // bs**3)
+        x = torch.randn((n, bs, bs, bs), generator=gen, device=st.device)
+        t = profiling.Timer(st.device)
+        for _ in range(3 if cuda else 1):  # on the card the first round warms up
+            with t.stage("f"):
+                c = wavelet.forward_blocks(x)
+            with t.stage("i"):
+                wavelet.inverse_blocks(c)
+        cells = n * bs**3
+        f, i = t.report("f", cells, profiling.lifting_flops_per_cell((bs,) * 3)), \
+            t.report("i", cells)
+        worst = min(worst, f["mcells_s"], i["mcells_s"])
+        print(f"      {bs:3}^3: fwd {f['mcells_s']:9.1f} MC/s "
+              f"({f['gflop_s']:7.1f} GF/s lifting-equiv)  inv {i['mcells_s']:9.1f} MC/s")
+    st.check("[4] transform throughput", worst >= TRANSFORM_FLOOR_MCS,
+             f"worst {worst:.1f} MC/s (floor {TRANSFORM_FLOOR_MCS:g})")
+
+
 def stage_5_6_block_layout(st, exhaustive, sizes=None):
     from .ops import blocks
     from .utils import volumes
@@ -128,6 +175,27 @@ def stage_5_6_block_layout(st, exhaustive, sizes=None):
         ok6 &= np.array_equal(back.view(np.uint32), vol.view(np.uint32))
     st.check("[5] block gather exact (clipped fixtures)", ok5)
     st.check("[6] block scatter round trip exact", ok6)
+
+
+def stage_7_layout_throughput(st, quick, n=None):
+    """[7] `blocks.to_blocks` of an n^3 pattern volume at 32^3 blocks: the
+    first and last blocks bit-exact against numpy's layout, GB/s."""
+    from .ops import blocks
+    from .utils import profiling, volumes
+
+    n = n or (256 if quick else 512)
+    vol_np = volumes.pattern_volume(n, n, n, seed=7)
+    vol = torch.from_numpy(vol_np).to(st.device)
+    t = profiling.Timer(st.device)
+    for _ in range(3 if st.device.type == "cuda" else 1):
+        with t.stage("l"):
+            out = blocks.to_blocks(vol, (32, 32, 32))
+    gbs = vol.numel() * 4 * 2 / t.best("l") / 1e9
+    first, last = (out[i].cpu().numpy().view(np.uint32) for i in (0, -1))
+    exact = (np.array_equal(first, vol_np[:32, :32, :32].view(np.uint32))
+             and np.array_equal(last, vol_np[-32:, -32:, -32:].view(np.uint32)))
+    st.check("[7] block layout throughput + exactness", exact and gbs > LAYOUT_FLOOR_GBS,
+             f"{gbs:.2f} GB/s on {st.device} ({n}^3)")
 
 
 def stage_8_rms(st):
@@ -208,7 +276,9 @@ def run(device="cuda", exhaustive=False, quick=False):
     Returns the names of the stages that failed (empty: all passed)."""
     st = Stages(device)
     stage_2_3_transforms(st, exhaustive)
+    stage_4_transform_throughput(st, quick)
     stage_5_6_block_layout(st, exhaustive)
+    stage_7_layout_throughput(st, quick)
     stage_8_rms(st)
     stage_9_10_codec(st, quick)
     if exhaustive:

@@ -104,6 +104,14 @@ _SIGNATURES = {
     ],
     "cvx_block_inv_xy": [_VP, ctypes.c_int, ctypes.c_int, ctypes.c_int, _VP, _VP],
     "cvx_block_inv_z": [ctypes.c_int, ctypes.c_int, ctypes.c_int, _VP, _VP],
+    "cvx_plane_cascade_fwd": [
+        _VP, ctypes.c_int64, ctypes.c_int64, ctypes.c_int64, ctypes.c_int, ctypes.c_int,
+        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, _VP, _VP,
+    ],
+    "cvx_plane_cascade_inv": [
+        _VP, ctypes.c_int64, ctypes.c_int64, ctypes.c_int64, ctypes.c_int, ctypes.c_int,
+        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, _VP, _VP,
+    ],
 }
 
 # one counter per launched kernel (the 128^3 encode and inverse are two

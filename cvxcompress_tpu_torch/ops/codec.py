@@ -12,8 +12,8 @@ ops/geometry.py):
      over dims that are multiples of 128: ops/fused_compress.py
      `block_encode`; "stripe_fused", 16^3, (16, 16, 1), ...: one kernel,
      ops/tokenize.py `stripe_fused_encode`; "stripe", every other block:
-     the transform as library products, then the kernel `tokenize_stripe`,
-     ops/tokenize.py `encode`); the JAX package's encode switches select
+     the transform (kernel `plane_cascade_fwd`), then the kernel
+     `tokenize_stripe`, ops/tokenize.py `encode`); the JAX package's encode switches select
      three more routes (`encode_route`, ops/geometry.py): "block128_w"
      (`CVX_FUSED_W=1`: ops/fused_compress.py `block_encode_w`), "patch"
      (`CVX_STRIPE=patch`: the stripe route's encode) and "compact"
@@ -49,8 +49,8 @@ codec.py:1490-1523`):
   block-major buffer (decode_emit), overlays the raw blocks and runs the
   inverse on it (32^3: `fused_inverse`; aligned 128^3:
   `block_fused_inverse`; the "stripe_fused" blocks: `stripe_fused_inverse`;
-  every other block: the inverse as library products, the XLA branch of
-  the JAX `_inverse_from_plane`);
+  every other block: `plane_cascade_inv`, where the JAX `_inverse_from_plane`
+  runs XLA products);
 - "host": the native library decodes every block on the host (with the
   container's `blkmulfac` under the local RMS), only the non-zero
   min(128, cells)-cell chunks go up to the device (`sparse_chunks`), and the
@@ -438,9 +438,10 @@ def sparse_chunks(coeffs):
 def _inverse(dense, hdr, path=None):
     """The inverse of the container's geometry on the dense block-major
     coefficients: a kernel at 32^3, aligned 128^3 and the "stripe_fused"
-    blocks, else the inverse transform as library products (the JAX package's XLA branch of
-    `_inverse_from_plane`, `cvxcompress_tpu/ops/codec.py:1151-1169`), then
-    the block-major -> volume relayout.  `path` forces the route (a slab
+    blocks, else `wavelet.inverse_blocks` (kernel `plane_cascade_inv`, where
+    the JAX package's `_inverse_from_plane` runs XLA products,
+    `cvxcompress_tpu/ops/codec.py:1151-1169`), then the block-major ->
+    volume relayout.  `path` forces the route (a slab
     of a larger volume decodes on the whole volume's), else `route`."""
     shape = (hdr.nz, hdr.ny, hdr.nx)
     block = (hdr.bx, hdr.by, hdr.bz)

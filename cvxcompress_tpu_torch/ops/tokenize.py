@@ -29,13 +29,13 @@ the local branch `_kernel_stripe_fused_local` :907).
 Every other geometry (ops/geometry.py) runs `stripe_fused_encode` (one
 kernel from the volume to the tokens, csrc/stripe_fused.cu, where the JAX
 gate `stripe_fused_ok` holds: the K1 and K9 port at 16^3, (16, 16, 1), ...)
-or `encode`: the transform and the mulfac table as library products, then
-the kernel `tokenize_stripe` (the volume-order plane read through the
+or `encode`: the transform (`wavelet.forward_3d_volume`, kernel
+`plane_cascade_fwd`), the mulfac table, then the kernel `tokenize_stripe` (the volume-order plane read through the
 stripe map, csrc/tokenize_stripe.cu: the K13 port, and of K12 and K12').
 
 Under `CVX_FUSED_COMPACT=1` (ops/geometry.py) `compact_encode` runs instead:
-the block-major transform and table as library products, then
-`tokenize_compact` (csrc/tokenize_compact.cu, the K14 port), which also
+the block-major transform (`wavelet.forward_blocks`, kernel
+`plane_cascade_fwd`) and the table, then `tokenize_compact` (csrc/tokenize_compact.cu, the K14 port), which also
 compacts the live chunks into rows for `pack.emit_rows`.
 """
 
@@ -189,10 +189,10 @@ def encode(vol, block, mulfac=None, *, scale=None):
     """The forward transform, the mulfac table and the tokenize of a
     (nz, ny, nx) volume at a block of the "stripe" route (ops/geometry.py):
     (plane, desc, chunk_bytes, sizes, raw, mulfacs), the plane the
-    volume-order coefficients.  The transform and the local RMS are library
-    products (ops/wavelet.py, ops/quant.py `block_table`), as they are XLA
-    in the JAX package; the tokenize is the kernel (the plain version on the
-    CPU)."""
+    volume-order coefficients.  The transform is native's cascade (kernel
+    `plane_cascade_fwd`, ops/wavelet.py; XLA products in the JAX package),
+    the local RMS PyTorch ops (ops/quant.py `block_table`), the tokenize the
+    kernel `tokenize_stripe` (the plain versions on the CPU)."""
     plane = wavelet.forward_3d_volume(vol, block)
     mulfacs = quant.block_table(plane, block, mulfac, scale=scale)
     return (plane, *tokenize_stripe(plane, mulfacs, block), mulfacs)
@@ -312,10 +312,10 @@ def tokenize_compact(coeffs, mulfacs):
 
 def compact_encode(vol, block, mulfac=None, *, scale=None):
     """The encode under `CVX_FUSED_COMPACT=1` (ops/geometry.py `compact_ok`
-    blocks): the forward transform block-major and the mulfac table as
-    library products (the JAX `_stage_w_pallas`, `cvxcompress_tpu/ops/
-    codec.py:71-100`; the table as the stripe route's, `quant.block_table`),
-    then `tokenize_compact`.  Returns (coeffs (nnn, cells), mulfacs, then
+    blocks): the forward transform block-major (kernel `plane_cascade_fwd`
+    on the block batch, where the JAX `_stage_w_pallas`, `cvxcompress_tpu/
+    ops/codec.py:71-100`, runs XLA products), the mulfac table as the stripe
+    route's (`quant.block_table`), then `tokenize_compact`.  Returns (coeffs (nnn, cells), mulfacs, then
     `tokenize_compact`'s outputs)."""
     bx, by, _ = block
     coeffs = wavelet.forward_blocks(blocks.to_blocks(vol, block))

@@ -1,27 +1,30 @@
-"""The Antonini 7/9 multi-level wavelet as dense per-axis operators.
+"""The Antonini 7/9 multi-level wavelet: the native cascade and dense operators.
 
-The full multi-level 1D transform along an axis is a linear operator, so
-one dense n x n matrix per axis length is composed in float64 from the
+Every route runs the multi-level cascade itself, operation for operation
+the native library's parity cascade (`native/cvx_host.cpp`
+`wav_fwd_axis_parity`, `wav_inv_axis_parity`): the 32^3, 128^3 and fused
+stripe kernels in csrc/cascade.cuh, and the stripe, patch and compact
+routes through `forward_3d_volume`, `forward_blocks` and `inverse_blocks`,
+which launch csrc/plane_cascade.cu for a CUDA tensor (`plane_cascade_fwd`,
+`plane_cascade_inv`).  `cascade_axis` / `cascade` / `cascade_3d` and
+`forward_3d_volume_plain` are the plain versions, one f32 multiply or add
+per op, so kernels and plain versions agree bit for bit.  The JAX package
+runs the stripe route's transforms as dense XLA products instead
+(`cvxcompress_tpu/ops/wavelet.py:249`, `cvxcompress_tpu/ops/codec.py:
+1151-1169`), which spread a non-finite cell over its whole line.
+
+The dense per-axis operators stay as a yardstick and for the tests: the
+full multi-level 1D transform along an axis is a linear operator, so one
+dense n x n matrix per axis length is composed in float64 from the
 per-level analysis / synthesis operators (mirror rules of
 Wavelet_Transform_Slow.cpp:71-134,201-259).  Taps, mirrors, the level
 schedule and the composition are copies of `cvxcompress_tpu/oracle/
 wavelet.py` and `cvxcompress_tpu/ops/wavelet.py:47-129`;
-tests/test_torch_wavelet.py holds the operators bit-equal to those.
-
-`forward_blocks` / `inverse_blocks` are the plain PyTorch transforms of a
-(n, bz, by, bx) block batch, three f32 contractions in the reference's axis
-order x -> y -> z: the transforms themselves on the stripe route (with
-`forward_3d_volume`), where the JAX package runs them as XLA products too.
-The 32^3, 128^3 and fused stripe kernels (csrc/cascade.cuh) run the
-multi-level cascade itself instead, and `cascade_axis` / `cascade` /
-`cascade_3d` are their plain versions: the native library's parity
-cascade (`native/cvx_host.cpp` `wav_fwd_axis_parity`,
-`wav_inv_axis_parity`) one f32 multiply or add per op.  The matmuls
-must run in full f32: a TF32 contraction keeps ~3 decimal digits and breaks
-the 1e-5 transform contract (CvxCompress.cpp:597), so each runs inside
-`full_f32`, which restores the caller's setting on exit (the JAX package
-passes its precision on every product instead, `cvxcompress_tpu/ops/
-wavelet.py:148-202`).
+tests/test_torch_wavelet.py holds the operators bit-equal to those.  A
+product with them must run in full f32 (a TF32 contraction keeps ~3
+decimal digits and breaks the 1e-5 transform contract,
+CvxCompress.cpp:597): `full_f32` sets it and restores the caller's
+setting on exit.
 """
 
 from __future__ import annotations
@@ -33,7 +36,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from . import blocks
+from . import _kernels, blocks
 
 F32 = np.float32
 
@@ -224,54 +227,6 @@ def operator(dim, inverse, device):
     return torch.tensor(np.asarray(m, dtype=F32), device=device)
 
 
-def _apply_3d(blocks, inverse):
-    bz, by, bx = blocks.shape[-3:]
-    dev = blocks.device
-    out = blocks
-    with full_f32():
-        if bx > 1:
-            out = torch.einsum("nzyx,Xx->nzyX", out, operator(bx, inverse, dev))
-        if by > 1:
-            out = torch.einsum("nzyx,Yy->nzYx", out, operator(by, inverse, dev))
-        if bz > 1:
-            out = torch.einsum("nzyx,Zz->nZyx", out, operator(bz, inverse, dev))
-    return out.contiguous()
-
-
-def forward_blocks(blocks):
-    """Forward transform of a (n, bz, by, bx) f32 block batch (plain)."""
-    return _apply_3d(blocks, inverse=False)
-
-
-def inverse_blocks(coeffs):
-    """Inverse transform of a (n, bz, by, bx) f32 coefficient batch (plain)."""
-    return _apply_3d(coeffs, inverse=True)
-
-
-def forward_3d_volume(vol, block):
-    """Forward transform of a (nz, ny, nx) volume in VOLUME order: the
-    zero-padded (nzp, nyp, nxp) coefficient plane, each block's
-    coefficients at its own place (`cvxcompress_tpu/ops/wavelet.py:249`
-    without the TPU's x-pad to 128 lanes).  The x, then y, then z
-    contractions as torch einsums (library products, as the JAX package
-    leaves them to XLA); an axis of length 1 is skipped."""
-    bx, by, bz = block
-    nbz, nby, nbx = blocks.grid_shape(vol.shape, block)
-    nzp, nyp, nxp = nbz * bz, nby * by, nbx * bx
-    nz, ny, nx = vol.shape
-    a = F.pad(vol, (0, nxp - nx, 0, nyp - ny, 0, nzp - nz))
-    dev = vol.device
-    with full_f32():
-        a = torch.einsum("zybx,Xx->zybX", a.reshape(nzp, nyp, nbx, bx),
-                         operator(bx, False, dev))
-        a = torch.einsum("zgyx,Yy->zgYx", a.reshape(nzp, nby, by, nxp),
-                         operator(by, False, dev))
-        if bz > 1:
-            a = torch.einsum("hzr,Zz->hZr", a.reshape(nbz, bz, nyp * nxp),
-                             operator(bz, False, dev))
-    return a.reshape(nzp, nyp, nxp).contiguous()
-
-
 # The cascade's taps as f32 per device: 0-dim tensors keep every product in
 # f32 (a Python float would leave the promotion to the backend).
 @functools.lru_cache(maxsize=None)
@@ -282,67 +237,91 @@ def _taps(device):
 
 
 @functools.lru_cache(maxsize=None)
-def _level_index(n, inverse, device):
-    """The mirrored tap indices of one level of length n, per tap offset:
-    forward {lo: {k: mirr(2i + k)}, hi: {k: mirr(2i + 1 + k)}}; inverse
-    {sl: {c: mirr_sl(k + c)}, sh: {c: mirr_sh(nl + k + c)}}, k the output
-    pair (nl pairs; the odd outputs take the first nh)."""
+def _ext_runs(n, inverse):
+    """The gather that extends one level of length n by its mirrors, so
+    every tap is a strided slice of the result, as runs (a, b) of
+    consecutive source cells.  Forward: ext[i] = t[mirr(i - 4, n)], 2 nl + 7
+    cells (output j's taps are ext[2j + k], k = 0..8).  Inverse: the lowpass
+    run extL[i] = t[mirr_sl(i - 1, nl)] (nl + 3 cells), then the highpass
+    run extH[i] = t[mirr_sh(nl + i - 2, nl, nh)] (nl + 4 cells); output pair
+    k's taps are extL[k + c] and extH[k + c]."""
     nh = n // 2
     nl = n - nh
-    dev = torch.device(device)
+    if inverse:
+        idx = np.concatenate([mirr_sl(np.arange(nl + 3) - 1, nl),
+                              mirr_sh(nl + np.arange(nl + 4) - 2, nl, nh)])
+    else:
+        idx = mirr(np.arange(2 * nl + 7) - 4, n)
+    runs = [[int(idx[0]), int(idx[0]) + 1]]
+    for i in idx[1:]:
+        if i == runs[-1][1]:
+            runs[-1][1] += 1
+        else:
+            runs.append([int(i), int(i) + 1])
+    return tuple((a, b) for a, b in runs)
 
-    def t(a):
-        return torch.as_tensor(np.asarray(a, dtype=np.int64), device=dev)
 
-    if not inverse:
-        lo, hi = 2 * np.arange(nl), 2 * np.arange(nh) + 1
-        return ({k: t(mirr(lo + k, n)) for k in range(-4, 5)},
-                {k: t(mirr(hi + k, n)) for k in range(-3, 4)})
-    k = np.arange(nl)
-    return ({c: t(mirr_sl(k + c, nl)) for c in range(-1, 3)},
-            {c: t(mirr_sh(nl + k + c, nl, nh)) for c in range(-2, 3)})
+def _extend(t, n, inverse):
+    """t[..., :n] extended by `_ext_runs` (slices joined along the last
+    axis: a copy, no gather)."""
+    return torch.cat([t[..., a:b] for a, b in _ext_runs(n, inverse)], -1)
 
 
 def _fwd_level(x, n):
     """One analysis level over x[..., :n] in place: [lowpass | highpass] in
     wav_fwd_axis_parity's order (pair sum first, then the outer taps in)."""
-    (al, ah, _, _), (lo, hi) = _taps(x.device), _level_index(n, False, x.device)
-    t = x[..., :n]
+    (al, ah, _, _) = _taps(x.device)
+    nh = n // 2
+    nl = n - nh
+    ext = _extend(x, n, False)
 
-    def pair(ix, k):
-        return t.index_select(-1, ix[-k]) + t.index_select(-1, ix[k])
+    def tap(k, m):  # x[k] of the first m outputs: ext[2j + k]
+        return ext[..., k:k + 2 * m - 1:2]
 
-    a = pair(lo, 4) * al[4]
+    a = tap(0, nl) + tap(8, nl)
+    a *= al[4]
     for k in (3, 2, 1):
-        a = a + pair(lo, k) * al[k]
-    a = a + t.index_select(-1, lo[0]) * al[0]
-    b = pair(hi, 3) * ah[3]
+        p = tap(4 - k, nl) + tap(4 + k, nl)
+        p *= al[k]
+        a += p
+    a += tap(4, nl) * al[0]
+    # the highpass output j is centred on 2j + 1: its taps are ext[2j + 5 + k]
+    b = tap(2, nh) + tap(8, nh)
+    b *= ah[3]
     for k in (2, 1):
-        b = b + pair(hi, k) * ah[k]
-    b = b + t.index_select(-1, hi[0]) * ah[0]
-    x[..., :n] = torch.cat([a, b], -1)
+        p = tap(5 - k, nh) + tap(5 + k, nh)
+        p *= ah[k]
+        b += p
+    b += tap(5, nh) * ah[0]
+    x[..., :nl] = a
+    x[..., nl:n] = b
 
 
 def _inv_level(x, n):
     """One synthesis level over x[..., :n] in place, interleaving the bands
     in wav_inv_axis_parity's order."""
-    (_, _, sl, sh), (L, H) = _taps(x.device), _level_index(n, True, x.device)
+    (_, _, sl, sh) = _taps(x.device)
     nh = n // 2
-    t = x[..., :n]
-
-    def g(ix, c, m):
-        return t.index_select(-1, ix[c][:m])
-
     nl = n - nh
-    ev = (g(H, -2, nl) + g(H, 1, nl)) * sh[3]
-    ev = ev + (g(L, -1, nl) + g(L, 1, nl)) * sl[2]
-    ev = ev + (g(H, -1, nl) + g(H, 0, nl)) * sh[1]
-    ev = ev + g(L, 0, nl) * sl[0]
-    od = (g(H, -2, nh) + g(H, 2, nh)) * sh[4]
-    od = od + (g(L, -1, nh) + g(L, 2, nh)) * sl[3]
-    od = od + (g(H, -1, nh) + g(H, 1, nh)) * sh[2]
-    od = od + (g(L, 0, nh) + g(L, 1, nh)) * sl[1]
-    od = od + g(H, 0, nh) * sh[0]
+    ext = _extend(x, n, True)
+    el, eh = ext[..., :nl + 3], ext[..., nl + 3:]
+
+    def L(c, m):  # lowpass tap c (k - 1 + c) of the first m pairs
+        return el[..., c:c + m]
+
+    def H(c, m):  # highpass tap c (nl + k - 2 + c) of the first m pairs
+        return eh[..., c:c + m]
+
+    ev = H(0, nl) + H(3, nl)
+    ev *= sh[3]
+    for p in ((L(0, nl) + L(2, nl)) * sl[2], (H(1, nl) + H(2, nl)) * sh[1],
+              L(1, nl) * sl[0]):
+        ev += p
+    od = H(0, nh) + H(4, nh)
+    od *= sh[4]
+    for p in ((L(0, nh) + L(3, nh)) * sl[3], (H(1, nh) + H(3, nh)) * sh[2],
+              (L(1, nh) + L(2, nh)) * sl[1], H(2, nh) * sh[0]):
+        od += p
     x[..., 0:n:2] = ev
     x[..., 1:n:2] = od
 
@@ -350,9 +329,10 @@ def _inv_level(x, n):
 def cascade_axis(t, inverse):
     """The multi-level 7/9 cascade along the last axis of an f32 tensor
     (levels `level_schedule`, forward n down to 2, inverse 2 up to n): the
-    plain version of the 128^3 kernels' cascade, operation for operation the
-    native library's parity cascade.  Returns a new tensor."""
-    x = t.contiguous().clone()
+    plain version of the kernels' cascade, operation for operation the
+    native library's parity cascade.  Returns a new tensor in t's memory
+    layout (a `movedim` view keeps its physical order: no transpose)."""
+    x = t.clone()
     levels = level_schedule(x.shape[-1])
     for n in reversed(levels) if inverse else levels:
         (_inv_level if inverse else _fwd_level)(x, n)
@@ -372,3 +352,66 @@ def cascade_3d(t, inverse):
     for d in (3, 2, 1):
         t = cascade(t, d, inverse)
     return t
+
+
+def forward_3d_volume_plain(vol, block):
+    """Plain PyTorch version of `forward_3d_volume`: zero-pad, then
+    `cascade` along x, y and z of the plane's block axes (bit-equal to
+    `cascade_3d` of `blocks.to_blocks`; bz == 1 has no level)."""
+    bx, by, bz = block
+    nbz, nby, nbx = blocks.grid_shape(vol.shape, block)
+    nzp, nyp, nxp = nbz * bz, nby * by, nbx * bx
+    nz, ny, nx = vol.shape
+    a = F.pad(vol, (0, nxp - nx, 0, nyp - ny, 0, nzp - nz))
+    a = cascade(a.reshape(nzp, nyp, nbx, bx), 3, inverse=False)
+    a = cascade(a.reshape(nzp, nby, by, nxp), 2, inverse=False)
+    a = cascade(a.reshape(nbz, bz, nyp * nxp), 1, inverse=False)
+    return a.reshape(nzp, nyp, nxp)
+
+
+def _plane_cascade(name, t, block, out_shape):
+    """Launch `plane_cascade_fwd` / `_inv` on the (nz, ny, nx) f32 CUDA
+    tensor `t` (any strides) into a new plane of `out_shape`."""
+    if t.device.type != "cuda" or t.dtype != torch.float32 or t.dim() != 3:
+        raise ValueError(f"{name} takes a 3-D CUDA f32 tensor, got {t.dtype} "
+                         f"{tuple(t.shape)} on {t.device}")
+    out = torch.empty(out_shape, dtype=torch.float32, device=t.device)
+    _kernels.launch(name, t.data_ptr(), *t.stride(), *t.shape, *block, out.data_ptr())
+    return out
+
+
+def forward_3d_volume(vol, block):
+    """Forward transform of a (nz, ny, nx) f32 volume in VOLUME order: the
+    zero-padded (nzp, nyp, nxp) coefficient plane, each block's
+    coefficients at its own place (`cvxcompress_tpu/ops/wavelet.py:249`
+    without the TPU's x-pad to 128 lanes), native's parity cascade x, then
+    y, then z; an axis of length 1 is skipped.  On a CUDA tensor (any view)
+    the kernel `plane_cascade_fwd`; on a CPU tensor the plain version."""
+    if vol.device.type == "cpu":
+        return forward_3d_volume_plain(vol, block)
+    plane = tuple(g * b for g, b in zip(blocks.grid_shape(vol.shape, block), block[::-1]))
+    return _plane_cascade("plane_cascade_fwd", vol, block, plane)
+
+
+def forward_blocks(batch):
+    """Forward transform of a (n, bz, by, bx) f32 block batch: `cascade_3d`
+    on the CPU, on the card `plane_cascade_fwd` on the batch viewed as the
+    plane (n * bz, by, bx)."""
+    if batch.device.type == "cpu":
+        return cascade_3d(batch, inverse=False)
+    n, bz, by, bx = batch.shape
+    plane = batch.reshape(n * bz, by, bx)
+    return _plane_cascade("plane_cascade_fwd", plane, (bx, by, bz),
+                          plane.shape).view(n, bz, by, bx)
+
+
+def inverse_blocks(coeffs):
+    """Inverse transform of a (n, bz, by, bx) f32 coefficient batch:
+    `cascade_3d(inverse=True)` on the CPU, on the card `plane_cascade_inv`
+    on the batch viewed as the plane (n * bz, by, bx)."""
+    if coeffs.device.type == "cpu":
+        return cascade_3d(coeffs, inverse=True)
+    n, bz, by, bx = coeffs.shape
+    plane = coeffs.reshape(n * bz, by, bx)
+    return _plane_cascade("plane_cascade_inv", plane, (bx, by, bz),
+                          plane.shape).view(n, bz, by, bx)

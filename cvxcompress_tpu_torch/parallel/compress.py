@@ -19,10 +19,8 @@ algorithm:
 
 Every shard encodes on the WHOLE volume's route (`codec.encode_route`),
 and every slab decodes on its inverse (`codec.route`), so the containers
-are byte-identical across mesh sizes and to `codec.compress` where the
-route's transforms are the port's kernels (or run on the CPU); on the
-stripe route on a card the slabs' library products may round otherwise
-(ROADMAP.md §3).
+are byte-identical across mesh sizes and to `codec.compress` (every
+route's transform is native's cascade, on the card and on the CPU).
 
 `decompress` cuts the container into ranges of whole z block rows
 balanced on payload bytes (`decode_ranges`), decodes each slab's

@@ -38,8 +38,8 @@ def lifting_flops_per_cell(block):
 
 
 def matmul_flops_per_cell(block):
-    """FLOPs per cell of the dense-operator formulation (the stripe route's
-    einsums)."""
+    """FLOPs per cell of the dense-operator formulation (the JAX package's
+    stripe route; `chip_smoke.py`'s einsum3 yardstick)."""
     bx, by, bz = block
     return 2 * (bx * (bx > 1) + by * (by > 1) + bz * (bz > 1))
 

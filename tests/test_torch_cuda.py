@@ -16,7 +16,7 @@ import cvxcompress_tpu_torch as cvt
 from cvxcompress_tpu_torch import container as ctn
 from cvxcompress_tpu_torch.ops import (
     _kernels, blocks, codec, entropy_decode, fused_compress, fused_inverse, pack,
-    quant, rle_device, rle_host, tokenize,
+    quant, rle_device, rle_host, tokenize, wavelet,
 )
 
 import chunk_emit_cases as ec
@@ -45,6 +45,14 @@ def rng():
 def rel_rms(a, b):
     a, b = a.double(), b.double()
     return float(((a - b) ** 2).mean().sqrt() / ((b**2).mean().sqrt() + 1e-30))
+
+
+def rel_rms_finite(a, b):
+    """`rel_rms` over b's finite cells, after asserting that a and b hold
+    NaN at the same cells (the ramp's NaN block decodes to NaN in part)."""
+    assert torch.equal(torch.isnan(a), torch.isnan(b))
+    fin = torch.isfinite(b)
+    return rel_rms(a[fin], b[fin])
 
 
 def volume(rng, shape):
@@ -646,8 +654,6 @@ def test_local_roundtrip_on_the_card(dev, block):
     b = block[0]
     shape = (64, 96, 96) if b == 32 else (128, 128, 256)
     vol = ramp(shape, b)
-    if b == 32:
-        vol[40, 70, 70] = 0.5  # finite: the CPU path's transform differs on NaN
     _kernels.reset_counts()
     data, _ = cvt.compress(vol, 1e-2, block=block, use_local_rms=True)
     out = cvt.decompress(data)
@@ -661,9 +667,9 @@ def test_local_roundtrip_on_the_card(dev, block):
     ref, _ = cvt.compress(vol, 1e-2, block=block, use_local_rms=True, device="cpu")
     np.testing.assert_allclose(blkmf, ctn.unpack(ref)[2], rtol=1e-5)
     assert abs(int(data.size) - int(ref.size)) <= max(64, 0.01 * ref.size)
-    assert rel_rms(out, cvt.decompress(data, engine="host")) < TRANSFORM_TOL
+    assert rel_rms_finite(out, cvt.decompress(data, engine="host")) < TRANSFORM_TOL
     nat = torch.from_numpy(rle_host.host_decompress(data))
-    assert rel_rms(out.cpu(), nat) < TRANSFORM_TOL
+    assert rel_rms_finite(out.cpu(), nat) < TRANSFORM_TOL
 
 
 def test_decode_kernels_on_local_containers(dev):
@@ -704,15 +710,17 @@ def route_kernels(shape, block, local=False):
     if codec.route(shape, block) == "stripe_fused":
         return ("stripe_fused_encode_local" if local else "stripe_fused_encode",
                 "stripe_fused_inverse")
-    return ("tokenize_stripe",)
+    return ("plane_cascade_fwd", "tokenize_stripe", "plane_cascade_inv")
 
 
 def generic_vs_plain(vt, block, mulfac=None, scale=None):
     """The route's encode on the card: on the "stripe_fused" route the
     kernel's coefficients (as int32: NaN payloads too) and table bit-equal
     to the plain version's, and the fused inverse bit-equal to its plain
-    version on those coefficients; on either route the tokenize
-    and `emit_chunks` bit-equal to their plain versions on the kernel's own
+    version on those coefficients; on the "stripe" route the plane
+    (`plane_cascade_fwd`) bit-equal to `forward_3d_volume_plain`'s and the
+    block inverse (`plane_cascade_inv`) to `cascade_3d`'s; on either route
+    the tokenize and `emit_chunks` bit-equal to their plain versions on the kernel's own
     coefficients and table, and the stream equal to the native encoder's.
     Returns the encode's outputs."""
     shape, local = tuple(vt.shape), scale is not None
@@ -735,8 +743,13 @@ def generic_vs_plain(vt, block, mulfac=None, scale=None):
         vp = fused_inverse.stripe_fused_inverse_plain(c, shape, block)
         assert torch.equal(vk.view(torch.int32), vp.view(torch.int32))
     else:
+        cp = wavelet.forward_3d_volume_plain(vt, block)
+        assert torch.equal(c.view(torch.int32), cp.view(torch.int32))
         plain = tokenize.tokenize_stripe_plain(c, mk, block)
         cbm, sb = blocks.to_blocks(c, block).view(mk.shape[0], -1), block
+        cb = blocks.to_blocks(c, block)
+        assert torch.equal(wavelet.inverse_blocks(cb).view(torch.int32),
+                           wavelet.cascade_3d(cb, inverse=True).view(torch.int32))
     for got, ref in zip((dk, cbk, sk, rk), plain):
         assert torch.equal(got, ref)
     base = torch.cumsum(cbk.long(), 0) - cbk.long()
@@ -807,9 +820,9 @@ def test_stripe_fused_gives_native_parity_container(dev, block):
 def test_generic_kernels_zero_and_nan_blocks(dev, kind):
     """Whole zero blocks (one run of 2^24 zeros in a 256^3 block: an RLESC3
     of 2^24 - 1 and a trailing [0], cost 5) and a NaN block, on the stripe
-    route (raw: the einsums spread the NaN to the whole block) and on the
-    fused stripe route at a block held by a cluster (native's parity
-    cascade spreads it to part of the block, coded as VLESC4 tokens)."""
+    route and on the fused stripe route at a block held by a cluster: on
+    both native's parity cascade spreads the NaN to part of the block,
+    coded as VLESC4 tokens (not raw)."""
     block = (64, 32, 32) if kind == "fused_nan" else (256, 256, 256)
     shape = (64, 64, 128) if kind == "fused_nan" else (512, 256, 256)
     vol = generic_volume("half" if kind == "half" else "nan", shape, block)
@@ -819,11 +832,11 @@ def test_generic_kernels_zero_and_nan_blocks(dev, kind):
     if kind == "half":
         assert rk.tolist() == [False, False] and int(sk[1]) == 5
         assert int(dk[1, -1]) == 5 | 8 | (((1 << 24) - 1) << 4)
-    elif kind == "nan":
-        assert rk.tolist() == [False] * (rk.numel() - 1) + [True]
     else:
-        nan = torch.isnan(c[-1])
+        last = blocks.to_blocks(c, block)[-1] if kind == "nan" else c[-1]
+        nan = torch.isnan(last)
         assert bool(nan.any()) and not bool(nan.all())
+        assert not bool(rk.any())
 
 
 @pytest.mark.parametrize("block,shape", [
@@ -1081,17 +1094,17 @@ def test_block_scale_tok_across_slice_seams(dev, kind):
     ({"CVX_FUSED_W": "1"}, (128, 128, 128), (128, 128, 256), False,
      ("block_fwd_xz", "block_encode_y", "block_emit")),
     ({"CVX_FUSED_W": "0"}, (128, 128, 128), (128, 128, 256), False,
-     ("tokenize_stripe", "block_emit")),
+     ("plane_cascade_fwd", "tokenize_stripe", "block_emit")),
     ({"CVX_STRIPE": "patch"}, (32, 32, 32), (64, 96, 96), False,
-     ("tokenize_stripe", "patch_extract", "block_emit_rows")),
+     ("plane_cascade_fwd", "tokenize_stripe", "patch_extract", "block_emit_rows")),
     ({"CVX_STRIPE": "patch"}, (16, 16, 16), (40, 50, 70), True,
-     ("tokenize_stripe", "patch_extract", "block_emit_rows")),
+     ("plane_cascade_fwd", "tokenize_stripe", "patch_extract", "block_emit_rows")),
     ({"CVX_FUSED_COMPACT": "1"}, (32, 32, 32), (64, 64, 64), False,
-     ("tokenize_compact", "block_emit_rows")),
+     ("plane_cascade_fwd", "tokenize_compact", "block_emit_rows")),
     ({"CVX_FUSED_COMPACT": "1"}, (32, 32, 32), (64, 64, 64), True,
-     ("tokenize_compact", "block_emit_rows")),
+     ("plane_cascade_fwd", "tokenize_compact", "block_emit_rows")),
     ({"CVX_FUSED_COMPACT": "1"}, (128, 128, 128), (128, 128, 256), False,
-     ("tokenize_compact", "block_emit_rows")),
+     ("plane_cascade_fwd", "tokenize_compact", "block_emit_rows")),
 ], ids=["fused_w1", "fused_w0", "patch32", "patch16_local", "compact32",
         "compact32_local", "compact128"])
 def test_optin_routes_on_the_card(dev, monkeypatch, env, block, shape, local, kernels):
@@ -1107,7 +1120,7 @@ def test_optin_routes_on_the_card(dev, monkeypatch, env, block, shape, local, ke
     out = cvt.decompress(data)
     torch.cuda.synchronize()
     inverse = {"fused32": ("fused_inverse",), "block128": ("block_inv_xy", "block_inv_z"),
-               "stripe_fused": ("stripe_fused_inverse",), "stripe": ()}
+               "stripe_fused": ("stripe_fused_inverse",), "stripe": ("plane_cascade_inv",)}
     want = dict.fromkeys((*kernels, "decode_maps", "decode_chase", "decode_emit",
                           *inverse[codec.route(shape, block)]), 1)
     assert {k: v for k, v in _kernels.launches.items() if v} == want
@@ -1136,9 +1149,10 @@ def test_fused_w1_and_patch64_containers_equal_default(dev, monkeypatch):
 
 def test_transform_exact_under_caller_tf32(dev):
     """Under the caller's `set_float32_matmul_precision("high")` the stripe
-    route's einsums still run in full f32: the 8^3 transform within 1e-5 of
-    the f64 operator product, the container equal to the one made under
-    "highest", and the caller's setting left as it was."""
+    route's transform (native's cascade, no matmul) is unchanged: the 8^3
+    transform within 1e-5 of the f64 operator product, the container equal
+    to the one made under "highest", and the caller's setting left as it
+    was."""
     from cvxcompress_tpu_torch.ops import wavelet
 
     block = (8, 8, 8)
@@ -1157,6 +1171,141 @@ def test_transform_exact_under_caller_tf32(dev):
         torch.set_float32_matmul_precision(prev)
     assert rel_rms(blocks.to_blocks(plane.cpu(), block), want) < TRANSFORM_TOL
     np.testing.assert_array_equal(got, ref)
+
+
+# -- plane_cascade: the stripe, patch and compact routes' transforms ------------
+
+PLANE_CASES = [
+    ((8, 8, 8), (40, 50, 70)), ((64, 64, 64), (70, 90, 100)),
+    ((128, 8, 8), (20, 40, 300)), ((8, 8, 1), (5, 50, 70)),
+    ((8, 8, 256), (260, 20, 30)), ((256, 8, 16), (20, 30, 260)),
+    ((256, 256, 256), (260, 40, 30)), ((128, 128, 128), (130, 128, 140)),
+]
+
+
+def special_ramp(shape, seed):
+    """`volume` scaled by a ramp along z (1e-3 to 1e3) with NaN, +-inf and
+    3e38 cells: where dense products and the cascade part ways."""
+    nz, ny, nx = shape
+    v = volume(np.random.default_rng(seed), shape)
+    v *= np.logspace(-3, 3, nz, dtype=np.float32)[:, None, None]
+    v[nz // 2, 1, 2] = np.nan
+    v[1, ny // 2, 3] = np.inf
+    v[2, 3, nx // 2] = -np.inf
+    v[nz - 1, ny - 1, nx // 3] = np.float32(3e38)
+    return v
+
+
+@pytest.mark.parametrize("block,shape", PLANE_CASES, ids=lambda v: "x".join(map(str, v)))
+def test_plane_cascade_matches_plain(dev, block, shape):
+    """`plane_cascade_fwd` on the volume and on a view at a 4-byte offset,
+    bit-equal (as int32: NaN payloads too) to `forward_3d_volume_plain`;
+    on the block batch (`forward_blocks`) and its inverse
+    (`plane_cascade_inv`) bit-equal to `cascade_3d`; one launch each."""
+    vol = special_ramp(shape, sum(block))
+    flat = torch.zeros(vol.size + 1, device=dev)
+    views = (torch.from_numpy(vol).to(dev), flat[1:].view(shape).copy_(torch.from_numpy(vol)))
+    for vt in views:
+        _kernels.reset_counts()
+        got = wavelet.forward_3d_volume(vt, block)
+        torch.cuda.synchronize()
+        assert _kernels.launches["plane_cascade_fwd"] == 1
+        want = wavelet.forward_3d_volume_plain(vt, block)
+        assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+    batch = blocks.to_blocks(views[0], block)
+    fb = wavelet.forward_blocks(batch)
+    assert torch.equal(fb.view(torch.int32),
+                       wavelet.cascade_3d(batch, inverse=False).view(torch.int32))
+    cb = blocks.to_blocks(got, block)
+    _kernels.reset_counts()
+    inv = wavelet.inverse_blocks(cb)
+    torch.cuda.synchronize()
+    assert _kernels.launches["plane_cascade_inv"] == 1
+    assert torch.equal(inv.view(torch.int32),
+                       wavelet.cascade_3d(cb, inverse=True).view(torch.int32))
+
+
+def assert_equal_but_nan_bits(got, want):
+    """Bit-equal f32 arrays but for the bits of a NaN: the card makes the
+    canonical NaN where x86 keeps an operand's payload."""
+    np.testing.assert_array_equal(np.isnan(got), np.isnan(want))
+    keep = ~np.isnan(want)
+    np.testing.assert_array_equal(got[keep].view(np.uint32), want[keep].view(np.uint32))
+
+
+def assert_native_parity_on_card(vol, block, route):
+    """The card's compress of `vol` on `route` (`plane_cascade_fwd` launched
+    once, and `plane_cascade_inv` where the decode is the stripe route's)
+    against native's parity codec: the container byte-equal and the volume
+    bit-equal, or, where native's coefficients or volume hold a NaN, equal
+    but for NaN bits (the header, offsets, tables and every decoded
+    coefficient, then the volume)."""
+    assert codec.encode_route(vol.shape, block, False) == route
+    _kernels.reset_counts()
+    data, _ = cvt.compress(vol, 1e-2, block=block)
+    out = cvt.decompress(data).cpu().numpy()
+    torch.cuda.synchronize()
+    assert _kernels.launches["plane_cascade_fwd"] == 1
+    assert _kernels.launches["plane_cascade_inv"] == (codec.route(vol.shape, block)
+                                                      == "stripe")
+    ref, _ = rle_host.host_compress_parity(vol, 1e-2, block=block)
+    want = rle_host.host_decompress_parity(ref)
+    if not np.array_equal(np.asarray(data), ref):
+        hd, offs, mf, pb = ctn.unpack(data)
+        _, roffs, rmf, rpb = ctn.unpack(ref)
+        np.testing.assert_array_equal(np.asarray(data[:pb]), ref[:rpb])
+        cells = block[0] * block[1] * block[2]
+        theirs = rle_host.decode_payloads(ref[rpb:], roffs, hd.glob_mulfac, cells, rmf)
+        assert np.isnan(theirs).any()  # only a NaN's bits may differ
+        assert_equal_but_nan_bits(
+            rle_host.decode_payloads(data[pb:], offs, hd.glob_mulfac, cells, mf), theirs)
+    if not np.array_equal(out.view(np.uint32), want.view(np.uint32)):
+        assert np.isnan(want).any()
+        assert_equal_but_nan_bits(out, want)
+
+
+@pytest.mark.parametrize("route,block,shape", [
+    ("stripe", (8, 8, 8), (40, 50, 70)), ("stripe", (64, 64, 64), (64, 64, 448)),
+    ("stripe", (8, 8, 1), (5, 50, 70)), ("stripe", (128, 8, 8), (20, 40, 300)),
+    ("stripe", (128, 128, 128), (130, 128, 140)),
+    ("patch", (64, 64, 64), (64, 64, 448)), ("patch", (32, 32, 32), (40, 50, 70)),
+    ("compact", (8, 8, 8), (48, 64, 96)), ("compact", (64, 64, 64), (64, 64, 448)),
+], ids=lambda v: v if isinstance(v, str) else "x".join(map(str, v)))
+def test_plane_routes_give_native_parity(dev, monkeypatch, route, block, shape):
+    """On the card the stripe, patch and compact routes' global containers
+    are `cvx_compress_parity_th`'s byte for byte, and their decompress
+    equals `cvx_decompress_inplace_parity_th`'s volume; the transforms are
+    the plane kernels (no einsum)."""
+    for k in ("CVX_STRIPE", "CVX_FUSED_COMPACT", "CVX_FUSED_W"):
+        monkeypatch.delenv(k, raising=False)
+    if route == "patch":
+        monkeypatch.setenv("CVX_STRIPE", "patch")
+    if route == "compact":
+        monkeypatch.setenv("CVX_FUSED_COMPACT", "1")
+    assert_native_parity_on_card(generic_volume("sine", shape, block), block, route)
+
+
+@pytest.mark.parametrize("name", ["nan_8c", "inf_8c", "big_8c", "nan_128x8x8", "nan_64c"])
+def test_plane_route_nonfinite_inputs_on_card(dev, name):
+    """The inputs where dense products spread a non-finite cell over its
+    line, or overflow (NaN, inf, 3e38 in an (8, 8, 8) volume at 8^3, NaN
+    in (8, 8, 128) at (128, 8, 8), and NaN in a 64^3 block of a larger
+    volume): on the card native's parity container and volume, but for
+    NaN bits."""
+    if name == "nan_64c":
+        block, shape = (64, 64, 64), (64, 64, 448)
+        vol = generic_volume("sine", shape, block)
+        vol[32, 3, 4] = np.nan
+    else:
+        shape, block = ((8, 8, 128), (128, 8, 8)) if name == "nan_128x8x8" else \
+            ((8, 8, 8), (8, 8, 8))
+        z, y, x = np.meshgrid(*(np.arange(n) for n in shape), indexing="ij")
+        vol = (np.sin(0.7 * z) + np.cos(0.3 * y) * np.sin(0.11 * x)).astype(np.float32)
+        if name == "big_8c":
+            vol[4, 4, 4] = np.float32(3e38)
+        else:
+            vol[0, 3, 4] = np.inf if name == "inf_8c" else np.nan
+    assert_native_parity_on_card(vol, block, "stripe")
 
 
 def test_volume_on_another_card(dev):

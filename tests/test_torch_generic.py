@@ -252,7 +252,8 @@ def test_local_table_matches_jax_and_native(containers, name):
 def test_raw_fallback_and_nan_block(block):
     """x1000 noise beside a quiet region at 1e-8: the noisy blocks fall back
     to raw (their unscaled coefficients stored).  Under the local RMS a NaN
-    makes its block's coefficients NaN: that block alone is raw.  Both
+    reaches only its cascade's taps, and its block is coded as native's
+    parity codec codes it (no block raw, the raw flags native's).  Both
     engines agree bit for bit and native decodes each container."""
     rng = np.random.default_rng(81)
     shape = (8, 16, 256)
@@ -266,7 +267,10 @@ def test_raw_fallback_and_nan_block(block):
                                device="cpu")
         raw = ctn.unpack(data)[1] < 0
         if local:
-            assert np.flatnonzero(raw).tolist() == [raw.size - 1]
+            want, _ = rle_host.host_compress_parity(v, scale, block=block,
+                                                    use_local_rms=True)
+            assert not raw.any()
+            np.testing.assert_array_equal(raw, ctn.unpack(want)[1] < 0)
         else:
             assert raw.reshape(nbz, nby, nbx)[:, :, : 128 // block[0]].all()
             assert not raw.reshape(nbz, nby, nbx)[:, :, 128 // block[0]:].any()

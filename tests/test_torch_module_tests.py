@@ -42,6 +42,32 @@ def test_stage_passes_on_cpu(st, name):
     assert st.failures == [] and st.device == torch.device("cpu")
 
 
+THROUGHPUT = {
+    "[4] transform throughput": (
+        "TRANSFORM_FLOOR_MCS",
+        lambda st: mt.stage_4_transform_throughput(st, False, (8, 32, 128), 1 << 18)),
+    "[7] block layout throughput + exactness": (
+        "LAYOUT_FLOOR_GBS", lambda st: mt.stage_7_layout_throughput(st, False, 128)),
+}
+
+
+@pytest.mark.parametrize("name", list(THROUGHPUT))
+def test_throughput_stage_floor_decides(st, monkeypatch, name):
+    """Stages [4] and [7] on the CPU: they run (the transforms and the
+    layout at small budgets, [7]'s first and last blocks bit-exact), and
+    their floor decides the check: a floor of 0 passes, an unreachable one
+    fails.  A rate on a CPU shared by the suite's parallel workers is no
+    measurement, so the floors themselves (10 MC/s, 0.5 GB/s) are held on
+    the card (`chip_smoke.py` phase 3i) and by the command line."""
+    const, stage = THROUGHPUT[name]
+    monkeypatch.setattr(mt, const, 0.0)
+    stage(st)
+    assert st.failures == []
+    monkeypatch.setattr(mt, const, float("inf"))
+    stage(st)
+    assert st.failures == [name]
+
+
 def test_block_sweep():
     assert len(list(mt.block_sweep(True))) == 7 * 36
     assert list(mt.block_sweep(False, (8, 256), 1 << 16)) == [

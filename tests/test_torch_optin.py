@@ -358,9 +358,8 @@ def test_raw_blocks_on_rows_routes(clean_env):
     """A raw-fallback block on the patch and compact routes: its chunks
     are skipped by the rows emit and its coefficients stored; the
     containers equal the in-place emit's on the same transform, the
-    stripe route's einsums, and have the default route's raw blocks (the
-    default 32^3 route runs native's parity cascade, whose coefficients
-    differ from the einsums' in their last bits)."""
+    stripe route's (native's parity cascade, as the default 32^3 route's),
+    and have the default route's raw blocks."""
     rng = np.random.default_rng(5)
     vol = (rng.standard_normal((64, 64, 64)) * 1000).astype(np.float32)
     vol[:, :, 32:] *= 1e-6  # x1000 noise at 1e-8 beside quiet blocks
@@ -385,8 +384,8 @@ def test_raw_blocks_on_rows_routes(clean_env):
 
 def test_import_leaves_matmul_precision():
     """Importing the port leaves the caller's TF32 flag and f32 matmul
-    precision as they were (the stripe route's einsums set their own, only
-    inside `wavelet.full_f32`)."""
+    precision as they were (the port runs no matmul; `wavelet.full_f32`
+    sets its own only inside)."""
     code = ("import sys, torch; torch.set_float32_matmul_precision('high'); "
             f"sys.path.insert(0, {REPO!r}); import cvxcompress_tpu_torch; "
             "from cvxcompress_tpu_torch.ops import codec, wavelet; "
