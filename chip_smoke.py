@@ -1094,10 +1094,12 @@ sys.exit(code)
 
 def phase_3i(torch, cvt, kernels, dev, card, vol, res_h):
     """The stripe, patch and compact routes on native's cascade
-    (csrc/plane_cascade.cu): `plane_cascade_fwd` and `plane_cascade_inv`
-    bit-equal to their plain versions at A-8^3, A-64^3, A-256^3,
-    S-(128, 8, 8), S-(8, 8, 1) and the unaligned 128^3 (a misaligned view
-    at A-8^3 too), timed at A beside the plain versions and einsum3; the
+    (csrc/plane_cascade.cu): `plane_cascade_fwd` into the plane and into the
+    block batch, and `plane_cascade_inv` from the batch into the clipped
+    volume (and on a batch, module tests [4]), bit-equal to their plain
+    versions at A-8^3, A-64^3, A-256^3, S-(128, 8, 8), S-(8, 8, 1) and the
+    unaligned 128^3 (a misaligned view at A-8^3 too), timed at A beside the
+    plain versions, einsum3 and the relayouts they replace; the
     three routes' containers at A-8^3 and A-64^3 byte-equal to native's
     parity codec and their decompress bit-equal to native's parity
     decompress, fault 8's inputs the same but for NaN bits; phase 3h's
@@ -1122,21 +1124,36 @@ def phase_3i(torch, cvt, kernels, dev, card, vol, res_h):
             flat = torch.zeros(v.size + 1, device=dev)
             views.append((" (a view at a 4-byte offset)", flat[1:].view(v.shape).copy_(vt)))
         for vtag, vin in views:
-            got = wavelet.forward_3d_volume(vin, block)
-            plain = wavelet.forward_3d_volume_plain(vin, block)
-            torch.cuda.synchronize()
-            nd = u32_differ(got, plain)
-            check(nd == 0, f"3i {label}{vtag}: plane_cascade_fwd uint32-equal to "
-                  f"forward_3d_volume_plain ({nd} of {got.numel()} cells differ)")
-            del plain
-        del views
-        cb = blocks.to_blocks(got, block)
+            for kern, plain_fn, lay in (
+                    (wavelet.forward_3d_volume, wavelet.forward_3d_volume_plain, "plane"),
+                    (wavelet.forward_blocks_of_volume, wavelet.forward_blocks_of_volume_plain,
+                     "block batch")):
+                out = kern(vin, block)
+                plain = plain_fn(vin, block)
+                torch.cuda.synchronize()
+                nd = u32_differ(out, plain)
+                check(nd == 0, f"3i {label}{vtag}: plane_cascade_fwd into the {lay} "
+                      f"uint32-equal to {plain_fn.__name__} ({nd} of {out.numel()} cells "
+                      "differ)")
+                if lay == "plane":
+                    got = out
+                else:
+                    cb = out
+                del plain
+        del views, out
+        inv = wavelet.inverse_to_volume(cb, v.shape, block)
+        inv_plain = wavelet.inverse_to_volume_plain(cb, v.shape, block)
+        torch.cuda.synchronize()
+        nd = u32_differ(inv, inv_plain)
+        check(nd == 0, f"3i {label}: plane_cascade_inv into the volume uint32-equal to "
+              f"inverse_to_volume_plain ({nd} of {inv.numel()} cells differ)")
+        del inv, inv_plain
         inv = wavelet.inverse_blocks(cb)
         inv_plain = wavelet.cascade_3d(cb, inverse=True)
         torch.cuda.synchronize()
         nd = u32_differ(inv, inv_plain)
-        check(nd == 0, f"3i {label}: plane_cascade_inv uint32-equal to cascade_3d "
-              f"({nd} of {inv.numel()} cells differ)")
+        check(nd == 0, f"3i {label}: plane_cascade_inv on the block batch uint32-equal to "
+              f"cascade_3d ({nd} of {inv.numel()} cells differ)")
         del inv, inv_plain
         if label.startswith("A"):  # the main path's cells: timed
             cells = got.numel()
@@ -1152,21 +1169,35 @@ def phase_3i(torch, cvt, kernels, dev, card, vol, res_h):
                 **bound(4 * v.size + 4 * cells, flops),
                 library_ms=cuda_ms(lambda: einsum3(padded, got.shape, block, False), 10),
                 library_call="einsum3: one three-operator torch.einsum (full f32) "
-                             "over the zero-padded volume")
+                             "over the zero-padded volume",
+                blocks_ms=cuda_ms(lambda: wavelet.forward_blocks_of_volume(vt, block), 10),
+                blocks_plain_ms=cuda_ms(
+                    lambda: wavelet.forward_blocks_of_volume_plain(vt, block), 2),
+                relayout_then_batch_ms=cuda_ms(
+                    lambda: wavelet.forward_blocks(blocks.to_blocks(vt, block)), 10))
+            # the inverse writes the clipped volume: the padded coefficients
+            # in, the volume out
             inv = dict(
                 max_abs_err=0.0,
-                ms=cuda_ms(lambda: wavelet.inverse_blocks(cb), 10),
-                plain_ms=cuda_ms(lambda: wavelet.cascade_3d(cb, inverse=True), 2),
-                **bound(8 * cells, flops_inv),
+                ms=cuda_ms(lambda: wavelet.inverse_to_volume(cb, v.shape, block), 10),
+                plain_ms=cuda_ms(
+                    lambda: wavelet.inverse_to_volume_plain(cb, v.shape, block), 2),
+                **bound(4 * cells + 4 * v.size, flops_inv),
                 library_ms=cuda_ms(lambda: einsum3(cb, got.shape, block, True), 10),
                 library_call="einsum3 inverse: one three-operator torch.einsum "
-                             "(full f32), block-major in")
+                             "(full f32), block-major in, the padded volume out",
+                batch_then_relayout_ms=cuda_ms(lambda: blocks.from_blocks(
+                    wavelet.inverse_blocks(cb), v.shape, block), 10))
             del padded
             for k, r in (("plane_cascade_fwd", fwd), ("plane_cascade_inv", inv)):
                 res["kernels"].setdefault(k, {})[label] = r
                 print(f"  3i {label}: {k} kernel {r['ms']:.4f} ms, plain "
                       f"{r['plain_ms']:.3f} ms, einsum3 {r['library_ms']:.4f} ms, bound "
                       f"{r['bound_ms']:.4f} ms ({r['bound_by']}) on {card}")
+            print(f"  3i {label}: plane_cascade_fwd into the block batch "
+                  f"{fwd['blocks_ms']:.4f} ms (to_blocks, then the kernel on the batch: "
+                  f"{fwd['relayout_then_batch_ms']:.4f}); plane_cascade_inv on the batch, "
+                  f"then from_blocks: {inv['batch_then_relayout_ms']:.4f} ms on {card}")
         del vt, got, cb
         torch.cuda.empty_cache()
     # the report rows: A-64^3 (the cell whose drive their launches count),
@@ -1176,6 +1207,14 @@ def phase_3i(torch, cvt, kernels, dev, card, vol, res_h):
         rows[k]["inputs"] = {lab: dict(ms=r["ms"], plain_ms=r["plain_ms"],
                                        bound_ms=r["bound_ms"], library_ms=r["library_ms"])
                              for lab, r in by.items()}
+    # the kernels' registers, shared memory and spills as ptxas reported them
+    res["ptxas"], on = [], False
+    for line in kernels.build_info.get("log", "").splitlines():
+        if line.startswith("== "):
+            on = line[3:].strip() == "plane_cascade.cu"
+        elif on and ("registers" in line or "spill" in line):
+            res["ptxas"].append(line.strip())
+    print(f"  3i plane_cascade.cu ptxas: {res['ptxas']}")
 
     # the three routes' containers against native's parity codec
     switches = ("CVX_FUSED_COMPACT", "CVX_STRIPE", "CVX_FUSED_W")

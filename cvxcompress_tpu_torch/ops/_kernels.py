@@ -106,11 +106,12 @@ _SIGNATURES = {
     "cvx_block_inv_z": [ctypes.c_int, ctypes.c_int, ctypes.c_int, _VP, _VP],
     "cvx_plane_cascade_fwd": [
         _VP, ctypes.c_int64, ctypes.c_int64, ctypes.c_int64, ctypes.c_int, ctypes.c_int,
-        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, _VP, _VP,
+        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, _VP, ctypes.c_int, _VP,
+        _VP, _VP,
     ],
     "cvx_plane_cascade_inv": [
-        _VP, ctypes.c_int64, ctypes.c_int64, ctypes.c_int64, ctypes.c_int, ctypes.c_int,
-        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, _VP, _VP,
+        _VP, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+        ctypes.c_int, _VP, ctypes.c_int, _VP, _VP, _VP,
     ],
 }
 

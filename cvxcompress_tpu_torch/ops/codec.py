@@ -49,8 +49,8 @@ codec.py:1490-1523`):
   block-major buffer (decode_emit), overlays the raw blocks and runs the
   inverse on it (32^3: `fused_inverse`; aligned 128^3:
   `block_fused_inverse`; the "stripe_fused" blocks: `stripe_fused_inverse`;
-  every other block: `plane_cascade_inv`, where the JAX `_inverse_from_plane`
-  runs XLA products);
+  every other block: `plane_cascade_inv`, straight into the volume, where
+  the JAX `_inverse_from_plane` runs XLA products and a relayout);
 - "host": the native library decodes every block on the host (with the
   container's `blkmulfac` under the local RMS), only the non-zero
   min(128, cells)-cell chunks go up to the device (`sparse_chunks`), and the
@@ -84,8 +84,8 @@ from torch.profiler import record_function
 from .. import container as ctn
 from ..utils import io
 from . import (
-    blocks, entropy_decode, fused_compress, fused_inverse, geometry, pack, quant,
-    rle_device, rle_host, tokenize, wavelet,
+    entropy_decode, fused_compress, fused_inverse, geometry, pack, quant, rle_device,
+    rle_host, tokenize, wavelet,
 )
 
 BLOCK = (32, 32, 32)
@@ -438,10 +438,11 @@ def sparse_chunks(coeffs):
 def _inverse(dense, hdr, path=None):
     """The inverse of the container's geometry on the dense block-major
     coefficients: a kernel at 32^3, aligned 128^3 and the "stripe_fused"
-    blocks, else `wavelet.inverse_blocks` (kernel `plane_cascade_inv`, where
-    the JAX package's `_inverse_from_plane` runs XLA products,
-    `cvxcompress_tpu/ops/codec.py:1151-1169`), then the block-major ->
-    volume relayout.  `path` forces the route (a slab
+    blocks, else `wavelet.inverse_to_volume` (kernel `plane_cascade_inv`,
+    which also writes the volume from the block-major coefficients, where
+    the JAX package's `_inverse_from_plane` runs XLA products and a
+    relayout, `cvxcompress_tpu/ops/codec.py:1151-1169`).  `path` forces the
+    route (a slab
     of a larger volume decodes on the whole volume's), else `route`."""
     shape = (hdr.nz, hdr.ny, hdr.nx)
     block = (hdr.bx, hdr.by, hdr.bz)
@@ -456,8 +457,7 @@ def _inverse(dense, hdr, path=None):
         with record_function("cvx.stripe_fused_inverse"):
             return fused_inverse.stripe_fused_inverse(dense, shape, block)
     with record_function("cvx.inverse"):
-        coeffs = dense.view(-1, hdr.bz, hdr.by, hdr.bx)
-        return blocks.from_blocks(wavelet.inverse_blocks(coeffs), shape, block)
+        return wavelet.inverse_to_volume(dense, shape, block)
 
 
 def decompress_device(data, device, path=None):

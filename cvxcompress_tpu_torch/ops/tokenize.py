@@ -34,8 +34,8 @@ or `encode`: the transform (`wavelet.forward_3d_volume`, kernel
 stripe map, csrc/tokenize_stripe.cu: the K13 port, and of K12 and K12').
 
 Under `CVX_FUSED_COMPACT=1` (ops/geometry.py) `compact_encode` runs instead:
-the block-major transform (`wavelet.forward_blocks`, kernel
-`plane_cascade_fwd`) and the table, then `tokenize_compact` (csrc/tokenize_compact.cu, the K14 port), which also
+the block-major transform (`wavelet.forward_blocks_of_volume`, kernel
+`plane_cascade_fwd` from the volume into the block batch) and the table, then `tokenize_compact` (csrc/tokenize_compact.cu, the K14 port), which also
 compacts the live chunks into rows for `pack.emit_rows`.
 """
 
@@ -313,12 +313,12 @@ def tokenize_compact(coeffs, mulfacs):
 def compact_encode(vol, block, mulfac=None, *, scale=None):
     """The encode under `CVX_FUSED_COMPACT=1` (ops/geometry.py `compact_ok`
     blocks): the forward transform block-major (kernel `plane_cascade_fwd`
-    on the block batch, where the JAX `_stage_w_pallas`, `cvxcompress_tpu/
+    from the volume into the block batch, where the JAX `_stage_w_pallas`, `cvxcompress_tpu/
     ops/codec.py:71-100`, runs XLA products), the mulfac table as the stripe
     route's (`quant.block_table`), then `tokenize_compact`.  Returns (coeffs (nnn, cells), mulfacs, then
     `tokenize_compact`'s outputs)."""
     bx, by, _ = block
-    coeffs = wavelet.forward_blocks(blocks.to_blocks(vol, block))
+    coeffs = wavelet.forward_blocks_of_volume(vol, block)
     coeffs = coeffs.reshape(coeffs.shape[0], -1)
     mulfacs = quant.block_table(coeffs.view(-1, by, bx), block, mulfac, scale=scale)
     return (coeffs, mulfacs, *tokenize_compact(coeffs, mulfacs))

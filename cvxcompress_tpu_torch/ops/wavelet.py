@@ -31,6 +31,7 @@ from __future__ import annotations
 
 import contextlib
 import functools
+import math
 
 import numpy as np
 import torch
@@ -369,14 +370,98 @@ def forward_3d_volume_plain(vol, block):
     return a.reshape(nzp, nyp, nxp)
 
 
-def _plane_cascade(name, t, block, out_shape):
-    """Launch `plane_cascade_fwd` / `_inv` on the (nz, ny, nx) f32 CUDA
-    tensor `t` (any strides) into a new plane of `out_shape`."""
-    if t.device.type != "cuda" or t.dtype != torch.float32 or t.dim() != 3:
-        raise ValueError(f"{name} takes a 3-D CUDA f32 tensor, got {t.dtype} "
-                         f"{tuple(t.shape)} on {t.device}")
+def forward_blocks_of_volume_plain(vol, block):
+    """Plain version of `forward_blocks_of_volume`: `cascade_3d` of the
+    zero-padded block batch."""
+    return cascade_3d(blocks.to_blocks(vol, block), inverse=False)
+
+
+def inverse_to_volume_plain(coeffs, shape, block):
+    """Plain version of `inverse_to_volume`: `cascade_3d(inverse=True)` of
+    the block batch, then the relayout to the clipped volume."""
+    bx, by, bz = block
+    c = coeffs.reshape(-1, bz, by, bx)
+    return blocks.from_blocks(cascade_3d(c, inverse=True), shape, block)
+
+
+# -- the kernels' pass plan (csrc/plane_cascade.cu) ----------------------------
+
+PLAN_LTILE = 14  # log2 of the cells of a tile (64 KiB of f32): PC_LTILE
+# the layouts a pass reads or writes (the launcher's PC_VOL .. PC_CLIP) and
+# the buffers (input, output, scratch): a plan names a side buffer * 4 + layout
+VOL, PLANE, BLOCKS, CLIP = range(4)
+IN, OUT, SCRATCH = range(3)
+
+
+def pass_plan(block):
+    """The kernels' passes for `block` = (bx, by, bz): (class, passes), each
+    pass (axes, (ltz, lty, ltx), lnb): the axes it runs (1 x, 2 y, 4 z), the
+    log2 edges of its tile's box in a block, and log2 of the whole blocks a
+    tile holds (the box is then the block); a tile is 2^PLAN_LTILE cells.
+    Class "a": a block of at most a tile, one pass; "b": a (by, bx) face
+    of at most a tile, x + y, then z; "c": x, y and z apart."""
+    lbx, lby, lbz = (int(b).bit_length() - 1 for b in block)
+    t, lc, lf = PLAN_LTILE, lbx + lby + lbz, lbx + lby
+    if lc <= t:
+        return "a", ((3 | (4 if lbz else 0), (lbz, lby, lbx), t - lc),)
+    if lf <= t:
+        passes = ((3, (t - lf, lby, lbx), 0),)
+        cls = "b"
+    else:
+        passes = ((1, (0, t - lbx, lbx), 0), (2, (0, lby, t - lby), 0))
+        cls = "c"
+    if lbz:
+        ltx = min(lbx, t - lbz)
+        passes += ((4, (lbz, t - lbz - ltx, ltx), 0),)
+    return cls, passes
+
+
+def launch_plan(block, inverse, layout=PLANE):
+    """`pass_plan` as the launcher takes it: an int32 array of 7 a pass,
+    (axes, ltz, lty, ltx, lnb, source, destination).  Forward: the volume
+    (its strides) into the output in `layout` (PLANE or BLOCKS), the later
+    passes in place there.  Inverse: block-major coefficients in, the
+    passes before the last into the block-major scratch, the last into the
+    clipped volume."""
+    _, passes = pass_plan(block)
+    rows, src = [], IN * 4 + (BLOCKS if inverse else VOL)
+    for k, (axes, box, lnb) in enumerate(passes):
+        last = k == len(passes) - 1
+        if inverse:
+            dst = OUT * 4 + CLIP if last else SCRATCH * 4 + BLOCKS
+        else:
+            dst = OUT * 4 + layout
+        rows.append((axes, *box, lnb, src, dst))
+        src = dst
+    return np.asarray(rows, dtype=np.int32)
+
+
+def _padded(shape, block):
+    """The (nzp, nyp, nxp) shape of a volume's whole blocks."""
+    return tuple(g * b for g, b in zip(blocks.grid_shape(shape, block), block[::-1]))
+
+
+def _launch(name, t, block, shape, plan, out_shape):
+    """Launch `plane_cascade_fwd` / `_inv` on the f32 CUDA tensor `t` (the
+    (nz, ny, nx) volume, any strides; or the contiguous padded block-major
+    coefficients) by the passes of `plan`, into a new tensor of
+    `out_shape`; a scratch of the padded cells where a pass before the
+    last writes one."""
+    fwd = name == "plane_cascade_fwd"
+    padded = _padded(shape, block)
+    if (t.device.type != "cuda" or t.dtype != torch.float32
+            or (t.dim() != 3 if fwd else t.numel() != math.prod(padded))):
+        raise ValueError(f"{name} takes a CUDA f32 {'volume' if fwd else 'block batch'} "
+                         f"for {shape} at {block}, got {t.dtype} {tuple(t.shape)} on "
+                         f"{t.device}")
     out = torch.empty(out_shape, dtype=torch.float32, device=t.device)
-    _kernels.launch(name, t.data_ptr(), *t.stride(), *t.shape, *block, out.data_ptr())
+    scratch = None
+    if (plan[:, 5:] >> 2 == SCRATCH).any():
+        scratch = torch.empty(padded, dtype=torch.float32, device=t.device)
+    strides = (*t.stride(),) if fwd else ()
+    _kernels.launch(name, t.data_ptr(), *strides, *shape, *block,
+                    plan.ctypes.data, len(plan), out.data_ptr(),
+                    None if scratch is None else scratch.data_ptr())
     return out
 
 
@@ -389,29 +474,52 @@ def forward_3d_volume(vol, block):
     the kernel `plane_cascade_fwd`; on a CPU tensor the plain version."""
     if vol.device.type == "cpu":
         return forward_3d_volume_plain(vol, block)
-    plane = tuple(g * b for g, b in zip(blocks.grid_shape(vol.shape, block), block[::-1]))
-    return _plane_cascade("plane_cascade_fwd", vol, block, plane)
+    return _launch("plane_cascade_fwd", vol, block, tuple(vol.shape),
+                   launch_plan(block, False, PLANE), _padded(vol.shape, block))
+
+
+def forward_blocks_of_volume(vol, block):
+    """Forward transform of a (nz, ny, nx) f32 volume BLOCK-MAJOR: the
+    (nnn, bz, by, bx) coefficients of its zero-padded blocks in raster
+    order.  On a CUDA tensor (any view) the kernel `plane_cascade_fwd`,
+    reading the volume and writing the batch (no relayout); on a CPU tensor
+    the plain version."""
+    if vol.device.type == "cpu":
+        return forward_blocks_of_volume_plain(vol, block)
+    bx, by, bz = block
+    nnn = int(np.prod(blocks.grid_shape(vol.shape, block)))
+    return _launch("plane_cascade_fwd", vol, block, tuple(vol.shape),
+                   launch_plan(block, False, BLOCKS), (nnn, bz, by, bx))
+
+
+def inverse_to_volume(coeffs, shape, block):
+    """Inverse transform of block-major coefficients ((nnn, cells) or
+    (nnn, bz, by, bx), raster order) into the (nz, ny, nx) volume, clipped
+    at its edges.  On a CUDA tensor the kernel `plane_cascade_inv`, writing
+    the volume itself (no relayout); on a CPU tensor the plain version."""
+    shape = tuple(int(n) for n in shape)
+    if coeffs.device.type == "cpu":
+        return inverse_to_volume_plain(coeffs, shape, block)
+    return _launch("plane_cascade_inv", coeffs.contiguous(), block, shape,
+                   launch_plan(block, True), shape)
 
 
 def forward_blocks(batch):
     """Forward transform of a (n, bz, by, bx) f32 block batch: `cascade_3d`
     on the CPU, on the card `plane_cascade_fwd` on the batch viewed as the
-    plane (n * bz, by, bx)."""
+    volume (n * bz, by, bx)."""
     if batch.device.type == "cpu":
         return cascade_3d(batch, inverse=False)
     n, bz, by, bx = batch.shape
-    plane = batch.reshape(n * bz, by, bx)
-    return _plane_cascade("plane_cascade_fwd", plane, (bx, by, bz),
-                          plane.shape).view(n, bz, by, bx)
+    return forward_3d_volume(batch.reshape(n * bz, by, bx),
+                             (bx, by, bz)).view(n, bz, by, bx)
 
 
 def inverse_blocks(coeffs):
     """Inverse transform of a (n, bz, by, bx) f32 coefficient batch:
     `cascade_3d(inverse=True)` on the CPU, on the card `plane_cascade_inv`
-    on the batch viewed as the plane (n * bz, by, bx)."""
+    into the batch viewed as the volume (n * bz, by, bx)."""
     if coeffs.device.type == "cpu":
         return cascade_3d(coeffs, inverse=True)
     n, bz, by, bx = coeffs.shape
-    plane = coeffs.reshape(n * bz, by, bx)
-    return _plane_cascade("plane_cascade_inv", plane, (bx, by, bz),
-                          plane.shape).view(n, bz, by, bx)
+    return inverse_to_volume(coeffs, (n * bz, by, bx), (bx, by, bz)).view(n, bz, by, bx)

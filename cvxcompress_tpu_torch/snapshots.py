@@ -122,8 +122,7 @@ class DeviceSnapshotStack:
             return fused_compress.block_encode(t, mulfac)[0]
         if self._route == "stripe_fused":
             return tokenize.stripe_fused_encode(t, self.block, mulfac)[0]
-        plane = wavelet.forward_3d_volume(t, self.block)
-        return blocks.to_blocks(plane, self.block).view(self.nnn, self.cells)
+        return wavelet.forward_blocks_of_volume(t, self.block).view(self.nnn, self.cells)
 
     def _compact(self, rows, mask, cap):
         """The first `cap` live rows of `rows` (zero past the live count) and

@@ -1225,6 +1225,85 @@ def test_plane_cascade_matches_plain(dev, block, shape):
                        wavelet.cascade_3d(cb, inverse=True).view(torch.int32))
 
 
+PLANE_EDGES = (8, 16, 32, 64, 128, 256)
+
+
+def partial_shape(block):
+    """A volume with a partial block on every axis (bz = 1: three planes):
+    two blocks along each axis, one along y and z at blocks of 2^21 cells
+    and more."""
+    bx, by, bz = block
+    if bx * by * bz >= 1 << 21:
+        return (bz - 3, by - 3, bx + 5)
+    return (bz + 3 if bz > 1 else 3, by + 5, bx + 3)
+
+
+def plane_kernels_vs_plain(vt, block):
+    """`plane_cascade_fwd` into the plane and into the block batch, and
+    `plane_cascade_inv` from that batch into the volume, each launched once
+    a call and uint32-equal (NaN bits included: the card makes the canonical
+    NaN in both) to its plain version on the same input."""
+    shape = tuple(vt.shape)
+    batch = None
+    for kern, plain in ((wavelet.forward_3d_volume, wavelet.forward_3d_volume_plain),
+                        (wavelet.forward_blocks_of_volume,
+                         wavelet.forward_blocks_of_volume_plain)):
+        _kernels.reset_counts()
+        got = kern(vt, block)
+        torch.cuda.synchronize()
+        assert _kernels.launches["plane_cascade_fwd"] == 1
+        assert torch.equal(got.view(torch.int32), plain(vt, block).view(torch.int32)), (
+            block, kern.__name__)
+        batch = got
+    _kernels.reset_counts()
+    inv = wavelet.inverse_to_volume(batch, shape, block)
+    torch.cuda.synchronize()
+    assert _kernels.launches["plane_cascade_inv"] == 1 and inv.shape == shape
+    want = wavelet.inverse_to_volume_plain(batch, shape, block)
+    assert torch.equal(inv.view(torch.int32), want.view(torch.int32)), block
+    return batch
+
+
+@pytest.mark.parametrize("bx", PLANE_EDGES)
+def test_plane_kernels_every_block(dev, bx):
+    """At every legal block of this bx (by every edge, bz every edge or 1),
+    on a ramp with NaN, +-inf and 3e38 cells with a partial block on every
+    axis: both kernels in both layouts uint32-equal to their plain
+    versions."""
+    for by in PLANE_EDGES:
+        for bz in (1, *PLANE_EDGES):
+            block = (bx, by, bz)
+            shape = partial_shape(block)
+            plane_kernels_vs_plain(
+                torch.from_numpy(special_ramp(shape, bx + by + bz)).to(dev), block)
+            torch.cuda.empty_cache()
+
+
+@pytest.mark.parametrize("block", [(8, 8, 8), (16, 16, 16), (64, 64, 64), (256, 256, 256),
+                                   (128, 8, 8), (8, 8, 1), (256, 256, 1)],
+                         ids=lambda v: "x".join(map(str, v)))
+def test_plane_kernels_on_views(dev, block):
+    """Through a view at a 4-byte offset (the kernels' 4-byte copies) and a
+    transposed view (x slowest in memory), both kernels in both layouts
+    uint32-equal to their plain versions on the same view; the inverse also
+    from coefficients at a 4-byte offset."""
+    shape = partial_shape(block)
+    vol = special_ramp(shape, 11)
+    flat = torch.zeros(vol.size + 1, device=dev)
+    at_offset = flat[1:].view(shape).copy_(torch.from_numpy(vol))
+    transposed = torch.from_numpy(np.ascontiguousarray(vol.transpose(2, 1, 0))).to(
+        dev).permute(2, 1, 0)
+    for vt in (at_offset, transposed):
+        batch = plane_kernels_vs_plain(vt, block)
+    buf = torch.zeros(batch.numel() + 1, device=dev)
+    moved = buf[1:].view(batch.shape).copy_(batch)
+    inv = wavelet.inverse_to_volume(moved, shape, block)
+    want = wavelet.inverse_to_volume_plain(batch, shape, block)
+    assert torch.equal(inv.view(torch.int32), want.view(torch.int32))
+    with pytest.raises(ValueError):  # a batch of another volume's blocks
+        wavelet.inverse_to_volume(batch[:-1], shape, block)
+
+
 def assert_equal_but_nan_bits(got, want):
     """Bit-equal f32 arrays but for the bits of a NaN: the card makes the
     canonical NaN where x86 keeps an operand's payload."""

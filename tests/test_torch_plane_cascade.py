@@ -6,7 +6,10 @@ routes giving `cvx_compress_parity_th`'s container under the global RMS, and
 the CPU decompress `cvx_decompress_inplace_parity_th`'s volume, at the
 stripe route's geometries and on the inputs where the dense products spread
 a non-finite cell (NaN, inf, 3e38); a sharded stripe-route compress
-byte-equal to the single call.  No JAX call."""
+byte-equal to the single call; the kernels' pass plan over every legal
+block; the block-major forward and the inverse into the volume (plain
+versions) bit-equal to the compositions they replace, and the stripe
+decode and the compact encode going through them.  No JAX call."""
 
 import numpy as np
 import pytest
@@ -16,7 +19,7 @@ torch.set_num_threads(1)  # one thread a process: the suite runs in parallel wor
 
 import cvxcompress_tpu_torch as cvt
 from cvxcompress_tpu_torch import container as ctn
-from cvxcompress_tpu_torch.ops import blocks, codec, rle_host, wavelet
+from cvxcompress_tpu_torch.ops import blocks, codec, quant, rle_host, tokenize, wavelet
 from cvxcompress_tpu_torch.parallel import mesh, sharded
 from cvxcompress_tpu_torch.parallel import compress as pcompress
 
@@ -190,3 +193,229 @@ def test_routes_make_no_einsum(monkeypatch, route):
     data, _ = cvt.compress(vol, SCALE, block=block, device="cpu")
     out = cvt.decompress(data, device="cpu").numpy()
     assert out.shape == shape and np.isfinite(out).all()
+
+
+# every legal block: each edge 8 .. 256, bz also 1
+EDGES = (8, 16, 32, 64, 128, 256)
+ALL_BLOCKS = [(bx, by, bz) for bx in EDGES for by in EDGES for bz in (1, *EDGES)]
+
+
+def plan_bytes(shape, block, inverse, layout):
+    """Bytes the plan's passes move over (nz, ny, nx): each pass reads its
+    source once and writes its destination once (the volume's cells where
+    it reads or writes the volume, the padded cells elsewhere)."""
+    vol = 4 * int(np.prod(shape))
+    padded = 4 * int(np.prod(wavelet._padded(shape, block)))
+    side = {wavelet.VOL: vol, wavelet.CLIP: vol, wavelet.PLANE: padded,
+            wavelet.BLOCKS: padded}
+    return sum(side[r[5] & 3] + side[r[6] & 3]
+               for r in wavelet.launch_plan(block, inverse, layout))
+
+
+def test_pass_plan_covers_every_block():
+    """Every legal block (6 x 6 x 7 = 252) has a class and passes whose
+    tiles hold 2^PLAN_LTILE cells of whole lines, running x, then y, then z
+    once each; the kernel's shared memory fits 227 KiB; the plan's bytes
+    are the bound's (each input read once, each output written once) for
+    class a, one padded read and write more a pass after the first."""
+    assert len(ALL_BLOCKS) == 252
+    t = wavelet.PLAN_LTILE
+    # csrc/plane_cascade.cu PC_SMEM: two tile buffers, their tables (32
+    # bytes a block of at least 64 cells), 1 KiB of alignment slack
+    assert 2 * (4 << t) + 2 * 32 * (1 << t) // 64 + 1024 <= 227 * 1024
+    shape = (300, 270, 260)  # partial blocks on every axis at most blocks
+    seen = set()
+    for block in ALL_BLOCKS:
+        lbx, lby, lbz = (int(b).bit_length() - 1 for b in block)
+        cls, passes = wavelet.pass_plan(block)
+        seen.add(cls)
+        assert cls == ("a" if lbx + lby + lbz <= t else "b" if lbx + lby <= t else "c")
+        order = []
+        for axes, (ltz, lty, ltx), lnb in passes:
+            assert lnb + ltz + lty + ltx == t, block
+            assert 3 <= ltx <= lbx and 0 <= lty <= lby and 0 <= ltz <= lbz, block
+            assert not lnb or (ltz, lty, ltx) == (lbz, lby, lbx), block
+            assert lnb <= t - 6  # the launcher's table holds 2^(t - 6) blocks
+            for bit, (l, lb) in ((1, (ltx, lbx)), (2, (lty, lby)), (4, (ltz, lbz))):
+                if axes & bit:
+                    assert l == lb, block  # whole lines
+                    order.append(bit)
+        assert order == ([1, 2, 4] if lbz else [1, 2]), block
+        pad = 4 * int(np.prod(wavelet._padded(shape, block)))
+        vol = 4 * int(np.prod(shape))
+        for inverse, layout in ((False, wavelet.PLANE), (False, wavelet.BLOCKS),
+                                (True, wavelet.PLANE)):
+            plan = wavelet.launch_plan(block, inverse, layout)
+            assert plan.dtype == np.int32 and plan.shape == (len(passes), 7)
+            assert plan_bytes(shape, block, inverse, layout) == (
+                vol + pad + 2 * pad * (len(passes) - 1)), block
+            first, last = plan[0, 5], plan[-1, 6]
+            assert first == (wavelet.IN * 4 + (wavelet.BLOCKS if inverse else wavelet.VOL))
+            assert last == wavelet.OUT * 4 + (wavelet.CLIP if inverse else layout)
+            mid = plan[:-1, 6] >> 2
+            assert (mid == (wavelet.SCRATCH if inverse else wavelet.OUT)).all()
+    assert seen == {"a", "b", "c"}
+
+
+def views(vol):
+    """The volume contiguous, transposed in memory (x slowest) and as a
+    slice of a wider one: the strides the kernels read through."""
+    t = torch.from_numpy(vol)
+    wide = torch.zeros(vol.shape[0], vol.shape[1], vol.shape[2] + 3)
+    wide[:, :, 1:-2] = t
+    return (t, torch.from_numpy(np.ascontiguousarray(vol.transpose(2, 1, 0))).permute(2, 1, 0),
+            wide[:, :, 1:-2])
+
+
+@pytest.mark.parametrize("block,shape", TRANSFORM_CASES + [
+    ((16, 32, 64), (70, 40, 20)), ((256, 128, 8), (10, 130, 260)),
+    ((8, 256, 16), (20, 260, 10)), ((32, 32, 32), (33, 31, 65))],
+    ids=lambda v: "x".join(map(str, v)))
+def test_fused_relayout_entry_points_plain(block, shape):
+    """On the CPU `forward_blocks_of_volume` is `cascade_3d` of
+    `to_blocks` and `inverse_to_volume` is `from_blocks` of the inverse
+    `cascade_3d`, bit for bit, partial edge blocks included and on strided
+    views; the batch is the plane's blocks, and the inverse gives back the
+    batch's volume (native's transcription, `np_cascade_3d`)."""
+    vol = field(shape, sum(block) + 1)
+    ref = None
+    for v in views(vol):
+        got = wavelet.forward_blocks_of_volume(v, block)
+        want = wavelet.cascade_3d(blocks.to_blocks(v, block), inverse=False)
+        assert got.shape == want.shape
+        assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+        ref = got if ref is None else ref
+        assert torch.equal(got.view(torch.int32), ref.view(torch.int32))
+    assert torch.equal(blocks.to_blocks(wavelet.forward_3d_volume(views(vol)[0], block),
+                                        block).view(torch.int32), ref.view(torch.int32))
+    for c in (ref, ref.reshape(ref.shape[0], -1)):
+        inv = wavelet.inverse_to_volume(c, shape, block)
+        want = blocks.from_blocks(wavelet.cascade_3d(ref, inverse=True), shape, block)
+        assert inv.shape == shape
+        assert torch.equal(inv.view(torch.int32), want.view(torch.int32))
+    nat = np_cascade_3d(ref.numpy(), inverse=True)
+    np.testing.assert_array_equal(
+        inv.numpy().view(np.uint32),
+        blocks.from_blocks(torch.from_numpy(nat), shape, block).numpy().view(np.uint32))
+
+
+@pytest.mark.parametrize("route", ["stripe", "compact"])
+def test_routes_relayout_in_the_transform(monkeypatch, route):
+    """The stripe route's decode runs `wavelet.inverse_to_volume` once and
+    the compact encode `wavelet.forward_blocks_of_volume` once, and neither
+    runs `blocks.from_blocks` or `blocks.to_blocks` outside them (on the
+    card those entry points are one kernel each, no PyTorch relayout)."""
+    for k in ("CVX_STRIPE", "CVX_FUSED_COMPACT", "CVX_FUSED_W"):
+        monkeypatch.delenv(k, raising=False)
+    block, shape = (8, 8, 8), (48, 64, 96)
+    vol = field(shape, 7)
+    calls, depth = [], [0]
+
+    def spy(name, fn):
+        def run(*a, **kw):
+            calls.append(name)
+            depth[0] += 1
+            try:
+                return fn(*a, **kw)
+            finally:
+                depth[0] -= 1
+        return run
+
+    def guard(name, fn):
+        def run(*a, **kw):
+            assert depth[0], f"blocks.{name} outside the transform's entry points"
+            return fn(*a, **kw)
+        return run
+
+    monkeypatch.setattr(wavelet, "inverse_to_volume",
+                        spy("inverse_to_volume", wavelet.inverse_to_volume))
+    monkeypatch.setattr(wavelet, "forward_blocks_of_volume",
+                        spy("forward_blocks_of_volume", wavelet.forward_blocks_of_volume))
+    guards = [("to_blocks", blocks.to_blocks), ("from_blocks", blocks.from_blocks)]
+    if route == "stripe":
+        data, _ = cvt.compress(vol, SCALE, block=block, device="cpu")
+        for name, fn in guards:
+            monkeypatch.setattr(blocks, name, guard(name, fn))
+        out = cvt.decompress(data, device="cpu", engine="device")
+        assert calls == ["inverse_to_volume"]
+        vref = rle_host.host_decompress_parity(
+            rle_host.host_compress_parity(vol, SCALE, block=block)[0])
+        np.testing.assert_array_equal(out.numpy().view(np.uint32), vref.view(np.uint32))
+    else:
+        batch = blocks.to_blocks(torch.from_numpy(vol), block).numpy()
+        for name, fn in guards:
+            monkeypatch.setattr(blocks, name, guard(name, fn))
+        coeffs = tokenize.compact_encode(torch.from_numpy(vol), block,
+                                         quant.global_mulfac(vol, SCALE))[0]
+        assert calls == ["forward_blocks_of_volume"]
+        nat = np_cascade_3d(batch, inverse=False)
+        np.testing.assert_array_equal(coeffs.numpy().view(np.uint32),
+                                      nat.reshape(coeffs.shape).view(np.uint32))
+
+
+def psw(w):
+    """csrc/plane_cascade.cu `psw`: where word w of a tile lives."""
+    return w ^ ((((w >> 5) ^ (w >> 8) ^ (w >> 11)) & 7) << 2)
+
+
+def lanes_per_bank(words, vec4=False):
+    """The most lanes of one shared-memory access that meet on a bank
+    (distinct words): scalar words per warp, float4s per quarter warp."""
+    worst = 1
+    for q in range(4 if vec4 else 1):
+        part = words[8 * q:8 * q + 8] if vec4 else words
+        banks = {}
+        for w in {psw(x) for x in part}:
+            banks.setdefault((w >> 2) & 7 if vec4 else w & 31, set()).add(w)
+        worst = max(worst, max(len(v) for v in banks.values()))
+    return worst
+
+
+@pytest.mark.parametrize("block", [(8, 8, 8), (16, 16, 16), (64, 64, 64), (256, 256, 256),
+                                   (128, 8, 8), (8, 8, 1), (8, 256, 8), (32, 32, 16)],
+                         ids=lambda v: "x".join(map(str, v)))
+def test_swizzle_banks(block):
+    """The kernels' shared-memory accesses, modelled: a warp's lanes take
+    consecutive lines (lines of 64 to 256 cells: N / 32 lanes a line, 32
+    cells a lane), rows of up to 32 cells and a lane's own cells of a row
+    read as float4s.  Every copy of the lines' cells meets at most 2 lanes
+    to a bank; the highpass accesses of rows of 64 to 256 cells at most 4,
+    of y- and z-lines at most 2."""
+    t = wavelet.PLAN_LTILE
+    for axes, (ltz, lty, ltx), _ in wavelet.pass_plan(block)[1]:
+        lf = ltx + lty
+        for bit, ln, L, off in (
+                (1, ltx, 0, lambda l: l << ltx),
+                (2, lty, ltx, lambda l: ((l >> ltx) << lf) + (l & ((1 << ltx) - 1))),
+                (4, ltz, lf, lambda l: ((l >> lf) << (lf + ltz)) + (l & ((1 << lf) - 1)))):
+            if not axes & bit:
+                continue
+            n = 1 << ln
+            for warp in range(16):
+                lanes = range(32 * warp, 32 * warp + 32)
+                if n <= 32:
+                    if bit == 1:
+                        worst = max(lanes_per_bank([(k << ltx) + 4 * c for k in lanes], True)
+                                    for c in range(n // 4))
+                    else:
+                        worst = max(lanes_per_bank([off(k) + (i << L) for k in lanes
+                                                    if k < (1 << t) // n]) for i in range(n))
+                    assert worst <= 2, (block, bit)
+                    continue
+                S = n // 32
+                line = [off((k >> 5) * (32 // S) + (k & 31) // S) for k in lanes]
+                seg = [k & (S - 1) for k in lanes]
+                if bit == 1:
+                    own = max(lanes_per_bank([a + 32 * s + 4 * c for a, s in zip(line, seg)],
+                                             True) for c in range(8))
+                else:
+                    own = max(lanes_per_bank([a + ((32 * s + i) << L)
+                                              for a, s in zip(line, seg)]) for i in range(32))
+                assert own <= 2, (block, bit)
+                m = 32
+                while m >= 4:  # the highpass cells of level n = m S
+                    h, q = m * S // 2, m // 2
+                    hi = max(lanes_per_bank([a + ((h + q * s + j) << L)
+                                             for a, s in zip(line, seg)]) for j in range(q))
+                    assert hi <= (4 if bit == 1 else 2), (block, bit, m)
+                    m //= 2
