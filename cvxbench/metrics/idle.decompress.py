@@ -1,0 +1,8 @@
+"""idle.decompress (%, device trace): 1 - device busy time (kernels, copies
+and memsets) / wall time over the traced decompress calls."""
+
+from cvxbench.harness import readers
+
+
+def read(run):
+    return readers.idle_pct(run, "decompress")
