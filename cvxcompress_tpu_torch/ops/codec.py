@@ -60,9 +60,15 @@ codec.py:1490-1523`):
 `decompress_many` decodes K containers of one geometry on the device
 engine with one upload of their K plans.
 
-Each stage runs inside a `torch.profiler.record_function` span named
-"cvx.<stage>", so a profiler trace attributes host and device time to the
-stages.
+Each stage and each host wait on the card runs inside a span named
+"cvx.<stage>" (`utils/profiling.span`: a `record_function` while a
+profiler records, a flag check otherwise), and each public half inside one
+of its own name ("cvx.compress_stage", ...), so a trace attributes host
+and device time to the stages and names the host time between them; a
+wait's span ends in "_wait" and encloses no launch but the copy it waits
+for.  The spans the benchmark times on the host whole ("cvx.assemble",
+"cvx.plan") hold no span inside: a span's own cost under a trace would
+land in theirs.
 
 Everything runs on the CUDA card unless the caller asks for the CPU
 (`device="cpu"`, where the plain PyTorch versions of the kernels run); on
@@ -79,10 +85,9 @@ import contextlib
 
 import numpy as np
 import torch
-from torch.profiler import record_function
 
 from .. import container as ctn
-from ..utils import io
+from ..utils import io, profiling
 from . import (
     entropy_decode, fused_compress, fused_inverse, geometry, pack, quant, rle_device,
     rle_host, tokenize, wavelet,
@@ -237,6 +242,7 @@ def compress_many(vols, scale, block=BLOCK, use_local_rms=False, glob_mulfacs=No
                                           glob_mulfacs, device, _route))
 
 
+@profiling.traced("cvx.compress_stage")
 def compress_stage(vols, scale, block=BLOCK, use_local_rms=False, glob_mulfacs=None,
                    device=None, _route=None):
     """The first half of `compress_many`, on the current stream: upload the
@@ -252,18 +258,19 @@ def compress_stage(vols, scale, block=BLOCK, use_local_rms=False, glob_mulfacs=N
         raise ValueError(f"{len(glob_mulfacs)} mulfacs for {len(vols)} volumes")
     dev = batch_device(vols, device)
     with device_guard(dev):
-        with record_function("cvx.volume_h2d"):
+        with profiling.span("cvx.volume_h2d"):
             ts = [_device_volume(v, dev) for v in vols]
-        with record_function("cvx.mulfac"):
+        with profiling.span("cvx.mulfac"):
             mfs = _header_mulfacs(vols, ts, scale, use_local_rms, glob_mulfacs)
         ctxs = [_encode(t, scale, block, use_local_rms, m, _route)
                 for t, m in zip(ts, mfs)]
-        with record_function("cvx.sizes_readback"):
+        with profiling.span("cvx.sizes_readback"):
             sr, ev = fetch(torch.cat([c.pop("bundle") for c in ctxs])) if ctxs \
                 else (None, None)
     return dict(device=dev, ctxs=ctxs, sizes=sr, event=ev)
 
 
+@profiling.traced("cvx.compress_finish")
 def compress_finish(batch):
     """The second half of `compress_many`: wait for the sizes bundles, launch
     the K emits, ONE device-to-host copy of every stream (and the raw
@@ -272,20 +279,21 @@ def compress_finish(batch):
     if not ctxs:
         return []
     with device_guard(batch["device"]):
-        with record_function("cvx.sizes_readback"):
-            wait(batch["event"])
-            sr = batch["sizes"].numpy()
-        parts, off = [], 0
-        for c in ctxs:
-            n = c["bundle_len"]
-            parts.append(_emit(c, sr[off:off + n]))
-            off += n
-        with record_function("cvx.stream_d2h"):
+        with profiling.span("cvx.sizes_readback"):
+            with profiling.span("cvx.sizes_wait"):
+                wait(batch["event"])
+            sr, off = batch["sizes"].numpy(), 0
+            for c in ctxs:
+                _read_sizes(c, sr[off:off + c["bundle_len"]])
+                off += c["bundle_len"]
+        parts = [_emit(c) for c in ctxs]
+        with profiling.span("cvx.stream_d2h"):
             flat, ev = fetch(torch.cat([x for p in parts for x in p]))
-            wait(ev)
+            with profiling.span("cvx.stream_wait"):
+                wait(ev)
             flat = flat.numpy()
     out, off = [], 0
-    with record_function("cvx.assemble"):
+    with profiling.span("cvx.assemble"):
         for c in ctxs:
             n = c["total"] + c["raw_bytes"]
             out.append(_assemble(c, flat[off:off + n]))
@@ -310,9 +318,13 @@ def _header_mulfacs(vols, ts, scale, use_local_rms, glob_mulfacs):
         elif t.device.type != "cpu" and isinstance(v, torch.Tensor):
             card.append(i)
         else:
-            out[i] = quant.global_mulfac(t if isinstance(v, torch.Tensor) else v, scale)
+            with profiling.span("cvx.mulfac_host"):
+                out[i] = quant.global_mulfac(t if isinstance(v, torch.Tensor) else v,
+                                             scale)
     if card:
-        acc = torch.stack([quant.sumsq(ts[i]) for i in card]).cpu().numpy()
+        acc = torch.stack([quant.sumsq(ts[i]) for i in card])
+        with profiling.span("cvx.mulfac_wait"):
+            acc = acc.cpu().numpy()
         for i, a in zip(card, acc):
             out[i] = quant.mulfac_from_sumsq(a, ts[i].numel(), scale)
     return out
@@ -330,77 +342,85 @@ def _encode(t, scale, block, use_local_rms, mulfac, path=None):
     c = dict(shape=tuple(t.shape), block=block, path=path, mulfac=mulfac,
              use_local=use_local_rms, nlive=None)
     if path == "fused32":
-        with record_function("cvx.fused_encode"):
+        with profiling.span("cvx.fused_encode"):
             out = tokenize.fused_encode(t, **args)
     elif path == "block128":
-        with record_function("cvx.block_encode"):
+        with profiling.span("cvx.block_encode"):
             out = fused_compress.block_encode(t, **args)
     elif path == "block128_w":
-        with record_function("cvx.block_encode_w"):
+        with profiling.span("cvx.block_encode_w"):
             out = fused_compress.block_encode_w(t, mulfac)
     elif path == "stripe_fused":
-        with record_function("cvx.stripe_fused_encode"):
+        with profiling.span("cvx.stripe_fused_encode"):
             out = tokenize.stripe_fused_encode(t, block, **args)
     elif path == "compact":
-        with record_function("cvx.compact_encode"):
+        with profiling.span("cvx.compact_encode"):
             (coeffs, mulfacs, chunk_bytes, sizes, raw, rows, drows, ids, _,
              c["nlive"]) = tokenize.compact_encode(t, block, **args)
         out = (coeffs, None, chunk_bytes, sizes, raw, mulfacs)
         c.update(rows=rows, drows=drows, ids=ids)
     else:
-        with record_function("cvx.encode"):
+        with profiling.span("cvx.encode"):
             out = tokenize.encode(t, block, **args)
-        if path == "patch":
-            c["nlive"] = (out[2] > 0).sum(dtype=torch.int32).view(1)
     coeffs, desc, chunk_bytes, sizes, raw, mulfacs = out
     c.update(coeffs=coeffs, desc=desc, chunk_bytes=chunk_bytes, mulfacs=mulfacs)
-    parts = [sizes, raw.to(torch.int32), mulfacs.view(torch.int32)]
-    c["bundle"] = torch.cat(parts + ([] if c["nlive"] is None else [c["nlive"]]))
+    with profiling.span("cvx.bundle"):
+        if path == "patch":
+            c["nlive"] = (chunk_bytes > 0).sum(dtype=torch.int32).view(1)
+        parts = [sizes, raw.to(torch.int32), mulfacs.view(torch.int32)]
+        c["bundle"] = torch.cat(parts + ([] if c["nlive"] is None else [c["nlive"]]))
     c["bundle_len"] = c["bundle"].numel()
     return c
 
 
-def _emit(c, sr):
-    """Launch one volume's emit from its read-back `sr` (host int32): the
-    chunk bases, the live rows on the patch route, the emit kernel.
-    Returns the uint8 device tensors to bring back: the stream, then the
-    raw blocks' UNSCALED coefficients (CvxCompress.cpp:359) when any.  The
-    context keeps only the host tables after this."""
+def _read_sizes(c, sr):
+    """Host: one volume's tables from its read-back bundle `sr` (int32):
+    per-block sizes, raw flags and mulfacs, the stream's bytes `total` and,
+    on the patch and compact routes, the live chunks `live`."""
     nnn = c["mulfacs"].numel()
     sizes_h, raw_h = sr[:nnn].astype(np.int64), sr[nnn:2 * nnn].astype(bool)
-    c.update(sizes_h=sizes_h, raw_h=raw_h,
-             mulfacs_h=sr[2 * nnn:3 * nnn].view(np.float32))
-    total = int(sizes_h[~raw_h].sum())
+    c.update(sizes_h=sizes_h, raw_h=raw_h, mulfacs_h=sr[2 * nnn:3 * nnn].view(np.float32),
+             total=int(sizes_h[~raw_h].sum()),
+             live=int(sr[3 * nnn]) if c["nlive"] is not None else None)
+
+
+def _emit(c):
+    """Launch one volume's emit from its tables (`_read_sizes`): the chunk
+    bases, the live rows on the patch route, the emit kernel.  Returns the
+    uint8 device tensors to bring back: the stream, then the raw blocks'
+    UNSCALED coefficients (CvxCompress.cpp:359) when any.  The context
+    keeps only the host tables after this."""
+    total, raw_h, n = c["total"], c["raw_h"], c["live"]
     path, block = c["path"], c["block"]
     coeffs, desc, chunk_bytes = c.pop("coeffs"), c.pop("desc"), c.pop("chunk_bytes")
     mulfacs = c.pop("mulfacs")
-    with record_function("cvx.chunk_bases"):
+    with profiling.span("cvx.chunk_bases"):
         base = pack.chunk_bases(chunk_bytes)
     if path in ("patch", "compact"):
-        n = int(sr[3 * nnn])
         if path == "patch":
-            with record_function("cvx.patch_extract"):
+            with profiling.span("cvx.patch_extract"):
                 rows, drows, ids = pack.patch_extract(coeffs, desc, chunk_bytes,
                                                       block, n)
         else:
             rows, drows, ids = c.pop("rows"), c.pop("drows"), c.pop("ids")
-        with record_function("cvx.emit_rows"):
+        with profiling.span("cvx.emit_rows"):
             stream = pack.emit_rows(rows[:n], drows[:n], ids[:n], mulfacs,
                                     chunk_bytes, base, total)
     else:
-        with record_function("cvx.emit_chunks"):
+        with profiling.span("cvx.emit_chunks"):
             stream = pack.emit_chunks(
                 coeffs, mulfacs, desc, chunk_bytes, base, total,
                 block if path == "stripe" else None)
     out = [stream]
     ids = np.flatnonzero(raw_h)
     if ids.size:
-        if path in ("stripe", "patch"):
-            rc = geometry.gather_blocks(coeffs, ids, c["shape"], block)
-        else:
-            rc = coeffs.index_select(0, torch.from_numpy(ids).to(coeffs.device))
-        out.append(rc.reshape(-1).view(torch.uint8))
-    c["total"], c["raw_bytes"] = total, 4 * rc.numel() if ids.size else 0
+        with profiling.span("cvx.raw_gather"):
+            if path in ("stripe", "patch"):
+                rc = geometry.gather_blocks(coeffs, ids, c["shape"], block)
+            else:
+                rc = coeffs.index_select(0, torch.from_numpy(ids).to(coeffs.device))
+            out.append(rc.reshape(-1).view(torch.uint8))
+    c["raw_bytes"] = 4 * rc.numel() if ids.size else 0
     return out
 
 
@@ -448,15 +468,15 @@ def _inverse(dense, hdr, path=None):
     block = (hdr.bx, hdr.by, hdr.bz)
     path = path or route(shape, block)
     if path == "fused32":
-        with record_function("cvx.fused_inverse"):
+        with profiling.span("cvx.fused_inverse"):
             return fused_inverse.fused_inverse(dense.view(-1, 128), None, shape)
     if path == "block128":
-        with record_function("cvx.block_fused_inverse"):
+        with profiling.span("cvx.block_fused_inverse"):
             return fused_inverse.block_fused_inverse(dense.view(-1, 128), shape)
     if path == "stripe_fused":
-        with record_function("cvx.stripe_fused_inverse"):
+        with profiling.span("cvx.stripe_fused_inverse"):
             return fused_inverse.stripe_fused_inverse(dense, shape, block)
-    with record_function("cvx.inverse"):
+    with profiling.span("cvx.inverse"):
         return wavelet.inverse_to_volume(dense, shape, block)
 
 
@@ -464,11 +484,11 @@ def decompress_device(data, device, path=None):
     """The device engine (`cvxcompress_tpu/ops/codec.py:1235`): the volume
     as a tensor on `device`, or None when `plan` rejects the container's
     spans.  The container is already validated; `path` as `_inverse`'s."""
-    with record_function("cvx.plan"):
+    with profiling.span("cvx.plan"):
         p = entropy_decode.plan(data)
     if p is None:
         return None
-    with record_function("cvx.plan_h2d"):
+    with profiling.span("cvx.plan_h2d"):
         b = entropy_decode.upload(p, device)
     return _decode_planned(p, b, path)
 
@@ -478,14 +498,14 @@ def _decode_planned(p, b, path=None):
     the device: parse, chase, emit, the raw blocks, the inverse."""
     hdr, cells = p["hdr"], p["cells"]
     nsub = b["sub_block"].numel()
-    with record_function("cvx.decode_maps"):
+    with profiling.span("cvx.decode_maps"):
         M, P = entropy_decode.parse_maps(b["stream"], nsub, cells)
-    with record_function("cvx.decode_chase"):
+    with profiling.span("cvx.decode_chase"):
         e32, c32 = entropy_decode.chase(P, b["sub_reset"], b["starts"], cells)
-    with record_function("cvx.decode_emit"):
+    with profiling.span("cvx.decode_emit"):
         dense = entropy_decode.emit(b["stream"], M, e32, c32, b["sub_block"],
                                     b["scalefac"], hdr.grid[3], cells)
-    with record_function("cvx.overlay_raw"):
+    with profiling.span("cvx.overlay_raw"):
         entropy_decode.overlay_raw(dense, b["raw_rows"], b["raw_ids"])
     return _inverse(dense, hdr, path)
 
@@ -510,20 +530,24 @@ def decompress_many(datas, device="cuda", to_host=True):
         vols = decompress_many_dispatch(prep)
         if not to_host or not vols:
             return vols
-        host, ev = fetch(torch.stack(vols))
-        wait(ev)
+        with profiling.span("cvx.volume_d2h"):
+            host, ev = fetch(torch.stack(vols))
+            with profiling.span("cvx.volume_wait"):
+                wait(ev)
     return list(host.numpy())
 
 
+@profiling.traced("cvx.decompress_many_prepare")
 def decompress_many_prepare(datas, device):
     """The host half of `decompress_many`: the K containers validated, their
     plans, the plans' blobs packed into one host buffer for `device` (no
     device work).  None when a plan is rejected or the geometries differ."""
     datas = list(datas)
-    for d in datas:
-        io.validate(d)
+    with profiling.span("cvx.validate"):
+        for d in datas:
+            io.validate(d)
     plans = []
-    with record_function("cvx.plan"):
+    with profiling.span("cvx.plan"):
         for d in datas:
             p = entropy_decode.plan(d)
             if p is None:
@@ -535,20 +559,22 @@ def decompress_many_prepare(datas, device):
         return None
     sizes = np.array([p["blob"].size for p in plans], dtype=np.int64)
     bases = np.cumsum(sizes) - sizes  # each blob's size is a multiple of 16
-    host = host_buffer(int(sizes.sum()), torch.uint8, device)
-    h = host.numpy()
-    for p, o in zip(plans, bases):
-        h[o:o + p["blob"].size] = p["blob"]
+    with profiling.span("cvx.plan_pack"):
+        host = host_buffer(int(sizes.sum()), torch.uint8, device)
+        h = host.numpy()
+        for p, o in zip(plans, bases):
+            h[o:o + p["blob"].size] = p["blob"]
     return dict(device=torch.device(device), plans=plans, bases=bases, host=host)
 
 
+@profiling.traced("cvx.decompress_many_dispatch")
 def decompress_many_dispatch(prep):
     """The device half of `decompress_many` on the current stream: ONE
     host-to-device copy of the packed plans, then the K decodes and
     inverses.  Returns the K volumes (tensors; no host sync)."""
     host = prep["host"]
     with device_guard(prep["device"]):
-        with record_function("cvx.plan_h2d"):
+        with profiling.span("cvx.plan_h2d"):
             blob = torch.empty(host.numel(), dtype=torch.uint8, device=prep["device"])
             blob.copy_(host, non_blocking=True)
         return [_decode_planned(p, entropy_decode.fields(blob, p["layout"], int(o)))
@@ -559,23 +585,23 @@ def _decode_host(data, hdr, blkoffs, blkmulfac, payload_base, device, path=None)
     """The host engine: native decode, chunk-sparse upload, inverse."""
     raw = np.frombuffer(memoryview(data), dtype=np.uint8)
     shape = (hdr.nz, hdr.ny, hdr.nx)
-    with record_function("cvx.decode_host"):
+    with profiling.span("cvx.decode_host"):
         coeffs = rle_host.decode_payloads(
             raw[payload_base:], blkoffs, hdr.glob_mulfac,
             hdr.bx * hdr.by * hdr.bz, blkmulfac,
         )
-    with record_function("cvx.sparse_chunks"):
+    with profiling.span("cvx.sparse_chunks"):
         rows, invmap = sparse_chunks(coeffs)
     if (hdr.bx, hdr.by, hdr.bz) == BLOCK:
-        with record_function("cvx.chunks_h2d"):
+        with profiling.span("cvx.chunks_h2d"):
             rows_t = torch.from_numpy(rows).to(device)
             invmap_t = torch.from_numpy(invmap).to(device)
-        with record_function("cvx.fused_inverse"):
+        with profiling.span("cvx.fused_inverse"):
             return fused_inverse.fused_inverse(rows_t, invmap_t, shape)
-    with record_function("cvx.chunks_h2d"):
+    with profiling.span("cvx.chunks_h2d"):
         rows_t = torch.from_numpy(rows).to(device)
         ids_t = torch.from_numpy(np.flatnonzero(invmap < rows.shape[0])).to(device)
-    with record_function("cvx.densify"):
+    with profiling.span("cvx.densify"):
         dense = torch.zeros((invmap.size, rows.shape[1]), dtype=torch.float32,
                             device=device)
         dense.index_copy_(0, ids_t, rows_t)
@@ -585,6 +611,7 @@ def _decode_host(data, hdr, blkoffs, blkmulfac, payload_base, device, path=None)
 ENGINES = ("auto", "device", "host")
 
 
+@profiling.traced("cvx.decompress")
 def decompress(data, device="cuda", engine="auto"):
     """Decompress a container to a (nz, ny, nx) f32 tensor on `device`
     ("cuda" by default, "cpu" for the plain PyTorch versions).
@@ -604,14 +631,16 @@ def decompress(data, device="cuda", engine="auto"):
     """
     if engine not in ENGINES:
         raise ValueError(f"engine must be one of {ENGINES}, got {engine!r}")
-    io.validate(data)
+    with profiling.span("cvx.validate"):
+        io.validate(data)
     device = _target(device)
     with device_guard(device):
         return _decompress(data, device, engine)
 
 
 def _decompress(data, device, engine, path=None):
-    hdr, blkoffs, blkmulfac, payload_base = ctn.unpack(data)
+    with profiling.span("cvx.validate"):
+        hdr, blkoffs, blkmulfac, payload_base = ctn.unpack(data)
     if engine == "device" or (engine == "auto" and device.type == "cuda"):
         out = decompress_device(data, device, path)
         if out is not None:

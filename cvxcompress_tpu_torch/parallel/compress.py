@@ -42,11 +42,10 @@ from __future__ import annotations
 
 import numpy as np
 import torch
-from torch.profiler import record_function
 
 from .. import pipeline
 from ..ops import codec, geometry, quant
-from ..utils import io
+from ..utils import io, profiling
 from . import mesh as meshlib
 from . import sharded
 
@@ -116,7 +115,7 @@ def compress(vol, scale, block=(32, 32, 32), use_local_rms=False, mesh=None):
             if isinstance(s, torch.Tensor) and s.device != dev:
                 s = s.to(dev)
             shards.append((s, dev, _ready(s)))
-    with record_function("cvx.mulfac"):
+    with profiling.span("cvx.mulfac"):
         if use_local_rms:
             mulfac = F32(1.0)
         elif isinstance(vol, torch.Tensor) and vol.device.type != "cpu":
@@ -137,7 +136,7 @@ def compress(vol, scale, block=(32, 32, 32), use_local_rms=False, mesh=None):
     for b, (_, dev, _), st in zip(batches, shards, streams):
         with codec.device_guard(dev), pipeline._on(st):
             segments.append(codec.compress_finish(b)[0][0])
-    with record_function("cvx.merge_segments"):
+    with profiling.span("cvx.merge_segments"):
         data = sharded.merge_segments(segments, shape, block, mulfac, use_local_rms)
     return data, shape[0] * shape[1] * shape[2] * 4 / data.size
 
@@ -183,14 +182,14 @@ def decompress(data, mesh=None, engine="auto"):
     path = codec.route((hdr.nz, hdr.ny, hdr.nx), (hdr.bx, hdr.by, hdr.bz))
     devs = mesh[:len(ranges)]
     streams = _shard_streams(devs)
-    with record_function("cvx.split_segments"):
+    with profiling.span("cvx.split_segments"):
         slabs = sharded.split_segments(data, ranges)
     outs = []
     for slab, dev, st in zip(slabs, devs, streams):
         with codec.device_guard(dev), pipeline._on(st):
             outs.append((codec._decompress(slab, dev, engine, path),
                          pipeline._done_event(st)))
-    with record_function("cvx.join_slabs"):
+    with profiling.span("cvx.join_slabs"):
         parts = []
         for (v, ev), dev in zip(outs, devs):
             with codec.device_guard(dev):

@@ -5,15 +5,23 @@ reference reports MCells/s and analytic GF/s from a lifting FLOP model
 (Compute_FLOPS_Single_Dimension, CvxCompress.cpp:663-671).  Here: the same
 model (numpy copies), a stage timer that times with CUDA events on a card
 and the host clock elsewhere, and `torch.profiler` traces.
+
+The codec's spans live here too: `span(name)` is the `record_function`
+span of a codec stage ("cvx.<stage>", ops/codec.py), entered only while a
+`torch.profiler` records, so with no profiler a span costs a flag check.
+A trace ties each device operation to the innermost span around its
+launch.
 """
 
 from __future__ import annotations
 
 import contextlib
+import functools
 import os
 import time
 
 import torch
+from torch.profiler import record_function
 
 
 def lifting_flops_per_cell_1d(dim):
@@ -98,20 +106,24 @@ def device_trace(logdir):
     prof.export_chrome_trace(os.path.join(str(logdir), "trace.json"))
 
 
-def fetch_timed(fn, *args, iters=3):
-    """Best-of-N host time of fn(*args), each run ended by the card's
-    synchronize (a CPU run needs none).  Returns (seconds, last output)."""
+_OFF = contextlib.nullcontext()
 
-    def run():
-        out = fn(*args)
-        if torch.cuda.is_available():
-            torch.cuda.synchronize()
-        return out
 
-    out = run()
-    best = float("inf")
-    for _ in range(iters):
-        t0 = time.perf_counter()
-        out = run()
-        best = min(best, time.perf_counter() - t0)
-    return best, out
+def span(name):
+    """`record_function(name)` while a profiler records, else a null
+    context."""
+    if not torch.autograd._profiler_enabled():
+        return _OFF
+    return record_function(name)
+
+
+def traced(name):
+    """Run the decorated function inside `span(name)`: a public entry
+    point's own host time between its stages is then named too."""
+    def wrap(fn):
+        @functools.wraps(fn)
+        def run(*args, **kwargs):
+            with span(name):
+                return fn(*args, **kwargs)
+        return run
+    return wrap

@@ -124,8 +124,6 @@ def test_profiling_helpers(tmp_path):
     with t.stage("x"):
         np.zeros(10).sum()
     assert t.report("x", 1000, 2.0)["gflop_s"] > 0
-    best, out = profiling.fetch_timed(lambda a: a + 1, torch.ones(3), iters=2)
-    assert best >= 0 and torch.equal(out, torch.full((3,), 2.0))
     with profiling.device_trace(tmp_path / "trace"):
         with torch.profiler.record_function("cvx.probe"):
             torch.ones(3).sum()
