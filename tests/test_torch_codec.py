@@ -41,7 +41,7 @@ def radial():
     return vol, data
 
 
-def test_import_leaves_jax_out():
+def test_import_leaves_jax_out(subprocess_timeout):
     """The port imports neither jax nor the JAX package, even after full
     roundtrips through every module, at 32^3 and at 128^3, with the global
     and the local RMS."""
@@ -72,7 +72,7 @@ def test_import_leaves_jax_out():
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     env["OMP_NUM_THREADS"] = "1"  # as the test processes (parallel workers)
     res = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
-                         capture_output=True, text=True, timeout=300)
+                         capture_output=True, text=True, timeout=subprocess_timeout)
     assert res.returncode == 0, res.stderr
 
 

@@ -382,7 +382,7 @@ def test_raw_blocks_on_rows_routes(clean_env):
 # -- the faults: TF32, the current device -------------------------------------
 
 
-def test_import_leaves_matmul_precision():
+def test_import_leaves_matmul_precision(subprocess_timeout):
     """Importing the port leaves the caller's TF32 flag and f32 matmul
     precision as they were (the port runs no matmul; `wavelet.full_f32`
     sets its own only inside)."""
@@ -392,7 +392,8 @@ def test_import_leaves_matmul_precision():
             "print(torch.backends.cuda.matmul.allow_tf32, "
             "torch.get_float32_matmul_precision())")
     out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
-                         check=True, env={**os.environ, "JAX_PLATFORMS": "cpu"})
+                         check=True, env={**os.environ, "JAX_PLATFORMS": "cpu"},
+                         timeout=subprocess_timeout)
     assert out.stdout.split() == ["True", "high"]
 
 

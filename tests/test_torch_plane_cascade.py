@@ -278,19 +278,17 @@ def test_fused_relayout_entry_points_plain(block, shape):
     views; the batch is the plane's blocks, and the inverse gives back the
     batch's volume (native's transcription, `np_cascade_3d`)."""
     vol = field(shape, sum(block) + 1)
-    ref = None
+    # every view holds the same cells: one reference serves them all
+    ref = wavelet.cascade_3d(blocks.to_blocks(torch.from_numpy(vol), block), inverse=False)
     for v in views(vol):
         got = wavelet.forward_blocks_of_volume(v, block)
-        want = wavelet.cascade_3d(blocks.to_blocks(v, block), inverse=False)
-        assert got.shape == want.shape
-        assert torch.equal(got.view(torch.int32), want.view(torch.int32))
-        ref = got if ref is None else ref
+        assert got.shape == ref.shape
         assert torch.equal(got.view(torch.int32), ref.view(torch.int32))
     assert torch.equal(blocks.to_blocks(wavelet.forward_3d_volume(views(vol)[0], block),
                                         block).view(torch.int32), ref.view(torch.int32))
+    want = blocks.from_blocks(wavelet.cascade_3d(ref, inverse=True), shape, block)
     for c in (ref, ref.reshape(ref.shape[0], -1)):
         inv = wavelet.inverse_to_volume(c, shape, block)
-        want = blocks.from_blocks(wavelet.cascade_3d(ref, inverse=True), shape, block)
         assert inv.shape == shape
         assert torch.equal(inv.view(torch.int32), want.view(torch.int32))
     nat = np_cascade_3d(ref.numpy(), inverse=True)

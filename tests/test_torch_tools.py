@@ -66,13 +66,14 @@ def test_test_compression_runs_and_dumps(tmp_path, capsys):
     assert (tmp_path / "s_output.txt").stat().st_size > 0
 
 
-def test_gen_empty_volume_same_file_as_jax_tool(tmp_path):
+def test_gen_empty_volume_same_file_as_jax_tool(tmp_path, subprocess_timeout):
     """The same bytes as `tools/gen_empty_volume.py`, and a round trip of
     the file through the port decodes to zeros."""
     assert empty_t.main([str(tmp_path / "t.bin"), "10", "12", "14", "--device", "cpu"]) == 0
     subprocess.run([sys.executable, os.path.join(TOOLS, "gen_empty_volume.py"),
                     str(tmp_path / "j.bin"), "10", "12", "14"], check=True,
-                   capture_output=True, env={**os.environ, "JAX_PLATFORMS": "cpu"})
+                   capture_output=True, env={**os.environ, "JAX_PLATFORMS": "cpu"},
+                   timeout=subprocess_timeout)
     assert (tmp_path / "t.bin").read_bytes() == (tmp_path / "j.bin").read_bytes()
     assert (tmp_path / "t.bin").stat().st_size == 4 * 10 * 12 * 14
 
@@ -144,7 +145,7 @@ def test_scaling_report_keys_and_exit_code(tmp_path):
     assert skew[0] > skew[1]
 
 
-def test_tools_import_no_jax(tmp_path):
+def test_tools_import_no_jax(tmp_path, subprocess_timeout):
     """A process that runs every tool's main (tiny shapes, the CPU) has no
     jax in sys.modules."""
     d = str(tmp_path)
@@ -167,5 +168,5 @@ scaling_bench_torch.make_inputs()
 print("jax" in sys.modules)
 """
     out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
-                         check=True, cwd=REPO)
+                         check=True, cwd=REPO, timeout=subprocess_timeout)
     assert out.stdout.split()[-1] == "False"
