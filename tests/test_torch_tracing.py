@@ -1,8 +1,10 @@
 """The codec's spans (`utils/profiling.py` `span`) on the CPU.
 
 Under `torch.profiler` (CPU activity) a compress and a decompress at 32^3
-and 64^3, each with a raw block, show the named spans nested as the stages
-are, run no aten op outside a `cvx.*` span, and put the same ops under
+and 64^3 under the global RMS and at 32^3 under the local RMS, each with a
+raw block, show the named spans nested as the stages are, run no aten op
+outside a `cvx.*` span (a local compress none under `cvx.mulfac`, and no
+`cvx.mulfac_host` or `cvx.mulfac_wait`), and put the same ops under
 the stages each `device_ms.*` metric of the benchmark reads with and
 without the spans added below and beside them.  The spans each `host_ms.*`
 metric times whole hold no span inside, and the plans' upload span holds
@@ -26,9 +28,14 @@ from cvxcompress_tpu_torch.ops import codec  # noqa: E402
 from cvxcompress_tpu_torch.utils import profiling  # noqa: E402
 from torch.profiler import ProfilerActivity, profile  # noqa: E402
 
-# (block, shape): the benchmark's two routes, "fused32" and "stripe"
-CASES = {"b32": ((32, 32, 32), (64, 64, 96)), "b64": ((64, 64, 64), (64, 64, 192))}
+# (block, shape, use_local_rms): the benchmark's two routes, "fused32" and
+# "stripe", and "fused32" under the local RMS
+CASES = {"b32": ((32, 32, 32), (64, 64, 96), False),
+         "b64": ((64, 64, 64), (64, 64, 192), False),
+         "b32-local": ((32, 32, 32), (64, 64, 96), True)}
 SCALE = 1e-7  # the noise block's tokens outgrow its raw bytes: one raw block
+# the spans the global RMS opens under `cvx.mulfac`; a local compress opens none
+GLOBAL_RMS = {"cvx.mulfac_host", "cvx.mulfac_wait"}
 
 # each span the calls open below another, with the span it lies in
 PARENT = {
@@ -43,19 +50,21 @@ TOP = {"cvx.volume_h2d", "cvx.mulfac", "cvx.bundle", "cvx.sizes_readback",
 # the public halves' own spans, around all of their stages
 OUTER = {"cvx.compress_stage", "cvx.compress_finish", "cvx.decompress"}
 ROUTE_SPANS = {"b32": {"cvx.fused_encode", "cvx.fused_inverse"},
-               "b64": {"cvx.encode", "cvx.inverse"}}
+               "b64": {"cvx.encode", "cvx.inverse"},
+               "b32-local": {"cvx.fused_encode", "cvx.fused_inverse"}}
 # the spans that the stages' split added: children, waits, untraced stretches
 ADDED = set(PARENT) | OUTER | {
     "cvx.bundle", "cvx.raw_gather", "cvx.validate", "cvx.mulfac_wait", "cvx.volume_d2h",
     "cvx.volume_wait", "cvx.plan_pack", "cvx.decompress_many_prepare",
     "cvx.decompress_many_dispatch"}
-DEVICE_MS = ("device_ms.encode", "device_ms.emit", "device_ms.decode", "device_ms.inverse")
+DEVICE_MS = ("device_ms.encode", "device_ms.emit", "device_ms.decode", "device_ms.inverse",
+             "device_ms.encode_local")
 HOST_MS = ("host_ms.compress", "host_ms.decompress")
 
 
 def volume(case):
     """A z-sinusoid with N(0, 1) noise in its first block."""
-    block, shape = CASES[case]
+    block, shape, _ = CASES[case]
     z = np.arange(shape[0], dtype=np.float64)[:, None, None]
     v = (np.sin(z * np.pi * 3 / shape[0]) * np.ones(shape)).astype(np.float32)
     rng = np.random.default_rng(21)
@@ -66,10 +75,10 @@ def volume(case):
 def profiled(case):
     """(container, events) of one compress and one device-engine
     decompress under a CPU profile."""
-    block, _ = CASES[case]
+    block, _, local = CASES[case]
     v = volume(case)
     with profile(activities=[ProfilerActivity.CPU]) as prof:
-        data, _ = cvt.compress(v, SCALE, block=block, device="cpu")
+        data, _ = cvt.compress(v, SCALE, block=block, use_local_rms=local, device="cpu")
         cvt.decompress(data, device="cpu", engine="device")
     return data, list(prof.events())
 
@@ -104,12 +113,18 @@ def test_spans_nest_and_cover_every_op(case):
         p = innermost(s, stages)
         parents.setdefault(s.name, set()).add(p.name if p else None)
         assert innermost(s, outer) is not None, s.name
-    want = {n: {PARENT.get(n)} for n in TOP | ROUTE_SPANS[case] | set(PARENT)}
+    local = CASES[case][2]
+    want = {n: {PARENT.get(n)} for n in TOP | ROUTE_SPANS[case] | set(PARENT)
+            if not (local and n in GLOBAL_RMS)}
     assert parents == want
+    assert ctn.unpack(data)[0].use_local_rms == local
     # every op lies in a stage, not only in a public half's own span
     outside = sorted({e.name for e in events
                       if e.name.startswith("aten::") and innermost(e, stages) is None})
     assert outside == []
+    if local:  # each block's mulfac comes from the encode kernel alone
+        assert not [e.name for e in events if e.name.startswith("aten::")
+                    and (innermost(e, spans) or e).name == "cvx.mulfac"]
 
 
 def _ops_by_stage(events):
@@ -144,7 +159,7 @@ def test_no_span_and_no_record_without_a_profiler(monkeypatch):
     rf = profiling.record_function
     monkeypatch.setattr(profiling, "record_function",
                         lambda name: entered.append(name) or rf(name))
-    block, _ = CASES["b32"]
+    block = CASES["b32"][0]
     data, _ = cvt.compress(volume("b32"), SCALE, block=block, device="cpu")
     cvt.decompress(data, device="cpu", engine="device")
     cvt.decompress(data, device="cpu", engine="host")
@@ -160,11 +175,11 @@ def test_host_ms_spans_hold_no_span(case):
     """A span's own cost under a trace lands in the span around it: the
     spans that host_ms.* time whole open none inside, on one call or a
     batch."""
-    block, _ = CASES[case]
+    block, _, local = CASES[case]
     v = volume(case)
     with profile(activities=[ProfilerActivity.CPU]) as prof:
         datas = [d for d, _ in codec.compress_many([v, v], SCALE, block=block,
-                                                   device="cpu")]
+                                                   use_local_rms=local, device="cpu")]
         cvt.decompress(datas[0], device="cpu", engine="device")
         codec.decompress_many(datas, device="cpu")
     spans = cvx_spans(prof.events())
@@ -180,7 +195,7 @@ def test_host_ms_spans_hold_no_span(case):
 def test_plan_upload_span_holds_the_copy_alone():
     """decompress_many's `cvx.plan_h2d` holds the packed plans' copy; the
     fields' views are made after it."""
-    block, _ = CASES["b32"]
+    block = CASES["b32"][0]
     data, _ = cvt.compress(volume("b32"), SCALE, block=block, device="cpu")
     with profile(activities=[ProfilerActivity.CPU]) as prof:
         codec.decompress_many([data, data], device="cpu")
@@ -196,21 +211,29 @@ def test_plan_upload_span_holds_the_copy_alone():
 @pytest.mark.parametrize("case", list(CASES))
 def test_waits_on_the_card_hold_only_their_copy(case):
     """On the card each `*_wait` span holds no op but the copy it waits
-    for, and the RMS's sums come back inside `cvx.mulfac_wait`."""
+    for, and the global RMS's sums come back inside `cvx.mulfac_wait`; a
+    local compress opens no `cvx.mulfac_wait` and launches nothing under
+    `cvx.mulfac`, so its waits (on the events of copies issued before
+    them) hold no op at all."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card")
-    block, _ = CASES[case]
+    block, _, local = CASES[case]
     v = torch.from_numpy(volume(case)).cuda()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        data, _ = cvt.compress(v, SCALE, block=block)
+        data, _ = cvt.compress(v, SCALE, block=block, use_local_rms=local)
         cvt.decompress(data)
         torch.cuda.synchronize()
     events = list(prof.events())
     spans = cvx_spans(events)
-    assert {"cvx.mulfac_wait", "cvx.sizes_wait", "cvx.stream_wait"} <= {s.name for s in spans}
+    names = {s.name for s in spans}
+    assert {"cvx.sizes_wait", "cvx.stream_wait"} <= names
+    assert ("cvx.mulfac_wait" in names) != local
+    if local:
+        assert not [e.name for e in events if e.name.startswith("aten::")
+                    and (innermost(e, spans) or e).name == "cvx.mulfac"]
     ops = {e.name for e in events if e.name.startswith("aten::")
            and (innermost(e, spans) or e).name.endswith("_wait")}
     # the copy and `.numpy()`'s metadata ops, which launch nothing
     assert ops <= {"aten::to", "aten::_to_copy", "aten::empty_strided", "aten::copy_",
                    "aten::detach", "aten::resolve_conj", "aten::resolve_neg"}, ops
-    assert "aten::copy_" in ops
+    assert ("aten::copy_" in ops) != local, ops
