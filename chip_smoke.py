@@ -58,7 +58,10 @@ Builds the CUDA kernels (csrc/, nvcc for sm_90a) and the native host library
   the kernels' launches on each path, and the times a volume of a batch
   against single calls, of an append and of a get;
 
-and holds `decode_chase`, the route the wrapper picks and each of its two
+and holds `plan_layout` byte-equal to its plain version and to the host's
+`plan` on every container it decodes and on snapshot 0 of the benchmark's
+radial traffic at its three configurations (cvxbench/), timed there beside
+the host's plan; `decode_chase`, the route the wrapper picks and each of its two
 routes (the walk, the pieces), bit-equal to its plain version on every
 container it decodes and, with the chase's one-step semantics, on two
 synthetic inputs of 2^20 subsegments (one chain; resets at random places
@@ -115,8 +118,8 @@ PERIODS = 10
 REF_RATIO = 1148.6  # the JAX package's record on this input
 TRANSFORM_TOL = 1e-5  # relative RMS, the reference's fast-vs-slow bar
 NOISE_SCALE = 1e-1  # N(0,1) at this scale: ~4:1, the decoder's heavy case
-DECODE_SPANS = ("cvx.plan", "cvx.plan_h2d", "cvx.decode_maps", "cvx.decode_chase",
-                "cvx.decode_emit", "cvx.overlay_raw")
+DECODE_SPANS = ("cvx.plan", "cvx.plan_h2d", "cvx.plan_layout", "cvx.decode_maps",
+                "cvx.decode_chase", "cvx.decode_emit", "cvx.overlay_raw")
 BLOCK_A = (32, 32, 32)
 SHAPE_U = (100, 130, 75)  # nx % 4 != 0: the 32^3 encode's 4-byte copy route
 SHAPE_B = (384, 384, 384)  # bench config B (bench.py:589, :595)
@@ -1343,6 +1346,7 @@ def main():
         _kernels, blocks, codec, entropy_decode, fused_compress, fused_inverse,
         pack, quant, rle_device, rle_host, tokenize, wavelet,
     )
+    from cvxbench.harness import generator
 
     check("jax" not in sys.modules, "the port imported no jax")
     dev = torch.device("cuda")
@@ -1444,15 +1448,14 @@ def main():
     # the device entropy decoder: each kernel against its plain version on
     # a container (the main path's shapes, timed for the report)
     def decode_stages(label, cont, iters, plain_iters, device=False):
-        """Each decode kernel against its plain version on `cont`; returns
-        the dense coefficients, the errors, {kernel: (ms, plain ms)} by CUDA
-        events through the wrappers (with `device`, also each kernel's
-        device time alone, the profiler's, and the emit's zeroing) and the
-        bounds."""
+        """Each decode kernel against its plain version on `cont`, on the
+        blob `plan_layout` writes (`layout_stage`); returns the dense
+        coefficients, the errors, {kernel: (ms, plain ms)} by CUDA events
+        through the wrappers (with `device`, also each kernel's device time
+        alone, the profiler's, and the emit's zeroing), the bounds and
+        `layout_stage`'s times."""
         hdr, blkoffs, _, pbase = cvt.container.unpack(cont)
-        p = entropy_decode.plan(cont)
-        check(p is not None, f"{label}: plan accepts the container")
-        b = entropy_decode.upload(p, dev)
+        p, b, layout = layout_stage(label, cont, iters, plain_iters, device)
         nsub, cells, nnn = b["sub_block"].numel(), p["cells"], hdr.grid[3]
         sf = b["scalefac"]
         stream, reset, starts, sblk = (b["stream"], b["sub_reset"], b["starts"],
@@ -1528,17 +1531,91 @@ def main():
                   + "".join(f", device {x:.4f}" for x in dms[:1])
                   + "".join(f" (zeroing {x:.4f})" for x in dms[1:])
                   + f", plain {pms:.3f} ms, bound {bounds[k]['bound_ms']:.4f} ms on {card}")
-        return dk, errs, times, bounds
+        return dk, errs, times, bounds, layout
 
-    dense, errs, times, bounds = decode_stages("CI container", data, 20, 3, device=True)
+    def layout_stage(label, cont, iters, plain_iters, device=False):
+        """`plan_layout` on `cont` as the codec runs it (`device_plan`,
+        `upload_plan`) into a blob of 0xAB bytes (every byte is written),
+        against its plain version on the same upload and the host's
+        `plan`, byte for byte; returns the plan, the blob's fields and the
+        kernel's times (CUDA events; with `device` the profiler's), its
+        plain version's, its bound (the payload and the head read once,
+        the blob written once) and the host's plan both ways, wall clock to
+        a synchronize: `plan` and `upload` against `device_plan`,
+        `upload_plan` and `plan_layout`."""
+        s = entropy_decode.device_plan(cont)
+        check(s is not None, f"{label}: device_plan accepts the container")
+        up, blob = entropy_decode.upload_plan(s, dev)
+        b = entropy_decode.plan_layout(up, blob.fill_(0xAB), s)
+        plain = entropy_decode.plan_layout_plain(up, torch.full_like(blob, 0xCD), s)
+        check(torch.equal(blob, plain)
+              and np.array_equal(blob.cpu().numpy(), entropy_decode.plan(cont)["blob"]),
+              f"{label}: plan_layout's blob ({blob.numel()} B from {s['nrow']} rows) "
+              "byte-equal to its plain version's and to the host plan's")
+        del plain
+
+        def run():
+            entropy_decode.plan_layout(up, blob, s)
+
+        def host_plan():
+            entropy_decode.upload(entropy_decode.plan(cont), dev)
+            torch.cuda.synchronize()
+
+        def device_plan():
+            q = entropy_decode.device_plan(cont)
+            entropy_decode.plan_layout(*entropy_decode.upload_plan(q, dev), q)
+            torch.cuda.synchronize()
+
+        r = dict(ms=cuda_ms(run, iters),
+                 plain_ms=cuda_ms(lambda: entropy_decode.plan_layout_plain(up, blob, s),
+                                  plain_iters),
+                 **bound(s["payload"].size + s["head"].size + s["size"], 0),
+                 host_plan_ms=wall_ms(host_plan, 5)[0],
+                 device_plan_ms=wall_ms(device_plan, 5)[0])
+        if device:
+            r["device_ms"] = device_ms(run, iters, "plan_layout")
+        dev_s = f", device {r['device_ms']:.4f}" if device else ""
+        print(f"  {label}: plan_layout kernel {r['ms']:.4f} ms{dev_s}"
+              f", plain {r['plain_ms']:.3f} ms, bound {r['bound_ms']:.4f} ms; the plan "
+              f"{r['host_plan_ms']:.2f} ms on the host (with its upload), "
+              f"{r['device_plan_ms']:.2f} ms laid out on the card, on {card}", flush=True)
+        return s, b, r
+
+    dense, errs, times, bounds, layout = decode_stages("CI container", data, 20, 3,
+                                                       device=True)
     noise = np.random.default_rng(0).standard_normal(SHAPE, dtype=np.float32)
     ndata, nratio = cvt.compress(noise, NOISE_SCALE)
     del noise
     print(f"  noise container: N(0,1) {SHAPE} at scale {NOISE_SCALE}, "
           f"ratio {nratio:.2f}")
-    _, nerrs, ntimes, nbounds = decode_stages("noise container", ndata, 5, 1, device=True)
+    _, nerrs, ntimes, nbounds, nlayout = decode_stages("noise container", ndata, 5, 1,
+                                                       device=True)
     del ndata
     torch.cuda.empty_cache()
+    # plan_layout also at the benchmark's radial snapshots (cvxbench: snapshot 0 of
+    # the rtm-radial mix, the configurations' shape, block and mode)
+    radial = {}
+    with open(os.path.join(os.path.dirname(os.path.abspath(__file__)), "cvxbench",
+                           "traffic", "rtm-radial.json")) as fh:
+        traffic = json.load(fh)
+    for cname in ("ci-k2-b32", "ci-k2-b64", "ci-k2-b32-local"):
+        with open(os.path.join(os.path.dirname(os.path.abspath(__file__)), "cvxbench",
+                               "configs", f"{cname}.json")) as fh:
+            cfg = json.load(fh)
+        vr = generator.Generator(traffic, cfg["shape"], 20251019, dev).snapshot(0)
+        rdata, _ = cvt.compress(vr, cfg["scale"], block=tuple(cfg["block"]),
+                                use_local_rms=cfg["use_local_rms"])
+        del vr
+        torch.cuda.empty_cache()
+        radial[f"{cname} rtm-radial"] = layout_stage(
+            f"{cname} rtm-radial container", rdata, 20, 3, device=True)[2]
+        del rdata
+        torch.cuda.empty_cache()
+    report["plan_layout"] = dict(
+        max_abs_err=0.0,  # byte-equal, checked
+        noise_ms=nlayout["ms"], noise_plain_ms=nlayout["plain_ms"],
+        noise_device_ms=nlayout["device_ms"], noise_bound_ms=nlayout["bound_ms"],
+        inputs=radial, **layout)
     for k in DECODE_KERNELS:
         report[k] = dict(max_abs_err=max(errs[k], nerrs[k]), ms=times[k][0],
                          plain_ms=times[k][1], device_ms=times[k][2],
@@ -1686,7 +1763,7 @@ def main():
         del vtb
         torch.cuda.empty_cache()
         print(f"  {label}: container {bdata.size} B, ratio {bratio:.1f}")
-        bdense, berrs, btimes, bbounds = decode_stages(
+        bdense, berrs, btimes, bbounds, _ = decode_stages(
             f"{label} container", bdata, iters, plain_iters, device=time_decompress)
         if time_decompress:  # where the chase shows end to end
             dms, druns = wall_ms(lambda: (cvt.decompress(bdata, engine="device"),
@@ -2476,8 +2553,9 @@ def main():
     torch.cuda.synchronize()
     counts_a = dict(_kernels.launches)
     print(f"  launches on main path A: {counts_a}")
-    check(all(counts_a[k] > 0 for k in KERNELS_A + DECODE_KERNELS),
-          "every kernel of path A launched on it")
+    check(all(counts_a[k] > 0 for k in KERNELS_A + DECODE_KERNELS)
+          and counts_a["plan_layout"] == 1,
+          "every kernel of path A launched on it, plan_layout once")
     out_h = out.cpu().numpy()
     check(out_h.shape == SHAPE and bool(np.isfinite(out_h).all()),
           f"decompressed volume finite, shape {SHAPE}")
@@ -2717,7 +2795,7 @@ def main():
         torch.cuda.synchronize()
         counts = dict(_kernels.launches)
         under_native = pool.submit(rle_host.host_decompress, d)
-        want = {k: 1 for k in (*names, "block_emit", *DECODE_KERNELS)}
+        want = {k: 1 for k in (*names, "block_emit", "plan_layout", *DECODE_KERNELS)}
         check(counts == {k: want.get(k, 0) for k in counts},
               f"{tag}: one launch each of {', '.join(names)}, block_emit and the decode "
               "kernels, none else")
@@ -2979,6 +3057,10 @@ def main():
         "decode_emit": ("csrc/decode_emit.cu",
                         "cvxcompress_tpu/ops/entropy_decode.py:733",
                         "cvxcompress_tpu/ops/codec.py:856"),
+        # no TPU kernel: the host plan's ragged copy and subsegment tables
+        "plan_layout": ("csrc/plan_layout.cu",
+                        "none (the host plan, cvxcompress_tpu/ops/entropy_decode.py:140)",
+                        None),
         "block_fwd_z": ("csrc/block_encode.cu",
                         "cvxcompress_tpu/ops/fused_compress.py:422", None),
         "block_encode_xy": ("csrc/block_encode.cu",
@@ -3060,7 +3142,7 @@ def main():
                       "chunk_sparse_ms", "chunk_sparse_bound_ms", "device_ms",
                       "noise_device_ms", "noise_bound_ms", "zeroing_device_ms",
                       "noise_zeroing_device_ms", "half_zero_ms", "half_zero_plain_ms",
-                      "half_zero_bound_ms", "base_ms"):
+                      "half_zero_bound_ms", "base_ms", "host_plan_ms", "device_plan_ms"):
             if extra in r:
                 row[extra] = r[extra]
         if also:

@@ -46,6 +46,9 @@ _SIGNATURES = {
     "cvx_fused_inverse": [
         _VP, ctypes.c_int64, _VP, ctypes.c_int, ctypes.c_int, ctypes.c_int, _VP, _VP,
     ],
+    "cvx_plan_layout": [
+        _VP, ctypes.c_int64, ctypes.c_int64, _VP, ctypes.c_int64, ctypes.c_int64, _VP,
+    ],
     "cvx_decode_maps": [_VP, ctypes.c_int64, ctypes.c_int, _VP, _VP, _VP],
     "cvx_decode_chase": [
         _VP, _VP, _VP, ctypes.c_int64, ctypes.c_int64, ctypes.c_int, ctypes.c_int,

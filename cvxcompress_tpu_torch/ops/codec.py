@@ -42,9 +42,12 @@ batch before it finishes this one (pipeline.py); `compress` is
 
 Decompress has two engines, as in the JAX package (`cvxcompress_tpu/ops/
 codec.py:1490-1523`):
-- "device" (`decompress_device`): the host plans (ops/entropy_decode.py
-  `plan`: the payload copied into aligned rows, ∝ compressed bytes) and
-  uploads one blob (each block's scalefac in it); the device parses the
+- "device" (`decompress_device`): the host plans the spans, O(blocks)
+  (ops/entropy_decode.py `device_plan`: a copy table and the small
+  fields, each block's scalefac among them), uploads that head and
+  the container's payload as it is, and the kernel `plan_layout` lays the
+  plan's blob out on the card (the payload in aligned rows, the
+  subsegment tables); the device parses the
   stream (decode_maps, decode_chase), emits the coefficients into a dense
   block-major buffer (decode_emit), overlays the raw blocks and runs the
   inverse on it (32^3: `fused_inverse`; aligned 128^3:
@@ -58,7 +61,7 @@ codec.py:1490-1523`):
   the chunks into a zeroed dense buffer).
 
 `decompress_many` decodes K containers of one geometry on the device
-engine with one upload of their K plans.
+engine with one upload of their K heads and payloads.
 
 Each stage and each host wait on the card runs inside a span named
 "cvx.<stage>" (`utils/profiling.span`: a `record_function` while a
@@ -485,11 +488,13 @@ def decompress_device(data, device, path=None):
     as a tensor on `device`, or None when `plan` rejects the container's
     spans.  The container is already validated; `path` as `_inverse`'s."""
     with profiling.span("cvx.plan"):
-        p = entropy_decode.plan(data)
+        p = entropy_decode.device_plan(data)
     if p is None:
         return None
     with profiling.span("cvx.plan_h2d"):
-        b = entropy_decode.upload(p, device)
+        up, blob = entropy_decode.upload_plan(p, device)
+    with profiling.span("cvx.plan_layout"):
+        b = entropy_decode.plan_layout(up, blob, p)
     return _decode_planned(p, b, path)
 
 
@@ -513,14 +518,16 @@ def _decode_planned(p, b, path=None):
 def decompress_many(datas, device="cuda", to_host=True):
     """Decompress K containers of one geometry on the device engine.
 
-    The host plans all K (`entropy_decode.plan`) into ONE buffer
+    The host plans all K (`entropy_decode.device_plan`) and
+    packs each head and each container's payload into ONE buffer
     (page-locked for a card), ONE host-to-device copy takes it up, and the
-    K decodes and inverses launch back to back (`decompress_many_prepare`,
-    `decompress_many_dispatch`).  Returns K volumes, each bit-equal to
-    `decompress(data, device, engine="device")`: host numpy arrays (one
-    device-to-host copy for the batch) when `to_host`, else tensors on
-    `device`.  Returns None when the geometries differ or `plan` rejects a
-    container; the caller then decompresses each one by one.
+    K layouts (`plan_layout`), decodes and inverses launch back to back
+    (`decompress_many_prepare`, `decompress_many_dispatch`).  Returns K
+    volumes, each bit-equal to `decompress(data, device, engine="device")`:
+    host numpy arrays (one device-to-host copy for the batch) when
+    `to_host`, else tensors on `device`.  Returns None when the geometries
+    differ or a container's spans are degenerate; the caller then
+    decompresses each one by one.
     """
     device = _target(device)
     with device_guard(device):
@@ -539,9 +546,10 @@ def decompress_many(datas, device="cuda", to_host=True):
 
 @profiling.traced("cvx.decompress_many_prepare")
 def decompress_many_prepare(datas, device):
-    """The host half of `decompress_many`: the K containers validated, their
-    plans, the plans' blobs packed into one host buffer for `device` (no
-    device work).  None when a plan is rejected or the geometries differ."""
+    """The host half of `decompress_many`: the K containers validated,
+    their plans' spans and heads, each head and payload packed into one
+    host buffer for `device` (no device work).  None when a container's
+    spans are degenerate or the geometries differ."""
     datas = list(datas)
     with profiling.span("cvx.validate"):
         for d in datas:
@@ -549,7 +557,7 @@ def decompress_many_prepare(datas, device):
     plans = []
     with profiling.span("cvx.plan"):
         for d in datas:
-            p = entropy_decode.plan(d)
+            p = entropy_decode.device_plan(d)
             if p is None:
                 return None
             plans.append(p)
@@ -557,28 +565,44 @@ def decompress_many_prepare(datas, device):
               p["hdr"].bz) for p in plans}
     if len(geoms) > 1:
         return None
-    sizes = np.array([p["blob"].size for p in plans], dtype=np.int64)
-    bases = np.cumsum(sizes) - sizes  # each blob's size is a multiple of 16
+    # each upload (head, then payload) and each blob on a 16-byte boundary
+    ups = np.array([p["head"].size + entropy_decode._align(p["payload"].size)
+                    for p in plans], dtype=np.int64)
+    blobs = np.array([p["size"] for p in plans], dtype=np.int64)
     with profiling.span("cvx.plan_pack"):
-        host = host_buffer(int(sizes.sum()), torch.uint8, device)
+        host = host_buffer(int(ups.sum()), torch.uint8, device)
         h = host.numpy()
-        for p, o in zip(plans, bases):
-            h[o:o + p["blob"].size] = p["blob"]
-    return dict(device=torch.device(device), plans=plans, bases=bases, host=host)
+        o = 0
+        for p, n in zip(plans, ups):
+            head, payload = p["head"], p["payload"]
+            h[o: o + head.size] = head
+            h[o + head.size: o + head.size + payload.size] = payload
+            o += int(n)
+    return dict(device=torch.device(device), plans=plans, ups=ups, blobs=blobs,
+                host=host)
 
 
 @profiling.traced("cvx.decompress_many_dispatch")
 def decompress_many_dispatch(prep):
     """The device half of `decompress_many` on the current stream: ONE
-    host-to-device copy of the packed plans, then the K decodes and
-    inverses.  Returns the K volumes (tensors; no host sync)."""
-    host = prep["host"]
+    host-to-device copy of the packed heads and payloads, then for each
+    container its `plan_layout`, its decode and its inverse.  Returns the K
+    volumes (tensors; no host sync)."""
+    host, ups, blobs = prep["host"], prep["ups"], prep["blobs"]
     with device_guard(prep["device"]):
         with profiling.span("cvx.plan_h2d"):
-            blob = torch.empty(host.numel(), dtype=torch.uint8, device=prep["device"])
-            blob.copy_(host, non_blocking=True)
-        return [_decode_planned(p, entropy_decode.fields(blob, p["layout"], int(o)))
-                for p, o in zip(prep["plans"], prep["bases"])]
+            up = torch.empty(host.numel(), dtype=torch.uint8, device=prep["device"])
+            up.copy_(host, non_blocking=True)
+            blob = torch.empty(int(blobs.sum()), dtype=torch.uint8,
+                               device=prep["device"])
+        out = []
+        for p, a, n, b, m in zip(prep["plans"], np.cumsum(ups) - ups, ups,
+                                 np.cumsum(blobs) - blobs, blobs):
+            with profiling.span("cvx.plan_layout"):
+                f = entropy_decode.plan_layout(up[int(a): int(a + n)],
+                                               blob[int(b): int(b + m)], p)
+            out.append(_decode_planned(p, f))
+        return out
 
 
 def _decode_host(data, hdr, blkoffs, blkmulfac, payload_base, device, path=None):

@@ -1,9 +1,14 @@
 """Device entropy decoder: the parallel parse of the RLE/escape grammar.
 
-Counterpart of `cvxcompress_tpu/ops/entropy_decode.py`.  The host plans
-(`plan`: the container's block payloads copied back to back into 32-byte
-aligned subsegments, one blob, one upload); the card then runs three
-kernels, each with its plain PyTorch version in this module:
+Counterpart of `cvxcompress_tpu/ops/entropy_decode.py`.  The decode plan
+is one blob: the container's block payloads back to back in 32-byte
+aligned subsegments, and per-subsegment tables (`plan`, its numpy
+specification, builds it on the host as the JAX package does).  The codec
+builds it on the card: the host works out the spans and a small head in
+O(blocks) (`device_plan`), uploads that head and the container's payload
+as it is (`upload_plan`), and the kernel `plan_layout`
+(csrc/plan_layout.cu) writes the blob.  The card then runs three kernels,
+each with its plain PyTorch version in this module:
 
   1. `parse_maps` (csrc/decode_maps.cu): per subsegment, the token-start
      masks M[p] ("byte p starts a token when the subsegment is entered at
@@ -65,22 +70,23 @@ def _align(n):
     return -(-n // _ALIGN) * _ALIGN
 
 
-def plan(data):
-    """Host planning: container -> the decode plan (one blob of arrays).
+def plan_spans(data):
+    """Host planning, O(blocks): the container's block spans and the plan's
+    layout, shared by `plan` and the device path (`device_plan`), so their
+    rules cannot drift apart.
 
     Returns None when the container's spans are degenerate (the caller's
-    host engine decides then), else a dict with, as numpy views of one
-    uint8 `blob`: `segs` (nseg, SEG) u8, the aligned payload stream (plus
-    PAD zero bytes after it in the blob), `sub_block` (nsub,) i32 (nnn for
-    padding), `sub_reset` (nsub,) bool, `starts` (nchains,) i32 (the
-    subsegments with sub_reset), `scalefac` (nnn,) f32 (each block's
-    1/mulfac), `raw_ids` (nraw,) i64 and `raw_rows` (nraw, cells) f32 (None
-    when no block is raw); `hdr`, `cells` and `layout` (field -> (offset,
-    dtype, shape)).
+    host engine decides then), else a dict with `hdr`, `cells`, `payload`
+    (a uint8 view of the container's payload, not a copy), per block
+    `offs`, `sizes` (payload bytes), `asz` (W-aligned stream extents, 0
+    for a raw block) and `base` (stream offsets); `total` stream bytes,
+    `nsub` subsegments (a multiple of SPS), `rle_ids`, `raw_ids`; the
+    small fields `starts` (each RLE block's first subsegment, then the
+    padding subsegments), `scalefac` (each block's 1/mulfac); and `layout`
+    (field -> (offset, dtype, shape)) with the blob's `size`.
 
     Spans come from the argsorted offset table, so a payload in any block
-    order decodes.  The cost is one native ragged memcpy of the payload
-    into the blob plus O(nsub) span arithmetic: no per-block Python loop.
+    order decodes.  Nothing of size nsub or of stream size is built.
     """
     hdr, blkoffs, blkmulfac, payload_base = ctn.unpack(data)
     nnn = hdr.grid[3]
@@ -105,18 +111,16 @@ def plan(data):
     base = np.cumsum(asz) - asz
     total = int(asz.sum())
     nsub = max(SPS, -(-total // W))
-    nseg = -(-nsub // SPS)
-    nsub = nseg * SPS
+    nsub = -(-nsub // SPS) * SPS
     rle_ids = np.nonzero(rle)[0]
     raw_ids = np.nonzero(is_raw)[0]
-
-    sub_block = np.full(nsub, nnn, dtype=np.int32)
-    # raw blocks take no stream bytes: the RLE blocks' runs are contiguous
-    sub_block[: total // W] = np.repeat(rle_ids.astype(np.int32), asz[rle_ids] // W)
-    sub_reset = np.zeros(nsub, dtype=bool)
-    sub_reset[total // W:] = True  # padding subsegments restart (inert)
-    sub_reset[base[rle_ids] // W] = True
-    starts = np.flatnonzero(sub_reset).astype(np.int32)
+    # the subsegments with sub_reset: each RLE block's first, then every
+    # padding subsegment (raw blocks take no stream bytes)
+    starts = np.concatenate([base[rle_ids] // W, np.arange(total // W, nsub)]
+                            ).astype(np.int32)
+    mulfacs = blkmulfac if hdr.use_local_rms else np.float32(hdr.glob_mulfac)
+    scalefac = np.empty(nnn, dtype=np.float32)
+    scalefac[:] = np.float32(1.0) / mulfacs  # on the host: see decode_emit.cu
 
     fields = [
         ("stream", np.uint8, (nsub * W + PAD,)),
@@ -131,38 +135,73 @@ def plan(data):
     for name, dt, shape in fields:
         layout[name] = (off, dt, shape)
         off = _align(off + int(np.prod(shape)) * np.dtype(dt).itemsize)
-    blob = np.zeros(off, dtype=np.uint8)  # zeroed: stream tails, padding
+    return {"hdr": hdr, "cells": cells, "payload": payload, "offs": offs, "sizes": sizes,
+            "asz": asz, "base": base, "total": total, "nsub": nsub, "rle_ids": rle_ids,
+            "raw_ids": raw_ids, "starts": starts, "scalefac": scalefac,
+            "layout": layout, "size": off}
+
+
+def _nbytes(layout, name):
+    _, dt, shape = layout[name]
+    return int(np.prod(shape)) * np.dtype(dt).itemsize
+
+
+def plan(data):
+    """Host planning: container -> the decode plan (one blob of arrays).
+
+    The numpy specification of the blob that `plan_layout` writes on the
+    card (the tests and tools use it; the codec does not).  Returns None
+    when the container's spans are degenerate (`plan_spans`), else a dict
+    with, as numpy views of one uint8 `blob`: `segs` (nseg, SEG) u8, the
+    aligned payload stream (plus PAD zero bytes after it in the blob),
+    `sub_block` (nsub,) i32 (nnn for padding), `sub_reset` (nsub,) bool,
+    `starts` (nchains,) i32 (the subsegments with sub_reset), `scalefac`
+    (nnn,) f32 (each block's 1/mulfac), `raw_ids` (nraw,) i64 and
+    `raw_rows` (nraw, cells) f32 (None when no block is raw); `hdr`,
+    `cells` and `layout` (field -> (offset, dtype, shape)).
+
+    The cost is one native ragged memcpy of the payload into the blob plus
+    O(nsub) span arithmetic: no per-block Python loop.
+    """
+    s = plan_spans(data)
+    if s is None:
+        return None
+    nnn, cells, total, nsub = s["hdr"].grid[3], s["cells"], s["total"], s["nsub"]
+    rle_ids, raw_ids, base, layout = s["rle_ids"], s["raw_ids"], s["base"], s["layout"]
+    blob = np.zeros(s["size"], dtype=np.uint8)  # zeroed: stream tails, padding
 
     def view(name):
         o, dt, shape = layout[name]
-        n = int(np.prod(shape)) * np.dtype(dt).itemsize
-        return blob[o: o + n].view(dt).reshape(shape)
+        return blob[o: o + _nbytes(layout, name)].view(dt).reshape(shape)
 
     # the RLE payloads into the stream (each tail zeroed up to W) and the
     # raw blocks' coefficients into their rows: one native ragged copy
     o_raw = layout["raw_rows"][0]
     rowb = 4 * cells
+    offs, sizes = s["offs"], s["sizes"]
     rle_host.ragged_copy_fill(
-        payload,
+        s["payload"],
         np.concatenate([offs[rle_ids], offs[raw_ids]]),
         blob,
         np.concatenate([base[rle_ids], o_raw + rowb * np.arange(raw_ids.size)]),
         np.concatenate([sizes[rle_ids], np.full(raw_ids.size, rowb)]),
         W,
     )
-    view("sub_block")[:] = sub_block
-    view("starts")[:] = starts
-    mulfacs = blkmulfac if hdr.use_local_rms else np.float32(hdr.glob_mulfac)
-    view("scalefac")[:] = np.float32(1.0) / mulfacs  # on the host: see decode_emit.cu
+    sub_block = view("sub_block")
+    sub_block[:] = nnn
+    sub_block[: total // W] = np.repeat(rle_ids.astype(np.int32), s["asz"][rle_ids] // W)
+    sub_reset = view("sub_reset")
+    sub_reset[s["starts"]] = True
+    view("starts")[:] = s["starts"]
+    view("scalefac")[:] = s["scalefac"]
     view("raw_ids")[:] = raw_ids
-    view("sub_reset")[:] = sub_reset
     return {
-        "segs": view("stream")[: nsub * W].reshape(nseg, SEG),
-        "sub_block": view("sub_block"),
-        "sub_reset": view("sub_reset"),
+        "segs": view("stream")[: nsub * W].reshape(nsub // SPS, SEG),
+        "sub_block": sub_block,
+        "sub_reset": sub_reset,
         "starts": view("starts"),
         "scalefac": view("scalefac"),
-        "hdr": hdr,
+        "hdr": s["hdr"],
         "cells": cells,
         "raw_ids": view("raw_ids"),
         "raw_rows": view("raw_rows") if raw_ids.size else None,
@@ -181,17 +220,168 @@ def upload(p, device):
     return fields(torch.from_numpy(p["blob"]).to(device), p["layout"])
 
 
-def fields(blob, layout, base=0):
+# ---------------------------------------------------------------------------
+# the plan laid out on the device: the head, the upload, `plan_layout`
+# ---------------------------------------------------------------------------
+
+# a row of the head's copy table (csrc/plan_layout.cu `PlanRow`): copy n
+# bytes of the upload from src to blob + dst and zero the rest up to fill
+# bytes; blk >= 0 marks a stream row, whose fill / W subsegments get
+# sub_block = blk and sub_reset on the first
+_ROW = np.dtype([("src", "<i8"), ("dst", "<i8"), ("n", "<i4"), ("fill", "<i4"),
+                 ("blk", "<i4"), ("pad", "<i4")])
+CHUNK = 16  # output bytes a thread of plan_layout writes
+
+
+def device_plan(data):
+    """The device path's plan of the container `data`: `plan_spans` with
+    the upload's head (`_head`) in "head", "nrow" and "nchunk"; None when
+    the spans are degenerate."""
+    s = plan_spans(data)
+    if s is not None:
+        _head(s)
+    return s
+
+
+def _head(s):
+    """The upload's head for the plan `s` (`plan_spans`), O(blocks): one
+    uint8 array that holds the copy table (`_ROW` rows), its chunk prefix
+    (int64, a row's chunks are ceil(fill / CHUNK)) and the blob's bytes
+    from `starts` to `sub_reset` (the small fields and their alignment
+    gaps), 16-byte aligned.  The container's payload follows the head in
+    the upload, so its rows' sources are head.size + the block's offset.
+
+    The rows cover every byte of the blob: the RLE blocks, the padding
+    subsegments, the raw blocks, the small fields and the zero gaps (the
+    PAD bytes and the fields' alignment).  Sets s["head"], s["nrow"] and
+    s["nchunk"].
+    """
+    layout, nsub, total = s["layout"], s["nsub"], s["total"]
+    o = {name: f[0] for name, f in layout.items()}
+    rle, raw = s["rle_ids"], s["raw_ids"]
+    rowb = 4 * s["cells"]
+    gaps = [(a, b - a) for a, b in (
+        (nsub * W, o["raw_rows"]),  # PAD, then the alignment
+        (o["raw_rows"] + raw.size * rowb, o["sub_block"]),
+        (o["sub_block"] + 4 * nsub, o["starts"]),
+        (o["sub_reset"] + nsub, s["size"])) if b > a]
+    small = (o["starts"], o["sub_reset"] - o["starts"])
+    npad = nsub - total // W
+    nrow = rle.size + npad + raw.size + len(gaps) + 1
+    at_small = _ROW.itemsize * nrow + 8 * (nrow + 1)
+    head = np.zeros(_align(at_small + small[1]), dtype=np.uint8)
+    rows = head[: _ROW.itemsize * nrow].view(_ROW)
+    payload_at = head.size
+    a, b = 0, rle.size  # the RLE blocks
+    rows["src"][a:b] = payload_at + s["offs"][rle]
+    rows["dst"][a:b] = s["base"][rle]
+    rows["n"][a:b] = s["sizes"][rle]
+    rows["fill"][a:b] = s["asz"][rle]
+    rows["blk"][a:b] = rle
+    a, b = b, b + npad  # the padding subsegments: zeros, each a chain of its own
+    rows["dst"][a:b] = total + W * np.arange(npad)
+    rows["fill"][a:b] = W
+    rows["blk"][a:b] = s["hdr"].grid[3]
+    a, b = b, b + raw.size  # the raw blocks' rows
+    rows["src"][a:b] = payload_at + s["offs"][raw]
+    rows["dst"][a:b] = o["raw_rows"] + rowb * np.arange(raw.size)
+    rows["n"][a:b] = rowb
+    rows["fill"][a:b] = rowb
+    rows["blk"][a:] = -1
+    for i, (dst, n) in enumerate(gaps, b):  # zeros
+        rows["dst"][i], rows["fill"][i] = dst, n
+    rows[-1] = (at_small, small[0], small[1], small[1], -1, 0)  # the small fields
+    cum = head[_ROW.itemsize * nrow: at_small].view(np.int64)
+    cum[0] = 0
+    np.cumsum(-(-rows["fill"].astype(np.int64) // CHUNK), out=cum[1:])
+    blob_small = head[at_small: at_small + small[1]]
+    for name, arr in (("starts", s["starts"]), ("scalefac", s["scalefac"]),
+                      ("raw_ids", raw)):
+        n = _nbytes(layout, name)
+        blob_small[o[name] - small[0]: o[name] - small[0] + n] = (
+            np.ascontiguousarray(arr).view(np.uint8))
+    s.update(head=head, nrow=nrow, nchunk=int(cum[-1]))
+
+
+def upload_plan(s, device):
+    """The plan's two host-to-device copies into one buffer `up`: the head
+    (`device_plan`), then the container's payload straight from the
+    container's memory; and the blob, allocated and not zeroed
+    (`plan_layout` writes every byte).  Returns (up, blob)."""
+    head, payload = s["head"], s["payload"]
+    up = torch.empty(head.size + _align(payload.size), dtype=torch.uint8, device=device)
+    up[: head.size].copy_(torch.from_numpy(head), non_blocking=True)
+    up[head.size: head.size + payload.size].copy_(torch.from_numpy(payload), non_blocking=True)
+    blob = torch.empty(s["size"], dtype=torch.uint8, device=device)
+    return up, blob
+
+
+def plan_layout_plain(up, blob, s):
+    """Plain version of `plan_layout`, by the kernel's 16-byte chunks of
+    the blob (the head's chunk prefix), so its temporaries are a few words
+    a chunk: each chunk's row, its 16 source bytes (a window of the upload,
+    those past the row's n zeroed), stored as one 16-byte unit where the
+    destination is aligned and the row goes on, else as words; then each
+    stream subsegment's sub_block and sub_reset.  Writes every byte of the
+    blob, as the kernel does."""
+    dev, nrow = up.device, s["nrow"]
+    o_sb, o_sr = s["layout"]["sub_block"][0], s["layout"]["sub_reset"][0]
+    at = _ROW.itemsize * nrow
+    t64 = up[:at].view(torch.int64).reshape(nrow, 4)
+    t32 = up[:at].view(torch.int32).reshape(nrow, 8)
+    cum = up[at: at + 8 * (nrow + 1)].view(torch.int64)
+    g = torch.arange(s["nchunk"], device=dev)
+    r = torch.searchsorted(cum, g, right=True) - 1  # each chunk's row
+    c = g - cum[r]  # the chunk within its row
+    del g
+    off = CHUNK * c
+    rem = t32[r, 4] - off  # source bytes left at the chunk
+    win = torch.cat([up, up.new_zeros(CHUNK)]).unfold(0, CHUNK, 1)
+    val = win[torch.where(rem > 0, t64[r, 0] + off, 0)]
+    val.masked_fill_(torch.arange(CHUNK, device=dev) >= rem[:, None], 0)
+    del win, rem
+    d = t64[r, 1] + off  # the chunk's destination
+    left = t32[r, 5] - off  # the row's bytes from the chunk on
+    whole = (left >= CHUNK) & (d % CHUNK == 0)
+    blob.view(-1, CHUNK)[d[whole] // CHUNK] = val[whole]
+    part = ~whole  # destinations and fills are multiples of 4 bytes
+    k = torch.arange(4, device=dev)
+    keep = 4 * k < left[part, None]
+    blob.view(torch.int32)[(d[part, None] // 4 + k)[keep]] = (
+        val[part].view(torch.int32)[keep])
+    del val, left, whole, part
+    blk = t32[r, 6]
+    sub = (blk >= 0) & (c % 2 == 0)  # a stream row's chunk that starts a subsegment
+    q = d[sub] // W
+    blob[o_sb:].view(torch.int32)[q] = blk[sub]
+    blob[o_sr + q] = (c[sub] == 0).to(torch.uint8)
+    return blob
+
+
+def plan_layout(up, blob, s):
+    """Lay the plan `s` out in `blob` on the device from its upload `up`
+    (`upload_plan`, or a slice of `decompress_many`'s); returns the blob's
+    fields as views (`fields`), byte for byte `plan`'s.  One launch of
+    csrc/plan_layout.cu for CUDA tensors, the plain version for CPU ones."""
+    o_sb, o_sr = s["layout"]["sub_block"][0], s["layout"]["sub_reset"][0]
+    if up.dim() != 1 or blob.shape != (s["size"],):
+        raise ValueError(f"up must be 1-d and blob hold the plan's {s['size']} bytes")
+    if blob.device.type == "cpu":
+        plan_layout_plain(up, blob, s)
+    else:
+        _kernels.check_cuda(up, blob, dtypes=(torch.uint8, torch.uint8))
+        _kernels.check_aligned(up, blob)  # 16-byte stores, int64 rows
+        _kernels.launch("plan_layout", up.data_ptr(), s["nrow"], s["nchunk"],
+                        blob.data_ptr(), o_sb, o_sr)
+    return fields(blob, s["layout"])
+
+
+def fields(blob, layout):
     """A plan's fields as views of the uint8 tensor `blob`, which holds the
-    plan's blob at byte `base` (a multiple of the field alignment): several
-    plans can share one upload (ops/codec.py `decompress_many`)."""
-    if base % _ALIGN:
-        raise ValueError(f"a plan's blob must start on a {_ALIGN}-byte boundary")
+    plan's blob (`layout`: field -> (offset, dtype, shape))."""
     out = {}
     for name, (o, dt, shape) in layout.items():
-        n = int(np.prod(shape)) * np.dtype(dt).itemsize
-        o += base
-        out[name] = blob[o: o + n].view(_TORCH_DTYPES[dt]).reshape(shape)
+        out[name] = blob[o: o + _nbytes(layout, name)].view(_TORCH_DTYPES[dt]).reshape(shape)
     return out
 
 

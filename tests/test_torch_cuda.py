@@ -23,6 +23,7 @@ import chunk_emit_cases as ec
 import doubling_cases as dc
 import lookback_cases as lc
 import patch_walk_cases as pc
+import plan_layout_cases as plc
 import tile_tokenize_cases as tc
 
 pytestmark = pytest.mark.cuda
@@ -233,7 +234,7 @@ def test_main_path_counts_and_agrees_with_cpu(dev, rng):
     data, _ = cvt.compress(vol, 1e-2, device="cuda")
     out = cvt.decompress(data, device="cuda")
     torch.cuda.synchronize()
-    once = ("fused_encode", "block_emit", "fused_inverse", "decode_maps",
+    once = ("fused_encode", "block_emit", "fused_inverse", "plan_layout", "decode_maps",
             "decode_chase", "decode_emit")
     assert _kernels.launches == {k: int(k in once) for k in _kernels.launches}
     ref, _ = cvt.compress(vol, 1e-2, device="cpu")
@@ -413,6 +414,78 @@ def test_device_decompress_from_two_threads(dev):
     assert not bad
 
 
+def layout_kernel_vs_plain(data, dev):
+    """`plan_layout` on the card (into a blob of 0xAB bytes: every byte is
+    written) against its plain version on the same upload and against the
+    numpy `plan`, byte for byte; returns the plan's spans."""
+    s = entropy_decode.device_plan(data)
+    up, blob = entropy_decode.upload_plan(s, dev)
+    _kernels.reset_counts()
+    entropy_decode.plan_layout(up, blob.fill_(0xAB), s)
+    assert _kernels.launches["plan_layout"] == 1
+    plain = entropy_decode.plan_layout_plain(up, torch.full_like(blob, 0xCD), s)
+    torch.cuda.synchronize()
+    assert torch.equal(blob, plain)
+    np.testing.assert_array_equal(blob.cpu().numpy(), entropy_decode.plan(data)["blob"])
+    return s
+
+
+@pytest.mark.parametrize("case", list(plc.CASES))
+def test_plan_layout_matches_plain(dev, case):
+    layout_kernel_vs_plain(plc.CASES[case](), dev)
+
+
+def test_plan_layout_at_a_million_subsegments(dev):
+    """The benchmark's radial snapshot at the CI volume (sin(r / 10) +
+    U(0, 1) / 100, 32^3 blocks, scale 1e-2): a ~36 MB container, over a
+    million subsegments."""
+    nz, ny, nx = 704, 832, 640
+    axes = [torch.arange(n, device=dev, dtype=torch.float32) - (n - 1) // 2
+            for n in (nz, ny, nx)]
+    r = torch.sqrt(axes[0][:, None, None] ** 2 + axes[1][None, :, None] ** 2
+                   + axes[2][None, None, :] ** 2)
+    gen = torch.Generator(device=dev).manual_seed(11)
+    vol = torch.sin(r / 10) + torch.rand((nz, ny, nx), generator=gen, device=dev) / 100
+    del r
+    data, _ = cvt.compress(vol, 1e-2)
+    del vol
+    s = layout_kernel_vs_plain(data, dev)
+    assert s["nsub"] >= 1_000_000
+    torch.cuda.empty_cache()
+
+
+def test_plan_layout_launches_once_a_decompress(dev):
+    """One `plan_layout` a device-engine decompress, K a `decompress_many`
+    of K, whose volumes are bit-equal to the K single calls'."""
+    datas = [plc.CASES[c]() for c in ("b32", "permuted", "b32_local")]
+    singles = []
+    for i, d in enumerate(datas):
+        _kernels.reset_counts()
+        singles.append(cvt.decompress(d, device="cuda"))
+        torch.cuda.synchronize()
+        assert _kernels.launches["plan_layout"] == 1, i
+    _kernels.reset_counts()
+    many = codec.decompress_many(datas, device="cuda", to_host=False)
+    torch.cuda.synchronize()
+    assert _kernels.launches["plan_layout"] == len(datas)
+    for a, b in zip(many, singles):
+        assert torch.equal(a.view(torch.int32), b.view(torch.int32))
+
+
+def test_plan_layout_rejects_bad_inputs(dev):
+    """An upload off the 16-byte boundary or a blob of another size raises
+    instead of launching."""
+    s = entropy_decode.device_plan(plc.CASES["one_block"]())
+    up, blob = entropy_decode.upload_plan(s, dev)
+    _kernels.reset_counts()
+    with pytest.raises(ValueError, match="16-byte"):
+        entropy_decode.plan_layout(torch.empty(up.numel() + 1, dtype=torch.uint8,
+                                               device=dev)[1:], blob, s)
+    with pytest.raises(ValueError, match="blob"):
+        entropy_decode.plan_layout(up, blob[:-16], s)
+    assert _kernels.launches["plan_layout"] == 0
+
+
 def test_device_engine_matches_host_engine(dev, rng):
     vol = volume(rng, (64, 96, 96))
     data, _ = cvt.compress(vol, 1e-2, device="cuda")
@@ -523,7 +596,7 @@ def test_block128_roundtrip_on_the_card(dev):
     out = cvt.decompress(data)
     torch.cuda.synchronize()
     once = ("block_fwd_z", "block_encode_xy", "block_emit", "block_inv_xy",
-            "block_inv_z", "decode_maps", "decode_chase", "decode_emit")
+            "block_inv_z", "plan_layout", "decode_maps", "decode_chase", "decode_emit")
     assert _kernels.launches == {k: int(k in once) for k in _kernels.launches}
     assert out.device.type == "cuda"
     ref, _ = cvt.compress(vol, 1e-2, block=BLOCK128, device="cpu")
@@ -856,9 +929,10 @@ def test_generic_roundtrip_on_the_card(dev, block, shape):
         data, _ = cvt.compress(vol, scale, block=block, use_local_rms=local)
         out = cvt.decompress(data)
         torch.cuda.synchronize()
-        for k in (*names, "block_emit", "decode_maps", "decode_chase", "decode_emit"):
+        for k in (*names, "block_emit", "plan_layout", "decode_maps", "decode_chase",
+                  "decode_emit"):
             assert _kernels.launches[k] == 1, k
-        assert sum(_kernels.launches.values()) == 4 + len(names)
+        assert sum(_kernels.launches.values()) == 5 + len(names)
         ref, _ = cvt.compress(vol, scale, block=block, use_local_rms=local,
                               device="cpu")
         assert abs(int(data.size) - int(ref.size)) <= max(64, 0.01 * ref.size)
@@ -1121,8 +1195,8 @@ def test_optin_routes_on_the_card(dev, monkeypatch, env, block, shape, local, ke
     torch.cuda.synchronize()
     inverse = {"fused32": ("fused_inverse",), "block128": ("block_inv_xy", "block_inv_z"),
                "stripe_fused": ("stripe_fused_inverse",), "stripe": ("plane_cascade_inv",)}
-    want = dict.fromkeys((*kernels, "decode_maps", "decode_chase", "decode_emit",
-                          *inverse[codec.route(shape, block)]), 1)
+    want = dict.fromkeys((*kernels, "plan_layout", "decode_maps", "decode_chase",
+                          "decode_emit", *inverse[codec.route(shape, block)]), 1)
     assert {k: v for k, v in _kernels.launches.items() if v} == want
     ref, _ = cvt.compress(vol, 1e-2, block=block, use_local_rms=local, device="cpu")
     assert abs(int(data.size) - int(ref.size)) <= max(64, 0.01 * ref.size)

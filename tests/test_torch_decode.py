@@ -23,6 +23,7 @@ from cvxcompress_tpu_torch.ops import codec, rle_host
 from cvxcompress_tpu_torch.ops import entropy_decode as ted
 
 from conftest import make_radial_volume, make_sinusoid_volume, rel_error_and_snr
+from plan_layout_cases import reorder_payload
 
 TRANSFORM_TOL = 1e-5
 # the JAX package's parse, compiled once per shape (run op by op it takes
@@ -34,29 +35,6 @@ def rel_rms(got, ref):
     got = np.asarray(got, np.float64)
     ref = np.asarray(ref, np.float64)
     return np.sqrt(((got - ref) ** 2).mean()) / (np.sqrt((ref**2).mean()) + 1e-30)
-
-
-def reorder_payload(data, seed):
-    """The same container with its block payloads in a shuffled order (as
-    the reference's OpenMP threads complete them, CvxCompress.cpp:370-374)."""
-    hdr, blkoffs, _, pbase = ctn.unpack(data)
-    offs = blkoffs & ~ctn.RAW_FLAG
-    order = np.argsort(offs, kind="stable")
-    ends = np.empty_like(offs)
-    ends[order[:-1]] = offs[order[1:]]
-    ends[order[-1]] = data.size - pbase - ctn.SLACK_BYTES
-    perm = np.random.default_rng(seed).permutation(offs.size)
-    payload = data[pbase:]
-    parts, new = [], np.empty_like(offs)
-    pos = 0
-    for b in perm:
-        parts.append(payload[offs[b]:ends[b]])
-        new[b] = pos
-        pos += ends[b] - offs[b]
-    new = np.where(blkoffs < 0, new | ctn.RAW_FLAG, new)
-    out = np.concatenate([data[:pbase], *parts, np.zeros(ctn.SLACK_BYTES, np.uint8)])
-    out[32: 32 + 8 * offs.size] = new.view(np.uint8)
-    return out
 
 
 def _container(kind):

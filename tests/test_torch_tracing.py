@@ -7,9 +7,10 @@ outside a `cvx.*` span (a local compress none under `cvx.mulfac`, and no
 `cvx.mulfac_host` or `cvx.mulfac_wait`), and put the same ops under
 the stages each `device_ms.*` metric of the benchmark reads with and
 without the spans added below and beside them.  The spans each `host_ms.*`
-metric times whole hold no span inside, and the plans' upload span holds
-the copy alone.  With no profiler, `profiling.span` never enters
-`record_function`.
+metric times whole hold no span inside, the host plan (`cvx.plan`) holds
+no op either, and the plans' upload span holds the copies alone, its
+layout on the device (`cvx.plan_layout`) following it.  With no profiler,
+`profiling.span` never enters `record_function`.
 """
 
 import collections
@@ -45,8 +46,8 @@ PARENT = {
 }
 TOP = {"cvx.volume_h2d", "cvx.mulfac", "cvx.bundle", "cvx.sizes_readback",
        "cvx.chunk_bases", "cvx.emit_chunks", "cvx.raw_gather", "cvx.stream_d2h",
-       "cvx.assemble", "cvx.validate", "cvx.plan", "cvx.plan_h2d", "cvx.decode_maps",
-       "cvx.decode_chase", "cvx.decode_emit", "cvx.overlay_raw"}
+       "cvx.assemble", "cvx.validate", "cvx.plan", "cvx.plan_h2d", "cvx.plan_layout",
+       "cvx.decode_maps", "cvx.decode_chase", "cvx.decode_emit", "cvx.overlay_raw"}
 # the public halves' own spans, around all of their stages
 OUTER = {"cvx.compress_stage", "cvx.compress_finish", "cvx.decompress"}
 ROUTE_SPANS = {"b32": {"cvx.fused_encode", "cvx.fused_inverse"},
@@ -56,7 +57,7 @@ ROUTE_SPANS = {"b32": {"cvx.fused_encode", "cvx.fused_inverse"},
 ADDED = set(PARENT) | OUTER | {
     "cvx.bundle", "cvx.raw_gather", "cvx.validate", "cvx.mulfac_wait", "cvx.volume_d2h",
     "cvx.volume_wait", "cvx.plan_pack", "cvx.decompress_many_prepare",
-    "cvx.decompress_many_dispatch"}
+    "cvx.decompress_many_dispatch", "cvx.plan_layout"}
 DEVICE_MS = ("device_ms.encode", "device_ms.emit", "device_ms.decode", "device_ms.inverse",
              "device_ms.encode_local")
 HOST_MS = ("host_ms.compress", "host_ms.decompress")
@@ -193,8 +194,9 @@ def test_host_ms_spans_hold_no_span(case):
 
 
 def test_plan_upload_span_holds_the_copy_alone():
-    """decompress_many's `cvx.plan_h2d` holds the packed plans' copy; the
-    fields' views are made after it."""
+    """decompress_many's `cvx.plan_h2d` holds the packed heads' and
+    payloads' one copy and the two allocations (the upload, the blobs); the
+    layouts and the fields' views are made after it."""
     block = CASES["b32"][0]
     data, _ = cvt.compress(volume("b32"), SCALE, block=block, device="cpu")
     with profile(activities=[ProfilerActivity.CPU]) as prof:
@@ -204,7 +206,38 @@ def test_plan_upload_span_holds_the_copy_alone():
     ops = collections.Counter(
         e.name for e in events if e.name.startswith("aten::")
         and (innermost(e, spans) or e).name == "cvx.plan_h2d")
-    assert ops == {"aten::empty": 1, "aten::copy_": 1}, ops
+    assert ops == {"aten::empty": 2, "aten::copy_": 1}, ops
+
+
+# the ops that make a view or wrap a numpy array: they launch nothing
+VIEWS = {"aten::slice", "aten::as_strided", "aten::lift_fresh"}
+
+
+@pytest.mark.parametrize("case", list(CASES))
+def test_plan_holds_no_op_and_its_upload_the_two_copies(case):
+    """A device-engine decompress: `cvx.plan` (the host's O(blocks) plan)
+    runs no op and opens no span; `cvx.plan_h2d` holds the head's and the
+    payload's copies, the two allocations (the upload, the blob) and the
+    views they copy into, and nothing else; `cvx.plan_layout` follows it."""
+    block, _, local = CASES[case]
+    data, _ = cvt.compress(volume(case), SCALE, block=block, use_local_rms=local,
+                           device="cpu")
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        cvt.decompress(data, device="cpu", engine="device")
+    events = list(prof.events())
+    spans = cvx_spans(events)
+    by_span = collections.defaultdict(collections.Counter)
+    for e in events:
+        if e.name.startswith("aten::") or e.name.startswith("cvx."):
+            s = innermost(e, spans)
+            by_span[s.name if s else None][e.name] += 1
+    assert not by_span["cvx.plan"], by_span["cvx.plan"]
+    upload = by_span["cvx.plan_h2d"]
+    assert {k: n for k, n in upload.items() if k not in VIEWS} == {
+        "aten::empty": 2, "aten::copy_": 2}, upload
+    (plan_h2d,) = [s for s in spans if s.name == "cvx.plan_h2d"]
+    (layout,) = [s for s in spans if s.name == "cvx.plan_layout"]
+    assert plan_h2d.time_range.end <= layout.time_range.start
 
 
 @pytest.mark.cuda
